@@ -1,0 +1,40 @@
+"""round_tpu_torch — the PyTorch/CUDA port of round_tpu.
+
+The same framework for round-based distributed algorithms in the Heard-Of
+model, written in PyTorch with the two TPU kernels of the flagship path
+re-written by hand in CUDA C++ for Hopper (``csrc/``):
+
+  - one simulated process  = one lane of a ``torch.func.vmap``
+  - one round              = send -> masked exchange -> update
+  - one fault scenario     = one batch row
+  - the flagship run       = ``engine.fast.run_otr_loop``, one CUDA kernel
+                             launch for the whole run (``ops.fused.otr_loop``)
+
+Layout mirrors round_tpu (core/, ops/, engine/, models/, utils/) so every
+module has a counterpart of the same name.  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``; on CPU tensors each kernel
+wrapper runs its plain PyTorch version instead.
+"""
+
+__version__ = "0.1.0"
+
+from round_tpu_torch.core.time import Time
+from round_tpu_torch.core.progress import Progress
+from round_tpu_torch.core.rounds import (
+    Round, RoundCtx, SendSpec, broadcast, unicast, silence,
+)
+from round_tpu_torch.core.algorithm import Algorithm
+from round_tpu_torch.ops.mailbox import Mailbox
+
+__all__ = [
+    "Time",
+    "Progress",
+    "Round",
+    "RoundCtx",
+    "SendSpec",
+    "broadcast",
+    "unicast",
+    "silence",
+    "Algorithm",
+    "Mailbox",
+]

@@ -1,0 +1,505 @@
+"""Fused round exchange: HO-mask generation + value histogram, and the
+whole-run OTR loop — the two kernels of the flagship path.
+
+Port of round_tpu/ops/fused.py.  For histogram rounds the whole round
+exchange collapses to
+
+    counts[s, v, j] = #{ i : deliver[s, j, i] and vals[s, i] == v }
+
+and the [S, n, n] deliver mask never needs to exist in memory.  Mask
+semantics (hash mode, bit-exact with round_tpu):
+
+    ho[j, i]      = (colmask[i] & (side[j] == side[i]) & keep(j, i)) | (i == j)
+    deliver[j, i] = ho[j, i] & active[i] & rowmask[j]
+    keep(j, i)    = fmix32((j*n + i)*GOLD + salt0 ^ salt1r) & 0xFF >= p8
+
+Two kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
+
+  * K2 ``hist_exchange`` (replaces round_tpu ``_kernel``): one round's counts.
+  * K1 ``otr_loop`` / ``hist_loop`` (replaces round_tpu ``_loop_kernel``):
+    the whole run, state on chip across rounds.
+
+Each wrapper takes the kernel for CUDA tensors and its plain PyTorch
+version, in this module, for CPU tensors; there is no fallback from one to
+the other.  Each kernel launch adds one to ``LAUNCHES[name]``.
+
+Hashing runs in int64 holding uint32 values (``& 0xFFFFFFFF`` after every
+wrapping step): torch on the CPU has no ``>>`` or ``>=`` for uint32, and an
+int64 product keeps its low 32 bits exact.  Salts arrive as int32 bit
+patterns and are widened with ``_u32``.
+
+Knobs that exist only for TPU lowering (``sb``, ``interpret``, ``variant``)
+are not carried over.  ``dot`` stays in the signatures and is validated;
+the kernels count in int32 whichever value is passed (both round_tpu dtypes
+are exact and give identical bits).  ``mode="hw"`` (the TPU hardware PRNG)
+is not ported yet and raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+_GOLD = 0x9E3779B9
+_RMIX = 0x7FEB352D
+_COIN = 0x1B873593  # domain separator: lane-coin stream vs link stream
+_M32 = 0xFFFFFFFF
+
+# Shared memory one block may use on Hopper (H100: 227 KB).
+_MAX_SMEM = 232_448
+# Plain versions materialise [chunk, n, n] int64 hashes; keep one such
+# tensor near 128 MB so the card (and the CPU) can run them at n=1024.
+_PLAIN_ELEMS = 1 << 24
+
+#: kernel launches per wrapper, counted where the kernel is launched
+LAUNCHES: Dict[str, int] = {"hist_exchange": 0, "otr_loop": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _u32(x) -> torch.Tensor:
+    """uint32 value of an integer tensor (int32 bit pattern or any int64),
+    as int64."""
+    return torch.as_tensor(x).to(torch.int64) & _M32
+
+
+def _i32(x) -> torch.Tensor:
+    """int32 tensor with the low 32 bits of an integer tensor."""
+    x = _u32(x)
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _fmix32(z: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer on uint32 values held in int64 — bit-exact with
+    round_tpu/ops/fused.py::_fmix32 and engine/scenarios.py::_mix32."""
+    z = _u32(z)
+    z = z ^ (z >> 16)
+    z = (z * 0x85EBCA6B) & _M32
+    z = z ^ (z >> 13)
+    z = (z * 0xC2B2AE35) & _M32
+    z = z ^ (z >> 16)
+    return z
+
+
+def hash_coin(salt0, salt1, r, lane) -> torch.Tensor:
+    """Deterministic fair coin per (scenario, lane, round): murmur3 over
+    (lane, round, scenario salts) with its own stream constant, so coins
+    never correlate with link drops (round_tpu/ops/fused.py::hash_coin).
+    Accepts ints or tensors (broadcasts)."""
+    z = _u32(_u32(lane) * _GOLD + _u32(salt0))
+    z = z ^ _u32(_u32(r) * _RMIX + _u32(salt1) + _COIN)
+    return (_fmix32(z) & 1) == 1
+
+
+def _check_mode(mode: str) -> None:
+    if mode == "hw":
+        raise NotImplementedError(
+            "mode='hw' (the TPU hardware PRNG) is not ported: it becomes an "
+            "in-kernel Philox stream compared statistically (ROADMAP.md, "
+            "Slice 1 leftovers and follow-ups); use mode='hash'")
+    if mode != "hash":
+        raise ValueError(f"unknown mode {mode!r}")
+
+
+def _check_dot(dot: str) -> None:
+    if dot not in ("i8", "bf16"):
+        raise ValueError(f"unknown dot {dot!r} (expected 'i8' or 'bf16')")
+
+
+def _keep_mask(n: int, mode: str, salt0, salt1r, p8) -> torch.Tensor:
+    """[c, n(recv), n(send)] per-link delivery mask for one round of c
+    scenarios: hash keeps minus the diagonal (round_tpu _keep_mask, hash
+    mode, in receiver-major layout).  salt0/salt1r/p8 are [c]."""
+    _check_mode(mode)
+    p8 = torch.as_tensor(p8).to(torch.int64)
+    dev = p8.device
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    idx = ids[:, None] * n + ids[None, :]  # receiver j * n + sender i
+    z = _u32(idx * _GOLD + _u32(salt0)[:, None, None])
+    z = z ^ _u32(salt1r)[:, None, None]
+    keep = (_fmix32(z) & 0xFF) >= p8[:, None, None]
+    return keep & (ids[:, None] != ids[None, :])
+
+
+def _chunks(S: int, n: int):
+    step = max(1, _PLAIN_ELEMS // max(1, n * n))
+    for a in range(0, S, step):
+        yield slice(a, min(S, a + step))
+
+
+def _count(onehot: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """counts[c, v, j] = Σ_i onehot[c, v, i] · keep[c, j, i], exact: 0/1
+    operands and sums ≤ n < 2^24 in float32."""
+    return torch.bmm(onehot.to(torch.float32),
+                     keep.transpose(1, 2).to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# K2: one round's fused exchange + histogram
+# ---------------------------------------------------------------------------
+
+def _hist_exchange_plain(vals, senders, rowmask, side, salt0, salt1r, p8,
+                         num_values: int) -> torch.Tensor:
+    """Plain version of the K2 kernel: counts without the diagonal."""
+    S, n = vals.shape
+    rows = torch.arange(num_values, dtype=vals.dtype, device=vals.device)
+    out = torch.empty((S, num_values, n), dtype=torch.float32,
+                      device=vals.device)
+    for sl in _chunks(S, n):
+        keep = _keep_mask(n, "hash", salt0[sl], salt1r[sl], p8[sl])
+        if side is not None:
+            sd = side[sl]
+            keep = keep & (sd[:, :, None] == sd[:, None, :])
+        onehot = (vals[sl][:, None, :] == rows[None, :, None]) \
+            & senders[sl][:, None, :]
+        counts = _count(onehot, keep)
+        if rowmask is not None:
+            counts = counts * (rowmask[sl] != 0)[:, None, :].to(torch.float32)
+        out[sl] = counts
+    return out
+
+
+def _kernel_inputs(device, S: int, n: int, lanes, scalars):
+    """int32 contiguous views of a kernel's [S, n] (`lanes`, None passes
+    through) and [S] (`scalars`) inputs, after checking device and shape:
+    the kernels index them as dense int32 rows."""
+    out = []
+    for t, shape in [(t, (S, n)) for t in lanes] + [(t, (S,)) for t in scalars]:
+        if t is None:
+            out.append(None)
+            continue
+        if t.device != device or tuple(t.shape) != shape:
+            raise ValueError(
+                f"kernel input of shape {tuple(t.shape)} on {t.device}; "
+                f"expected {shape} on {device}")
+        out.append(t.to(torch.int32).contiguous())
+    return out
+
+
+def _hist_exchange_cuda(vals, senders, rowmask, side, salt0, salt1r, p8,
+                        num_values: int) -> torch.Tensor:
+    from round_tpu_torch.ops import _native
+
+    S, n = vals.shape
+    so = _native.lib("hist_exchange")
+    smem = so.hist_exchange_smem_bytes(n, num_values)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"hist_exchange: num_values={num_values} at n={n} needs {smem} "
+            f"bytes of shared memory per block (max {_MAX_SMEM})")
+    args = _kernel_inputs(vals.device, S, n, (vals, senders, rowmask, side),
+                          (salt0, salt1r, p8))
+    out = torch.empty((S, num_values, n), dtype=torch.float32,
+                      device=vals.device)
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        err = so.hist_exchange_launch(
+            *[None if a is None else a.data_ptr() for a in args],
+            out.data_ptr(), S, n, num_values, stream)
+    LAUNCHES["hist_exchange"] += 1
+    _native.check(err, "hist_exchange launch")
+    return out
+
+
+def hist_exchange(
+    vals: torch.Tensor,      # [S, n] int
+    active: torch.Tensor,    # [S, n] bool/int
+    colmask: torch.Tensor,   # [S, n] bool/int
+    rowmask,                 # [S, n] bool/int, or None (= all on)
+    side,                    # [S, n] int, or None (= no partition)
+    salt0: torch.Tensor,     # [S] int32
+    salt1r: torch.Tensor,    # [S] int32 (round premixed)
+    p8: torch.Tensor,        # [S] int32
+    num_values: int,
+    mode: str = "hash",
+    dot: str = "i8",
+) -> torch.Tensor:
+    """Fused masked exchange + per-value histogram (round_tpu/ops/fused.py::
+    hist_exchange).  Returns counts [S, num_values, n] float32 (exact
+    integers): counts[s, v, j] = number of senders i with deliver[s, j, i]
+    and vals[s, i] == v.
+
+    CUDA tensors launch the K2 kernel (csrc/hist_exchange.cu); CPU tensors
+    take its plain version.  As in round_tpu, senders of scenarios with
+    p8 >= 256 are silenced (a total blackout) and the self-delivery
+    diagonal is added here, outside the kernel, from ``active`` (and
+    ``rowmask``) alone.  ``dot`` is validated; the count is int32 either
+    way."""
+    _check_mode(mode)
+    _check_dot(dot)
+    vals = torch.as_tensor(vals).to(torch.int32)
+    senders = (colmask != 0) & (active != 0) & (p8 < 256)[:, None]
+    if vals.is_cuda:
+        counts = _hist_exchange_cuda(vals, senders, rowmask, side, salt0,
+                                     salt1r, p8, num_values)
+    elif vals.device.type == "cpu":
+        counts = _hist_exchange_plain(vals, senders, rowmask, side, salt0,
+                                      salt1r, p8, num_values)
+    else:
+        raise ValueError(f"hist_exchange: unsupported device {vals.device}")
+    # self-delivery (Round.scala:114-117): a process always hears itself
+    # while it is active and selected by the dest mask
+    self_on = active != 0
+    if rowmask is not None:
+        self_on = self_on & (rowmask != 0)
+    onehot_self = vals[:, None, :] == torch.arange(
+        num_values, dtype=torch.int32, device=vals.device)[None, :, None]
+    return counts + (onehot_self & self_on[:, None, :]).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# K1: the whole run, state on chip across rounds
+# ---------------------------------------------------------------------------
+
+class LoopAlgo:
+    """Algorithm plugin for the whole-run loop (`hist_loop`), as in
+    round_tpu/ops/fused.py::LoopAlgo.  Per-lane state is a tuple of [..., n]
+    tensors; each (sub)round's mailbox arrives as the [..., v_pad, n] int32
+    counts (row `num_values` is the mailbox size).
+
+      init(x0)          -> tuple of [..., n] state tensors (int32 or bool)
+      payload(k, us)    -> [..., n] int32 in [0, num_values) for subround k
+      update(r, k, us, counts, size, n, coin)
+                        -> (new_us, exit_ [..., n] bool); the template
+                           applies the active-lane freeze.
+      decided_slot      -> index in the state tuple of the bool decided flag.
+
+    Only OtrLoop has a CUDA kernel; other algorithms run on the plain
+    template (CPU tensors) until their kernels are ported.
+    """
+
+    num_values: int
+    phase_len: int = 1
+    needs_coin: bool = False
+    decided_slot: int = 1
+
+    def init(self, x0) -> Tuple[torch.Tensor, ...]:
+        raise NotImplementedError
+
+    def payload(self, k: int, us) -> torch.Tensor:
+        raise NotImplementedError
+
+    def update(self, r, k: int, us, counts, size, n: int, coin):
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class OtrLoop(LoopAlgo):
+    """OTR's round as a LoopAlgo — same math as engine.fast.OtrHist
+    (Otr.scala:44-49 mmor/quorum).  State: (x, decided, decision, after)."""
+
+    num_values: int = 16
+    after_decision: int = 2
+    phase_len: int = 1
+    needs_coin: bool = False
+    decided_slot: int = 1
+
+    def init(self, x0):
+        return (
+            x0.to(torch.int32),
+            torch.zeros(x0.shape, dtype=torch.bool, device=x0.device),
+            torch.full(x0.shape, -1, dtype=torch.int32, device=x0.device),
+            torch.full(x0.shape, self.after_decision, dtype=torch.int32,
+                       device=x0.device),
+        )
+
+    def payload(self, k, us):
+        return us[0]
+
+    def update(self, r, k, us, counts, size, n, coin):
+        x, decided, decision, after = us
+        V = self.num_values
+        quorum_thr = (2 * n) // 3
+        cvals = counts[..., :V, :]
+        bestc = cvals.max(dim=-2).values
+        rows = torch.arange(V, dtype=torch.int32, device=counts.device)[:, None]
+        # smallest value among the most-often-received, written out rather
+        # than left to argmax's tie behaviour
+        bestv = torch.where(cvals == bestc[..., None, :], rows, V).min(
+            dim=-2).values.to(torch.int32)
+        quorum = size > quorum_thr
+        superq = quorum & (bestc > quorum_thr)
+
+        newly = superq & ~decided
+        decided2 = decided | superq
+        decision2 = torch.where(newly, bestv, decision)
+        after2 = torch.where(decided2, after - 1, after)
+        exit_ = decided2 & (after2 <= 0)
+        x2 = torch.where(quorum, bestv, x)
+        return (x2, decided2, decision2, after2), exit_
+
+
+def _hist_loop_chunk(algo: LoopAlgo, x0, crashed, side, crash_round,
+                     heal_round, rotate_down, p8, salt0, salt1, rounds: int,
+                     mode: str):
+    """The plain whole-run template over c scenarios ([c, n] inputs)."""
+    c, n = x0.shape
+    dev = x0.device
+    V = algo.num_values
+    rows = torch.arange(V + 1, dtype=torch.int32, device=dev)[:, None]
+    lane = torch.arange(n, dtype=torch.int32, device=dev)
+    crashed = crashed != 0
+    us = algo.init(x0)
+    done = torch.zeros((c, n), dtype=torch.bool, device=dev)
+    dround = torch.full((c, n), -1, dtype=torch.int32, device=dev)
+    period = torch.clamp(rotate_down, min=1)
+    side_eq = side[:, :, None] == side[:, None, :]
+    for r in range(rounds):
+        alive = ~(crashed & (r >= crash_round)[:, None])
+        victim = (r // period) % n
+        rotated = (lane[None, :] == victim[:, None]) & (rotate_down > 0)[:, None]
+        colmask = alive & ~rotated
+        active = ~done
+        senders = colmask & active & (p8 < 256)[:, None]
+        keep = _keep_mask(n, mode, salt0, _u32(r * _RMIX + _u32(salt1)), p8)
+        keep = keep & (side_eq | (r >= heal_round)[:, None, None])
+        coin = (hash_coin(salt0[:, None], salt1[:, None], r, lane[None, :])
+                if algo.needs_coin else None)
+        k = r % algo.phase_len
+        vals = algo.payload(k, us)
+        # value indicator with the ones-row at row V (the mailbox size)
+        oh = (vals[:, None, :] == rows) | (rows == V)
+        counts = _count(oh & senders[:, None, :], keep).to(torch.int32)
+        # self-delivery: active lanes always hear themselves, independent
+        # of colmask/p8
+        counts = counts + (oh & active[:, None, :]).to(torch.int32)
+        us2, exit_ = algo.update(r, k, us, counts, counts[:, V], n, coin)
+        us = tuple(torch.where(active, a2, a) for a2, a in zip(us2, us))
+        done = done | (active & exit_)
+        decided = us[algo.decided_slot]
+        dround = torch.where(decided & (dround < 0), r, dround)
+    return tuple(u.to(torch.int32) for u in us) + (done.to(torch.int32),
+                                                    dround)
+
+
+def _hist_loop_plain(algo, x0, crashed, side, crash_round, heal_round,
+                     rotate_down, p8, salt0, salt1, rounds, mode):
+    """Plain version of the K1 kernel: the whole run, scenario chunk by
+    chunk (a [chunk, n, n] mask per round, never [S, n, n])."""
+    S, n = x0.shape
+    parts = [
+        _hist_loop_chunk(algo, x0[sl], crashed[sl], side[sl],
+                         crash_round[sl], heal_round[sl], rotate_down[sl],
+                         p8[sl], salt0[sl], salt1[sl], rounds, mode)
+        for sl in _chunks(S, n)
+    ]
+    return tuple(torch.cat(col, dim=0) for col in zip(*parts))
+
+
+def _otr_loop_cuda(algo: "OtrLoop", x0, crashed, side, crash_round,
+                   heal_round, rotate_down, p8, salt0, salt1, rounds: int):
+    from round_tpu_torch.ops import _native
+
+    S, n = x0.shape
+    V = algo.num_values
+    so = _native.lib("otr_loop")
+    smem = so.otr_loop_smem_bytes(n, V)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"otr_loop: num_values={V} at n={n} needs {smem} bytes of shared "
+            f"memory per block (max {_MAX_SMEM})")
+    ins = _kernel_inputs(x0.device, S, n, (x0, crashed, side),
+                         (crash_round, heal_round, rotate_down, p8, salt0,
+                          salt1))
+    outs = [torch.empty((S, n), dtype=torch.int32, device=x0.device)
+            for _ in range(6)]
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        err = so.otr_loop_launch(
+            *[a.data_ptr() for a in ins], *[o.data_ptr() for o in outs],
+            S, n, V, rounds, algo.after_decision, stream)
+    LAUNCHES["otr_loop"] += 1
+    _native.check(err, "otr_loop launch")
+    return tuple(outs)
+
+
+def hist_loop(
+    algo: LoopAlgo,
+    x0: torch.Tensor,           # [S, n] int32 initial per-lane input
+    crashed: torch.Tensor,      # [S, n] bool
+    side: torch.Tensor,         # [S, n] int32
+    crash_round: torch.Tensor,  # [S] int32
+    heal_round: torch.Tensor,   # [S] int32
+    rotate_down: torch.Tensor,  # [S] int32
+    p8: torch.Tensor,           # [S] int32
+    salt0: torch.Tensor,        # [S] int32
+    salt1: torch.Tensor,        # [S] int32 (UNmixed; rounds premix inside)
+    rounds: int,
+    mode: str = "hash",
+    dot: str = "i8",
+):
+    """Run a whole LoopAlgo workload (round_tpu/ops/fused.py::hist_loop).
+
+    Returns (state_arrays, done, decided_round): state_arrays is the algo's
+    state tuple as [S, n] int32 (bool slots as 0/1), done [S, n] bool,
+    decided_round [S, n] int32.  CUDA tensors launch the K1 kernel
+    (csrc/otr_loop.cu, OtrLoop only); CPU tensors take the plain template.
+    ``dot`` is validated; the count is int32 either way."""
+    _check_mode(mode)
+    _check_dot(dot)
+    args = (x0, crashed, side, crash_round, heal_round, rotate_down, p8,
+            salt0, salt1)
+    if x0.is_cuda:
+        if not isinstance(algo, OtrLoop):
+            raise NotImplementedError(
+                f"no CUDA kernel for {type(algo).__name__} yet (only OtrLoop)")
+        outs = _otr_loop_cuda(algo, *args, rounds)
+    elif x0.device.type == "cpu":
+        outs = _hist_loop_plain(algo, *args, rounds, mode)
+    else:
+        raise ValueError(f"hist_loop: unsupported device {x0.device}")
+    n_state = len(outs) - 2
+    return tuple(outs[:n_state]), outs[n_state] != 0, outs[n_state + 1]
+
+
+def otr_loop(
+    x0, crashed, side, crash_round, heal_round, rotate_down, p8, salt0,
+    salt1, num_values: int, rounds: int, after_decision: int = 2,
+    mode: str = "hash", dot: str = "i8",
+):
+    """The whole OTR flagship workload in one kernel launch (the OtrLoop
+    instance of `hist_loop`; round_tpu/ops/fused.py::otr_loop).
+
+    Returns (x, decided, decision, after, done, decided_round), each [S, n]
+    (decided/done as bool)."""
+    algo = OtrLoop(num_values=num_values, after_decision=after_decision)
+    (x, dec, decision, after), done, dround = hist_loop(
+        algo, x0, crashed, side, crash_round, heal_round, rotate_down, p8,
+        salt0, salt1, rounds=rounds, mode=mode, dot=dot,
+    )
+    return (x, dec != 0, decision, after, done, dround)
+
+
+# ---------------------------------------------------------------------------
+# Dense oracles
+# ---------------------------------------------------------------------------
+
+def ho_link_mask(colmask, side, salt0, salt1r, p8) -> torch.Tensor:
+    """[.., n(recv), n(send)] hash-mode HO matrix — the ``jg=None`` instance
+    of ``ops.exchange.ho_block`` (round_tpu/ops/fused.py::ho_link_mask)."""
+    from round_tpu_torch.ops.exchange import ho_block
+
+    return ho_block(colmask, side, salt0, salt1r, p8)
+
+
+def hist_exchange_reference(
+    vals, active, colmask, rowmask, side, salt0, salt1r, p8, num_values
+) -> torch.Tensor:
+    """Dense oracle of hist_exchange in hash mode (same bits) —
+    round_tpu/ops/fused.py::hist_exchange_reference."""
+    S, n = vals.shape
+    if rowmask is None:
+        rowmask = torch.ones((S, n), dtype=torch.int32, device=vals.device)
+    if side is None:
+        side = torch.zeros((S, n), dtype=torch.int32, device=vals.device)
+    ho = ho_link_mask(colmask, side, salt0, salt1r, p8)
+    deliver = ho & (active != 0)[:, None, :] & (rowmask != 0)[:, :, None]
+    onehot = vals[:, :, None] == torch.arange(
+        num_values, dtype=vals.dtype, device=vals.device)[None, None, :]
+    counts = torch.bmm(deliver.to(torch.float32), onehot.to(torch.float32))
+    return counts.transpose(1, 2)

@@ -1,0 +1,68 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked `cuda`: each test skips (it does not fail) where torch finds no CUDA
+card, deciding inside the test.  On the card, chip_smoke.py is the full
+check at n=1024; these are the quick per-kernel checks:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+"""
+
+import pytest
+import torch
+
+from round_tpu_torch.engine import fast
+from round_tpu_torch.ops import fused
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels run only there)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n", [64, 1000])
+def test_hist_exchange_kernel_matches_plain(dev, n):
+    S, V = 14, 8
+    g = torch.Generator(device=dev).manual_seed(n)
+    vals = torch.randint(0, V, (S, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    senders = torch.rand((S, n), generator=g, device=dev) < 0.8
+    rowmask = torch.rand((S, n), generator=g, device=dev) < 0.9
+    side = torch.randint(0, 2, (S, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    s0, s1 = fast._salts(g, S, 0, dev), fast._salts(g, S, 1, dev)
+    p8 = torch.tensor([0, 1, 13, 64, 128, 255, 256] * 2, dtype=torch.int32,
+                      device=dev)
+    senders = senders & (p8 < 256)[:, None]
+    for rm in (None, rowmask):
+        for sd in (None, side):
+            before = fused.LAUNCHES["hist_exchange"]
+            got = fused._hist_exchange_cuda(vals, senders, rm, sd, s0, s1,
+                                            p8, V)
+            torch.cuda.synchronize()
+            assert fused.LAUNCHES["hist_exchange"] == before + 1
+            want = fused._hist_exchange_plain(vals, senders, rm, sd, s0, s1,
+                                              p8, V)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [64, 1000])
+def test_otr_loop_kernel_matches_plain(dev, n):
+    S, V, rounds = 16, 8, 8
+    g = torch.Generator(device=dev).manual_seed(n)
+    mix = fast.standard_mix(g, S, n, device=dev)
+    mix = mix.replace(p8=torch.where(torch.arange(S, device=dev) == 5, 256,
+                                     mix.p8).to(torch.int32))
+    x0 = torch.randint(0, V, (n,), generator=g, device=dev,
+                       dtype=torch.int32).expand(S, n).contiguous()
+    args = (x0, mix.crashed, mix.side, mix.crash_round, mix.heal_round,
+            mix.rotate_down, mix.p8, mix.salt0, mix.salt1)
+    algo = fused.OtrLoop(num_values=V, after_decision=2)
+    got = fused._otr_loop_cuda(algo, *args, rounds)
+    torch.cuda.synchronize()
+    want = fused._hist_loop_plain(algo, *args, rounds, "hash")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
