@@ -39,14 +39,21 @@ PARITY_K, PARITY_ROUNDS = 8, 10
 SEED = 0
 
 # Published peaks of one H100 SXM at its 700 W limit: HBM bandwidth from
-# NVIDIA's data sheet; INT32 from the Hopper white paper (64 INT32 lanes per
-# SM per clock x 132 SMs x 1.98 GHz boost clock).
+# NVIDIA's data sheet; integer issue rates from the Hopper white paper over
+# 132 SMs at the 1.98 GHz boost clock.  Shifts, LOP3, IADD3 and ISETP issue
+# on the ALU pipe (64 INT32 lanes per SM per clock); IMAD and IMUL issue on
+# the FMA pipe (64 lanes per SM per clock, half the FP32 rate), which runs
+# alongside the ALU pipe.  The bound is the busier pipe.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 operations per hashed link: index IMAD, xor with the round salt, the
-# murmur3 finalizer (3 shift+xor pairs, 2 multiplies) and the 8-bit
-# threshold compare (csrc/hash.cuh::rt_link_keep)
-OPS_PER_LINK = 12
+ALU_OPS_PER_S = 132 * 64 * 1.98e9
+IMAD_OPS_PER_S = 132 * 64 * 1.98e9
+# Per hashed link (csrc/hash.cuh::rt_link_keep), on the ALU pipe: the xor
+# with the round salt, fmix32's three shift/xor pairs (the last xor and the
+# & 0xFF fold into one LOP3) and the >= p8 compare; on the FMA pipe: the
+# index multiply-add and fmix32's two multiplies.  The count increments are
+# left out, so the bound is a floor.
+ALU_PER_LINK = 8
+IMAD_PER_LINK = 3
 
 
 def say(phase: str, **fields) -> None:
@@ -76,9 +83,19 @@ def event_ms(fn, reps: int = 1):
 
 
 def bound_ms(nbytes: float, links: float):
+    """(ms, "bytes" or "operations", pipe): the least time of the work, the
+    larger of the byte time and the busier integer pipe's time."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = links * OPS_PER_LINK / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_alu = links * ALU_PER_LINK / ALU_OPS_PER_S * 1e3
+    t_imad = links * IMAD_PER_LINK / IMAD_OPS_PER_S * 1e3
+    t_ops, pipe = (t_alu, "ALU") if t_alu >= t_imad else (t_imad, "FMA")
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", "HBM"
+    return t_ops, "operations", pipe
+
+
+def _on_cpu(args):
+    return tuple(a.cpu() if hasattr(a, "cpu") else a for a in args)
 
 
 def loop_links(mix, dround, rounds: int, after_decision: int = 2) -> float:
@@ -177,9 +194,26 @@ def main() -> None:
                         f"K2 differs from its plain version (n={n}, S={S}, "
                         f"rowmask={rm is not None}, side={sd is not None}, "
                         f"max_abs_err={err})")
+                if n != N:
+                    continue
+                # the public wrapper (sender silencing, the self-delivery
+                # diagonal) on the card against the same call on CPU copies
+                cut = slice(0, 14)  # every p8 twice
+                wargs = (vals[cut], active[cut], colmask[cut],
+                         None if rm is None else rm[cut],
+                         None if sd is None else sd[cut], s0[cut], s1[cut],
+                         p8[cut], V)
+                got = fused.hist_exchange(*wargs).cpu()
+                want = fused.hist_exchange(*_on_cpu(wargs))
+                err = float((got - want).abs().max())
+                k2_err = max(k2_err, err)
+                require(torch.equal(got, want),
+                        f"hist_exchange on the card differs from the CPU "
+                        f"(rowmask={rm is not None}, side={sd is not None}, "
+                        f"max_abs_err={err})")
     say("K2-vs-plain", n=N, S=S_CHECK, V=V, p8="0,1,13,64,128,255,256",
-        cases="rowmask x side, plus n=1000", tolerance=0,
-        max_abs_err=k2_err, equal=True)
+        cases="rowmask x side, plus n=1000, plus the public wrapper vs CPU",
+        tolerance=0, max_abs_err=k2_err, equal=True)
 
     # -- 4. K1 against its plain version (tolerance 0: integer state) --------
     algo = fused.OtrLoop(num_values=V, after_decision=2)
@@ -202,8 +236,24 @@ def main() -> None:
             require(torch.equal(g, w),
                     f"K1 output {name} differs from its plain version "
                     f"(n={n}, S={S}, max_abs_err={err})")
+        if n != N:
+            continue
+        # the public wrapper on the card against the same call on CPU copies
+        wargs = tuple(a[:9] for a in args)  # the four families + a blackout
+        kw = dict(num_values=V, rounds=PARITY_ROUNDS, after_decision=2)
+        got = fused.otr_loop(*wargs, **kw)
+        want = fused.otr_loop(*_on_cpu(wargs), **kw)
+        for name, g, w in zip(("x", "decided", "decision", "after", "done",
+                               "decided_round"), got, want):
+            g = g.cpu()
+            err = float((g.to(torch.int32) - w.to(torch.int32)).abs().max())
+            k1_err = max(k1_err, err)
+            require(torch.equal(g, w),
+                    f"otr_loop output {name} on the card differs from the "
+                    f"CPU (max_abs_err={err})")
     say("K1-vs-plain", n=N, S=S_CHECK, rounds=PARITY_ROUNDS, V=V,
-        rows="standard_mix + blackout p8=256, plus n=1000", outputs=6,
+        rows="standard_mix + blackout p8=256, plus n=1000, plus the public "
+             "wrapper vs CPU", outputs=6,
         tolerance=0, max_abs_err=k1_err, equal=True)
 
     # -- 5. the main paths, through the bench's entry point ------------------
@@ -267,7 +317,7 @@ def main() -> None:
     cnt, hist = decided_summary(out[1] != 0, out[5], ROUNDS)
     k1_links = loop_links(mix, out[5], ROUNDS)
     k1_bytes = 4 * S_FLAG * N * (3 + 6) + 4 * 6 * S_FLAG
-    k1_bound, k1_by = bound_ms(k1_bytes, k1_links)
+    k1_bound, k1_by, k1_pipe = bound_ms(k1_bytes, k1_links)
     t0 = time.perf_counter()
     plain = fused._hist_loop_plain(algo, *args, ROUNDS, "hash")
     torch.cuda.synchronize()
@@ -275,7 +325,8 @@ def main() -> None:
     require(all(torch.equal(a, b) for a, b in zip(out, plain)),
             "K1 differs from its plain version at the flagship shape")
     say("K1-time", ms=round(k1_ms, 3), plain_ms=round(k1_plain_ms, 1),
-        bound_ms=round(k1_bound, 3), bound_by=k1_by,
+        bound_ms=round(k1_bound, 3), bound_by=k1_by, pipe=k1_pipe,
+        bytes_ms=round(k1_bytes / HBM_BYTES_PER_S * 1e3, 4),
         hashed_links=f"{k1_links:.4g}",
         frac_lanes_decided=round(float(cnt) / (S_FLAG * N), 4),
         decided_round_p50=p50_from_hist(hist.cpu()))
@@ -301,7 +352,7 @@ def main() -> None:
     k2_links = float((hashed * senders.sum(1).to(torch.float64)
                       * (N - 1)).sum())
     k2_bytes = 4 * S_FUSED * N * 3 + 4 * 3 * S_FUSED + 4 * S_FUSED * V * N
-    k2_bound, k2_by = bound_ms(k2_bytes, k2_links)
+    k2_bound, k2_by, k2_pipe = bound_ms(k2_bytes, k2_links)
     # yardstick only (the port never calls it): one torch.bmm of the
     # one-hot senders and the materialised keep mask
     keep = torch.empty((S_FUSED, N, N), dtype=torch.float32, device=dev)
@@ -316,7 +367,8 @@ def main() -> None:
     require(torch.equal(lib_out, got), "the bmm yardstick disagrees with K2")
     del keep, lib_out
     say("K2-time", ms=round(k2_ms, 3), plain_ms=round(k2_plain_ms, 1),
-        bound_ms=round(k2_bound, 4), bound_by=k2_by,
+        bound_ms=round(k2_bound, 4), bound_by=k2_by, pipe=k2_pipe,
+        bytes_ms=round(k2_bytes / HBM_BYTES_PER_S * 1e3, 4),
         library_ms=round(lib_ms, 3), hashed_links=f"{k2_links:.4g}")
 
     kernels = [

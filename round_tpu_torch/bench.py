@@ -50,9 +50,6 @@ def parse_args(argv=None):
     ap.add_argument("--rng", choices=["hash", "hw"], default="hash",
                     help="per-link RNG: the hash sampler (hw, the TPU "
                          "hardware PRNG, is not ported yet)")
-    ap.add_argument("--dot", choices=["i8", "bf16"], default="i8",
-                    help="count dtype of round_tpu's kernels; the CUDA "
-                         "kernels count in int32 either way")
     ap.add_argument("--parity", type=int, default=8, metavar="K",
                     help="also run K scenarios through the general engine "
                          "and report agreement (0 = off)")
@@ -105,10 +102,9 @@ class Bench:
         rnd = fast.OtrHist(n_values=a.values, after_decision=2)
         state0 = OtrState.fresh(init, S, a.n)
         if engine == "loop":
-            return fast.run_otr_loop(rnd, state0, mix, rounds, mode=a.rng,
-                                     dot=a.dot)
+            return fast.run_otr_loop(rnd, state0, mix, rounds, mode=a.rng)
         return fast.run_hist(rnd, state0, lambda s: s.decided, mix, rounds,
-                             mode=a.rng, dot=a.dot)
+                             mode=a.rng)
 
     def run_reference(self, mix, init, rounds):
         """The general engine over every scenario row of the mix."""
@@ -195,7 +191,7 @@ def main(argv=None) -> dict:
         "scenarios": S,
         "engine": args.engine,
         "rng": args.rng,
-        "dot": args.dot,
+        "dot": "i8",  # the kernels count in int32; kept for round_tpu's shape
         "backend": dev.type,
         "workload": args.workload,
         "p_drop": args.p_drop,

@@ -13,9 +13,11 @@
 // scenarios and adds the self-delivery diagonal, as the TPU wrapper does.
 //
 // Bound on the card: the per-link hash.  Every link of every p8 > 0 scenario
-// needs its own murmur3 finalizer (about 12 int32 operations), so at the
-// main-path shape the kernel is bound by INT32 operations, not bytes: it
-// reads O(S*n) inputs and writes O(S*V*n) counts.  Design (the simple
+// needs its own murmur3 finalizer and the threshold compare: 8 operations on
+// the ALU pipe and 3 multiplies on the FMA pipe, which runs alongside it, so
+// the ALU pipe sets the floor.  It reads O(S*n) inputs and writes O(S*V*n)
+// counts; at the main-path shape the ALU time is about 15x the byte time.
+// Design (the simple
 // first version): grid (S, ceil(n/256)), one thread per receiver j; the
 // block stages the scenario's sender codes and sides in shared memory and
 // each thread walks all senders, hashing each link in registers and

@@ -15,9 +15,11 @@
 //   freeze of done lanes, exit and decided_round (fused.py:670-675).
 //
 // Bound on the card: the per-link hash.  Every link of every round of every
-// p8 > 0 scenario needs one murmur3 finalizer (about 12 int32 operations);
-// the kernel reads O(S*n) inputs and writes O(S*n) outputs, so INT32
-// operations bound it by three orders of magnitude over bytes.  Design
+// p8 > 0 scenario needs one murmur3 finalizer and the threshold compare: 8
+// operations on the ALU pipe and 3 multiplies on the FMA pipe, which runs
+// alongside it, so the ALU pipe sets the floor.  The kernel reads O(S*n)
+// inputs and writes O(S*n) outputs; at the flagship shape the ALU time is
+// about 100x the byte time.  Design
 // (the simple version): one block per scenario; each thread owns receivers
 // j, j + blockDim, ...; the six state vectors live in shared memory for the
 // whole run and only the final state is written out.  Each round the block

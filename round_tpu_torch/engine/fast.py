@@ -42,9 +42,8 @@ class FaultMix:
       p8:           [S] int32 — iid per-link drop threshold (p = p8/256)
       salt0/salt1:  [S] int32 — hash-sampler salts (uint32 bit patterns)
 
-    The value-adversary tensors of round_tpu's FaultMix (byz_value,
-    equiv_p8, stale_p8) are carried for shape parity; the ported paths
-    ignore them, as round_tpu's histogram paths do.
+    round_tpu's value-adversary fields (byz_value, equiv_p8, stale_p8) are
+    not ported: no path of the port reads them.
     """
 
     crashed: torch.Tensor
@@ -55,9 +54,6 @@ class FaultMix:
     p8: torch.Tensor
     salt0: torch.Tensor
     salt1: torch.Tensor
-    byz_value: Optional[torch.Tensor] = None
-    equiv_p8: Optional[torch.Tensor] = None
-    stale_p8: Optional[torch.Tensor] = None
 
     @property
     def n(self) -> int:
@@ -167,8 +163,6 @@ class HistRound:
     num_values: int
     phase_len: int = 1
     needs_coin: bool = False
-    needs_lane_ids: bool = False
-    no_exchange_subrounds: tuple = ()
 
     def payload(self, state, k: int = 0) -> torch.Tensor:
         raise NotImplementedError
@@ -214,7 +208,6 @@ def hist_scan(
     n: int,
     counts_fn: Callable,
     coin_fn: Optional[Callable] = None,
-    lane_ids: Optional[torch.Tensor] = None,
 ):
     """The round-step scaffolding every histogram engine shares: subround
     dispatch, exit/freeze bookkeeping (exited lanes stop sending and their
@@ -237,14 +230,8 @@ def hist_scan(
         k = r % rnd.phase_len
         counts = counts_fn(state, k, done, r)
         size = counts.sum(dim=1, dtype=torch.int32)
-        extra = {}
-        if rnd.needs_lane_ids:
-            extra["lane_ids"] = (
-                torch.arange(size.shape[-1], dtype=torch.int32,
-                             device=size.device)
-                if lane_ids is None else lane_ids)
         new_state, exit_ = rnd.update_counts(state, counts, size, r, n, k=k,
-                                             coin=coin, **extra)
+                                             coin=coin)
         # frozen lanes keep their state; exits only count for active lanes
         active = ~done
         state = tree_where(active, new_state, state)

@@ -31,16 +31,14 @@ def _bool(a, dev) -> torch.Tensor:
 
 
 def fault_mix_from_numpy(d: Mapping[str, np.ndarray], device=None) -> FaultMix:
-    """A FaultMix from numpy arrays named as round_tpu's FaultMix fields
-    (the optional adversary fields may be absent or None)."""
+    """A FaultMix from numpy arrays named as round_tpu's FaultMix fields.
+    The value-adversary fields are not ported and must be absent or None."""
     dev = resolve_device(device)
+    for k in ("byz_value", "equiv_p8", "stale_p8"):
+        if d.get(k) is not None:
+            raise NotImplementedError(f"FaultMix.{k} is not ported")
     kw = {"crashed": _bool(d["crashed"], dev)}
     kw.update({k: _int32(d[k], dev) for k in _MIX_INT_FIELDS})
-    if d.get("byz_value") is not None:
-        kw["byz_value"] = _bool(d["byz_value"], dev)
-    for k in ("equiv_p8", "stale_p8"):
-        if d.get(k) is not None:
-            kw[k] = _int32(d[k], dev)
     return FaultMix(**kw)
 
 

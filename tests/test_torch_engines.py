@@ -194,6 +194,19 @@ def test_round_params_matches_jax():
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("field", ["byz_value", "equiv_p8", "stale_p8"])
+def test_interop_refuses_value_adversaries(field):
+    """The value adversaries are not ported: a mix that sets one is refused
+    rather than run without it."""
+    mix, _ = _mix_and_init()
+    d = {k: np.asarray(getattr(mix, k)) for k in MIX_FIELDS}
+    d["byz_value"] = d["equiv_p8"] = d["stale_p8"] = None
+    d[field] = np.zeros_like(d["crashed"] if field == "byz_value"
+                             else d["p8"])
+    with pytest.raises(NotImplementedError, match=field):
+        interop.fault_mix_from_numpy(d, device="cpu")
+
+
 def test_benchstat_matches_jax():
     from round_tpu.utils import benchstat as jbenchstat
 
