@@ -4,21 +4,47 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels of round_tpu_torch from
-round_tpu_torch/csrc, holds each kernel bit for bit against its plain
-PyTorch version at n=1024, drives the flagship path (OTR, n=1024 x 10,000
-four-family fault scenarios x 50 rounds) through the whole-run kernel and
-the per-round path through the exchange kernel, replays 8 scenarios through
-the port's general engine, and prints:
+round_tpu_torch/csrc and holds each against its plain PyTorch version, bit
+for bit (tolerance 0: every output is an integer), before driving the
+paths that run them.  The five kernels:
 
-  - one line per phase;
-  - the card's name and power limit as nvidia-smi reports them;
-  - a {"kernels": [...]} line with each kernel's launches on its path, its
-    time, its bound, its plain version's time and a library call's time;
-  - last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
+  hist_exchange   K2, csrc/hist_exchange.cu (one round's exchange)
+  otr_loop        K1, csrc/hist_loop.cu, OTR instance (the whole run)
+  floodmin_loop   K1, csrc/hist_loop.cu, FloodMin instance
+  benor_loop      K1, csrc/hist_loop.cu, Ben-Or instance
+  lv_loop         K3, csrc/lv_loop.cu (the whole LastVoting run)
 
-Any failure raises and the script exits non-zero without the last line.
-It needs the round_tpu_torch package beside it and a CUDA card; it imports
-nothing of JAX.
+Phases, each printed as one line:
+
+  env / build      the card, torch and CUDA versions; nvcc of every source
+  K2-vs-plain      n=1024 and n=1000, every rowmask/side combination, the
+                   public hist_exchange on the card against the CPU
+  K1-vs-plain      OTR at n=1024 and n=1000, the public otr_loop vs CPU
+  K1-FloodMin-vs-plain, K1-BenOr-vs-plain, K3-vs-plain
+                   n=1024 x 64 and n=1000 scenarios of the four-family mix
+                   with the p8 grid 0..256 (blackout rows included),
+                   FloodMin at V=16 and V=1000, Ben-Or over 12 rounds,
+                   LastVoting over 20 rounds with the partition healing
+                   mid-run; the public run_floodmin_loop, run_benor_loop
+                   and lv_loop on the card against the CPU
+  flagship         OTR, n=1024 x 10,000 scenarios x 50 rounds, through the
+                   bench's entry point on K1 (launches counted)
+  per-round        the same on K2, S=1,000
+  parity           8 flagship scenarios replayed through the general engine
+  ladder-<rung>    otr4, floodmin, lv and benor at their reference shapes
+                   through round_tpu_torch.apps.ladder: rounds/sec, parity,
+                   spec parities and the launches of the rung's kernel
+  K*-time          each kernel's time at its path's shape (K3 also at
+                   n=1024 x 10,000 x 40 rounds), its plain version's time,
+                   its bound and what bounds it
+
+Then the card's name and power limit as nvidia-smi reports them, a
+{"kernels": [...]} line (per kernel: launches on its path, max_abs_err
+against its plain version, ms, plain_ms, bound_ms, bound_by, library_ms)
+and last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+N}}.  Any failure raises and the script exits non-zero without the last
+line.  It needs the round_tpu_torch package beside it and a CUDA card; it
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +63,12 @@ S_FUSED = 1_000          # run_hist (K2, one launch per round)
 S_CHECK = 64             # kernel-vs-plain comparisons
 PARITY_K, PARITY_ROUNDS = 8, 10
 SEED = 0
+P8_GRID = (0, 1, 13, 64, 128, 255, 256)
+# the ladder rungs (round_tpu_torch/apps/ladder.py) and the kernel each runs
+RUNG_KERNEL = {"otr4": "otr_loop", "floodmin": "floodmin_loop",
+               "lv": "lv_loop", "benor": "benor_loop"}
+# K3 beyond the lv rung (whose crash mix has p8 = 0 and hashes nothing)
+LV_N, LV_S, LV_ROUNDS = 1024, 10_000, 40
 
 # Published peaks of one H100 SXM at its 700 W limit: HBM bandwidth from
 # NVIDIA's data sheet; integer issue rates from the Hopper white paper over
@@ -98,25 +130,75 @@ def _on_cpu(args):
     return tuple(a.cpu() if hasattr(a, "cpu") else a for a in args)
 
 
-def loop_links(mix, dround, rounds: int, after_decision: int = 2) -> float:
-    """Links (i -> j, i != j) whose hash this run needed: for every round and
+def hashed(mix):
+    """[S] 1.0 where the scenario's links need a hash (0 < p8 < 256)."""
+    import torch
+
+    return ((mix.p8 > 0) & (mix.p8 < 256)).to(torch.float64)
+
+
+def loop_links(mix, dround, rounds: int, linger: int) -> float:
+    """Links (i -> j, i != j) whose hash a K1 run needed: for every round and
     every scenario with 0 < p8 < 256, each sender times each receiver still
     active.  A lane that decides at round d exits at the end of round
-    d + after_decision - 1, so it is active through that round."""
+    d + linger (OTR: after_decision - 1; FloodMin and Ben-Or: 0), so it is
+    active through that round."""
     import torch
 
     from round_tpu_torch.engine.fast import round_params
 
-    last = torch.where(dround >= 0, dround + max(after_decision - 1, 0),
-                       rounds)
-    hashed = ((mix.p8 > 0) & (mix.p8 < 256)).to(torch.float64)
+    last = torch.where(dround >= 0, dround + linger, rounds)
+    h = hashed(mix)
     total = 0.0
     for r in range(rounds):
         active = r <= last
         senders = (round_params(mix, r)[0] & active).sum(1).to(torch.float64)
         receivers = active.sum(1).to(torch.float64)
-        total += float((hashed * senders * (receivers - 1)).sum())
+        total += float((h * senders * (receivers - 1)).sum())
     return total
+
+
+def lv_links(mix, dround, rounds: int) -> float:
+    """Links K3 hashes: n per round (one mask row or column) for every
+    round in which a scenario with 0 < p8 < 256 still has an active lane.
+    A LastVoting lane exits in the round it decides."""
+    import torch
+
+    n = mix.crashed.shape[1]
+    last = torch.where(dround >= 0, dround, rounds - 1).max(dim=1).values
+    running = torch.clamp(last + 1, max=rounds).to(torch.float64)
+    return float((hashed(mix) * running).sum()) * n
+
+
+def compare(what: str, got, want) -> float:
+    """max |got - want| over paired outputs; fails unless all are equal."""
+    import torch
+
+    got, want = list(got), list(want)
+    require(len(got) == len(want), f"{what}: {len(got)} outputs, not "
+            f"{len(want)}")
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(g.dtype == w.dtype and g.shape == w.shape,
+                f"{what}: output {i} is {g.dtype}{tuple(g.shape)}, not "
+                f"{w.dtype}{tuple(w.shape)}")
+        g, w = g.to(torch.int64), w.to(g.device).to(torch.int64)
+        e = float((g - w).abs().max()) if g.numel() else 0.0
+        err = max(err, e)
+        require(torch.equal(g, w),
+                f"{what}: output {i} differs (max_abs_err={e})")
+    return err
+
+
+def plain_ms(fn):
+    """(milliseconds, result) of one call of a plain version on the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
 
 
 def main() -> None:
@@ -130,12 +212,16 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
 
     from round_tpu_torch import bench
+    from round_tpu_torch.apps import ladder
     from round_tpu_torch.engine import fast, scenarios
     from round_tpu_torch.engine.executor import run_instance
+    from round_tpu_torch.models.benor import BenOrState
     from round_tpu_torch.models.common import consensus_io
+    from round_tpu_torch.models.floodmin import FloodMinState
     from round_tpu_torch.models.otr import OTR, OtrState
     from round_tpu_torch.ops import _native, fused
     from round_tpu_torch.utils.benchstat import decided_summary, p50_from_hist
+    from round_tpu_torch.utils.tree import tree_map
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -159,7 +245,8 @@ def main() -> None:
     for name in _native.KERNELS:
         _native.lib(name)
         for line in _native.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill",
+                                       "entry function")):
                 say("ptxas", kernel=name, info=line.strip())
     say("build", dir=build_dir.relative_to(ROOT), nvcc_s=round(compile_s, 2),
         total_s=round(time.perf_counter() - t0, 2))
@@ -184,16 +271,13 @@ def main() -> None:
         senders = colmask & active & (p8 < 256)[:, None]
         for rm in (None, rowmask):
             for sd in (None, side):
-                got = fused._hist_exchange_cuda(vals, senders, rm, sd, s0, s1,
-                                                p8, V)
-                want = fused._hist_exchange_plain(vals, senders, rm, sd, s0,
-                                                  s1, p8, V)
-                err = float((got - want).abs().max())
-                k2_err = max(k2_err, err)
-                require(torch.equal(got, want),
-                        f"K2 differs from its plain version (n={n}, S={S}, "
-                        f"rowmask={rm is not None}, side={sd is not None}, "
-                        f"max_abs_err={err})")
+                k2_err = max(k2_err, compare(
+                    f"K2 vs its plain version (n={n}, S={S}, rowmask="
+                    f"{rm is not None}, side={sd is not None})",
+                    [fused._hist_exchange_cuda(vals, senders, rm, sd, s0, s1,
+                                               p8, V)],
+                    [fused._hist_exchange_plain(vals, senders, rm, sd, s0,
+                                                s1, p8, V)]))
                 if n != N:
                     continue
                 # the public wrapper (sender silencing, the self-delivery
@@ -203,14 +287,11 @@ def main() -> None:
                          None if rm is None else rm[cut],
                          None if sd is None else sd[cut], s0[cut], s1[cut],
                          p8[cut], V)
-                got = fused.hist_exchange(*wargs).cpu()
-                want = fused.hist_exchange(*_on_cpu(wargs))
-                err = float((got - want).abs().max())
-                k2_err = max(k2_err, err)
-                require(torch.equal(got, want),
-                        f"hist_exchange on the card differs from the CPU "
-                        f"(rowmask={rm is not None}, side={sd is not None}, "
-                        f"max_abs_err={err})")
+                k2_err = max(k2_err, compare(
+                    f"hist_exchange on the card vs the CPU (rowmask="
+                    f"{rm is not None}, side={sd is not None})",
+                    [fused.hist_exchange(*wargs).cpu()],
+                    [fused.hist_exchange(*_on_cpu(wargs))]))
     say("K2-vs-plain", n=N, S=S_CHECK, V=V, p8="0,1,13,64,128,255,256",
         cases="rowmask x side, plus n=1000, plus the public wrapper vs CPU",
         tolerance=0, max_abs_err=k2_err, equal=True)
@@ -227,34 +308,93 @@ def main() -> None:
                            dtype=torch.int32).expand(S, n).contiguous()
         args = (x0, mix.crashed, mix.side, mix.crash_round, mix.heal_round,
                 mix.rotate_down, mix.p8, mix.salt0, mix.salt1)
-        got = fused._otr_loop_cuda(algo, *args, PARITY_ROUNDS)
-        want = fused._hist_loop_plain(algo, *args, PARITY_ROUNDS, "hash")
-        for name, g, w in zip(("x", "decided", "decision", "after", "done",
-                               "decided_round"), got, want):
-            err = float((g - w).abs().max())
-            k1_err = max(k1_err, err)
-            require(torch.equal(g, w),
-                    f"K1 output {name} differs from its plain version "
-                    f"(n={n}, S={S}, max_abs_err={err})")
+        k1_err = max(k1_err, compare(
+            f"K1 vs its plain version (n={n}, S={S})",
+            fused._hist_loop_cuda(algo, *args, PARITY_ROUNDS),
+            fused._hist_loop_plain(algo, *args, PARITY_ROUNDS, "hash")))
         if n != N:
             continue
         # the public wrapper on the card against the same call on CPU copies
         wargs = tuple(a[:9] for a in args)  # the four families + a blackout
         kw = dict(num_values=V, rounds=PARITY_ROUNDS, after_decision=2)
-        got = fused.otr_loop(*wargs, **kw)
-        want = fused.otr_loop(*_on_cpu(wargs), **kw)
-        for name, g, w in zip(("x", "decided", "decision", "after", "done",
-                               "decided_round"), got, want):
-            g = g.cpu()
-            err = float((g.to(torch.int32) - w.to(torch.int32)).abs().max())
-            k1_err = max(k1_err, err)
-            require(torch.equal(g, w),
-                    f"otr_loop output {name} on the card differs from the "
-                    f"CPU (max_abs_err={err})")
+        k1_err = max(k1_err, compare(
+            "otr_loop on the card vs the CPU",
+            [t.cpu() for t in fused.otr_loop(*wargs, **kw)],
+            fused.otr_loop(*_on_cpu(wargs), **kw)))
     say("K1-vs-plain", n=N, S=S_CHECK, rounds=PARITY_ROUNDS, V=V,
         rows="standard_mix + blackout p8=256, plus n=1000, plus the public "
              "wrapper vs CPU", outputs=6,
         tolerance=0, max_abs_err=k1_err, equal=True)
+
+    # -- 4b. the new K1 instances and K3 against their plain versions -------
+    def loop_inputs(n, S, x_values, heal_round=5):
+        """The four-family mix with the p8 grid (blackout included) laid
+        over every third row, and one initial vector for all scenarios."""
+        mix = fast.standard_mix(gen, S, n, p_drop=P_DROP,
+                                heal_round=heal_round, device=dev)
+        grid = torch.tensor(P8_GRID, dtype=torch.int32, device=dev).repeat(
+            S // len(P8_GRID) + 1)[:S]
+        over = torch.arange(S, device=dev) % 3 == 0
+        mix = mix.replace(p8=torch.where(over, grid, mix.p8).to(torch.int32))
+        x0 = torch.randint(0, x_values, (n,), generator=gen, device=dev,
+                           dtype=torch.int32).expand(S, n).contiguous()
+        return mix, x0
+
+    errs = {"floodmin_loop": 0.0, "benor_loop": 0.0, "lv_loop": 0.0}
+    S_PUB = 14  # the public wrappers: the four families, every p8 of the grid
+    for label, lalgo, rounds, xv in (
+            ("V=16", fused.FloodMinLoop(num_values=16, f=2), 6, 16),
+            ("V=1000", fused.FloodMinLoop(num_values=1000, f=2), 6, 1000),
+            ("", fused.BenOrLoop(), 12, 2)):
+        for n, S in ((N, S_CHECK), (1000, 7)):
+            mix, x0 = loop_inputs(n, S, xv)
+            args = (x0, *fast._mix_args(mix))
+            errs[lalgo.kernel] = max(errs[lalgo.kernel], compare(
+                f"{lalgo.kernel} {label} n={n}",
+                fused._hist_loop_cuda(lalgo, *args, rounds),
+                fused._hist_loop_plain(lalgo, *args, rounds, "hash")))
+        # the public runner on the card against the same call on CPU copies
+        wmix, wx0 = loop_inputs(N, S_PUB, xv)
+        if isinstance(lalgo, fused.FloodMinLoop):
+            rnd = fast.FloodMinHist(lalgo.num_values, lalgo.f)
+            st0 = FloodMinState.fresh(wx0[0], S_PUB, N)
+            run, fields = fast.run_floodmin_loop, ("x", "decided", "decision")
+        else:
+            rnd, st0 = fast.BenOrHist(), BenOrState.fresh(wx0[0], S_PUB, N)
+            run = fast.run_benor_loop
+            fields = ("x", "can_decide", "vote", "decided", "decision")
+        got = run(rnd, st0, wmix, rounds)
+        want = run(rnd, tree_map(lambda t: t.cpu(), st0),
+                   tree_map(lambda t: t.cpu(), wmix), rounds)
+        errs[lalgo.kernel] = max(errs[lalgo.kernel], compare(
+            f"{run.__name__} on the card vs the CPU",
+            [getattr(got[0], f) for f in fields] + list(got[1:]),
+            [getattr(want[0], f) for f in fields] + list(want[1:])))
+    say("K1-FloodMin-vs-plain", n=f"{N},1000", S=f"{S_CHECK},7", rounds=6,
+        V="16,1000", p8=",".join(map(str, P8_GRID)),
+        cases="standard_mix + p8 grid, plus run_floodmin_loop vs CPU",
+        outputs=5, tolerance=0, max_abs_err=errs["floodmin_loop"],
+        equal=True)
+    say("K1-BenOr-vs-plain", n=f"{N},1000", S=f"{S_CHECK},7", rounds=12,
+        p8=",".join(map(str, P8_GRID)),
+        cases="standard_mix + p8 grid, plus run_benor_loop vs CPU",
+        outputs=7, tolerance=0, max_abs_err=errs["benor_loop"], equal=True)
+
+    for n, S in ((N, S_CHECK), (1000, 7)):
+        mix, x0 = loop_inputs(n, S, 64, heal_round=9)
+        args = (x0, *fast._mix_args(mix))
+        errs["lv_loop"] = max(errs["lv_loop"], compare(
+            f"lv_loop n={n}", fused._lv_loop_cuda(*args, 20),
+            fused._lv_loop_plain(*args, 20)))
+    wmix, wx0 = loop_inputs(N, S_PUB, 64, heal_round=9)
+    wargs = (wx0, *fast._mix_args(wmix))
+    errs["lv_loop"] = max(errs["lv_loop"], compare(
+        "lv_loop on the card vs the CPU", fused.lv_loop(*wargs, rounds=20),
+        fused.lv_loop(*_on_cpu(wargs), rounds=20)))
+    say("K3-vs-plain", n=f"{N},1000", S=f"{S_CHECK},7", rounds=20,
+        heal_round=9, p8=",".join(map(str, P8_GRID)),
+        cases="standard_mix + p8 grid, plus lv_loop vs CPU", outputs=9,
+        tolerance=0, max_abs_err=errs["lv_loop"], equal=True)
 
     # -- 5. the main paths, through the bench's entry point ------------------
     common = ["--n", str(N), "--phases", str(ROUNDS), "--values", str(V),
@@ -307,23 +447,44 @@ def main() -> None:
         families="0,1,2,3,0,1,2,3", parity_frac=parity)
     require(parity == 1.0, f"parity {parity} != 1.0")
 
+    # -- 6b. the config ladder at its reference shapes -----------------------
+    rung_launches = {}
+    for name, kernel in RUNG_KERNEL.items():
+        fused.reset_launches()
+        res = ladder.RUNGS[name](repeats=2, device=dev)
+        launches = {k: v for k, v in fused.LAUNCHES.items() if v}
+        rung_launches[name] = launches.get(kernel, 0)
+        ex = res["extra"]
+        parity = ex.get("parity_frac", ex.get("loop_parity_frac"))
+        spec = {k: v for k, v in ex.items() if k.endswith("_parity")}
+        say(f"ladder-{name}", metric=res["metric"],
+            rounds_per_sec=ex["rounds_per_sec"],
+            **({"loop_rounds_per_sec": ex["loop_rounds_per_sec"]}
+               if "loop_rounds_per_sec" in ex else {}),
+            frac_lanes_decided=ex["frac_lanes_decided"], parity_frac=parity,
+            **spec, launches=json.dumps(launches).replace(" ", ""))
+        require(parity == 1.0, f"ladder rung {name}: parity {parity} != 1.0")
+        require(all(v is True for v in spec.values()),
+                f"ladder rung {name}: a spec parity is false: {spec}")
+        require(rung_launches[name] > 0,
+                f"ladder rung {name} launched no {kernel} kernel")
+
     # -- 7. kernel times, bounds, plain and library times --------------------
     # K1 at the flagship shape (the flagship mix of seed SEED)
     x0 = init.expand(S_FLAG, N).contiguous()
     args = (x0, mix.crashed, mix.side, mix.crash_round, mix.heal_round,
             mix.rotate_down, mix.p8, mix.salt0, mix.salt1)
-    k1_ms, out = event_ms(lambda: fused._otr_loop_cuda(algo, *args, ROUNDS),
+    k1_ms, out = event_ms(lambda: fused._hist_loop_cuda(algo, *args, ROUNDS),
                           reps=3)
     cnt, hist = decided_summary(out[1] != 0, out[5], ROUNDS)
-    k1_links = loop_links(mix, out[5], ROUNDS)
+    k1_links = loop_links(mix, out[5], ROUNDS, linger=1)
     k1_bytes = 4 * S_FLAG * N * (3 + 6) + 4 * 6 * S_FLAG
     k1_bound, k1_by, k1_pipe = bound_ms(k1_bytes, k1_links)
     t0 = time.perf_counter()
     plain = fused._hist_loop_plain(algo, *args, ROUNDS, "hash")
     torch.cuda.synchronize()
     k1_plain_ms = (time.perf_counter() - t0) * 1e3
-    require(all(torch.equal(a, b) for a, b in zip(out, plain)),
-            "K1 differs from its plain version at the flagship shape")
+    compare("K1 at the flagship shape", out, plain)
     say("K1-time", ms=round(k1_ms, 3), plain_ms=round(k1_plain_ms, 1),
         bound_ms=round(k1_bound, 3), bound_by=k1_by, pipe=k1_pipe,
         bytes_ms=round(k1_bytes / HBM_BYTES_PER_S * 1e3, 4),
@@ -346,8 +507,7 @@ def main() -> None:
     want = fused._hist_exchange_plain(*k2_args)
     torch.cuda.synchronize()
     k2_plain_ms = (time.perf_counter() - t0) * 1e3
-    require(torch.equal(got, want),
-            "K2 differs from its plain version at the per-round shape")
+    compare("K2 at the per-round shape", [got], [want])
     hashed = ((p8 > 0) & (p8 < 256)).to(torch.float64)
     k2_links = float((hashed * senders.sum(1).to(torch.float64)
                       * (N - 1)).sum())
@@ -371,9 +531,79 @@ def main() -> None:
         bytes_ms=round(k2_bytes / HBM_BYTES_PER_S * 1e3, 4),
         library_ms=round(lib_ms, 3), hashed_links=f"{k2_links:.4g}")
 
+    # K1 FloodMin at its rung's shape (crash mix: p8 = 0, nothing hashed)
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n, S, f, Vf, rounds = 64, 256, 2, 1000, 4
+    mix = ladder._crash_mix(fgen, S, n, f, dev)
+    x0 = torch.randint(0, Vf, (n,), generator=fgen, device=dev,
+                       dtype=torch.int32).expand(S, n).contiguous()
+    algo_fm = fused.FloodMinLoop(num_values=Vf, f=f)
+    args = (x0, *fast._mix_args(mix))
+    fm_ms, out = event_ms(lambda: fused._hist_loop_cuda(algo_fm, *args,
+                                                        rounds), reps=20)
+    fm_plain_ms, plain = plain_ms(
+        lambda: fused._hist_loop_plain(algo_fm, *args, rounds, "hash"))
+    compare("floodmin_loop at the rung's shape", out, plain)
+    fm_links = loop_links(mix, out[-1], rounds, linger=0)
+    fm_bytes = 4 * S * n * (3 + 5) + 4 * 6 * S
+    fm_bound, fm_by, fm_pipe = bound_ms(fm_bytes, fm_links)
+    say("K1-FloodMin-time", n=n, S=S, V=Vf, rounds=rounds,
+        launches=rung_launches["floodmin"], ms=round(fm_ms, 4),
+        plain_ms=round(fm_plain_ms, 2), bound_ms=round(fm_bound, 5),
+        bound_by=fm_by, pipe=fm_pipe, hashed_links=f"{fm_links:.4g}")
+
+    # K1 Ben-Or at its rung's shape (iid omission at p8 = 13)
+    bgen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n, S, rounds = 512, 4096, 16
+    mix = ladder.benor_mix(bgen, S, n, 0.05, dev)
+    x0 = (torch.rand((n,), generator=bgen, device=dev) < 0.5).to(
+        torch.int32).expand(S, n).contiguous()
+    algo_bo = fused.BenOrLoop()
+    args = (x0, *fast._mix_args(mix))
+    bo_ms, out = event_ms(lambda: fused._hist_loop_cuda(algo_bo, *args,
+                                                        rounds), reps=5)
+    bo_plain_ms, plain = plain_ms(
+        lambda: fused._hist_loop_plain(algo_bo, *args, rounds, "hash"))
+    compare("benor_loop at the rung's shape", out, plain)
+    bo_links = loop_links(mix, out[-1], rounds, linger=0)
+    bo_bytes = 4 * S * n * (3 + 7) + 4 * 6 * S
+    bo_bound, bo_by, bo_pipe = bound_ms(bo_bytes, bo_links)
+    say("K1-BenOr-time", n=n, S=S, rounds=rounds,
+        launches=rung_launches["benor"], ms=round(bo_ms, 4),
+        plain_ms=round(bo_plain_ms, 2), bound_ms=round(bo_bound, 5),
+        bound_by=bo_by, pipe=bo_pipe, hashed_links=f"{bo_links:.4g}",
+        frac_lanes_decided=round(float((out[3] != 0).float().mean()), 4))
+
+    # K3 at the lv rung's shape (crash mix), then on the four-family mix
+    lgen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    lv_rows = []
+    for n, S, rounds, kind, reps in ((256, 256, 16, "crash", 20),
+                                     (LV_N, LV_S, LV_ROUNDS, "standard", 3)):
+        mix = (ladder._crash_mix(lgen, S, n, max(1, n // 32), dev)
+               if kind == "crash" else
+               fast.standard_mix(lgen, S, n, p_drop=P_DROP, device=dev))
+        x0 = torch.randint(0, 64, (n,), generator=lgen, device=dev,
+                           dtype=torch.int32).expand(S, n).contiguous()
+        args = (x0, *fast._mix_args(mix))
+        ms, out = event_ms(lambda: fused._lv_loop_cuda(*args, rounds),
+                           reps=reps)
+        p_ms, plain = plain_ms(lambda: fused._lv_loop_plain(*args, rounds))
+        compare(f"lv_loop at n={n} x {S} x {rounds}", out, plain)
+        links = lv_links(mix, out[8], rounds)
+        nbytes = 4 * S * n * (3 + 9) + 4 * 6 * S
+        bnd, by, pipe = bound_ms(nbytes, links)
+        say("K3-time", n=n, S=S, rounds=rounds, mix=kind,
+            launches=rung_launches["lv"], ms=round(ms, 4),
+            plain_ms=round(p_ms, 2), bound_ms=round(bnd, 5), bound_by=by,
+            pipe=pipe, bytes_ms=round(nbytes / HBM_BYTES_PER_S * 1e3, 5),
+            hashed_links=f"{links:.4g}",
+            frac_lanes_decided=round(float((out[5] != 0).float().mean()), 4))
+        lv_rows.append((ms, p_ms, bnd, by))
+    lv_ms, lv_plain_ms, lv_bound, lv_by = lv_rows[-1]
+
     kernels = [
         {"name": "otr_loop", "route": "cuda",
-         "source": "round_tpu_torch/csrc/otr_loop.cu",
+         "source": "round_tpu_torch/csrc/hist_loop.cu",
          "replaces": "round_tpu/ops/fused.py:557",
          "launches": k1_launches, "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
@@ -384,6 +614,27 @@ def main() -> None:
          "launches": k2_launches, "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": lib_ms},
+        # no single PyTorch call computes a whole run: library_ms is null
+        {"name": "floodmin_loop", "route": "cuda",
+         "source": "round_tpu_torch/csrc/hist_loop.cu",
+         "replaces": "round_tpu/ops/fused.py:557",
+         "launches": rung_launches["floodmin"],
+         "max_abs_err": errs["floodmin_loop"], "ms": fm_ms,
+         "plain_ms": fm_plain_ms, "bound_ms": fm_bound, "bound_by": fm_by,
+         "library_ms": None},
+        {"name": "benor_loop", "route": "cuda",
+         "source": "round_tpu_torch/csrc/hist_loop.cu",
+         "replaces": "round_tpu/ops/fused.py:557",
+         "launches": rung_launches["benor"],
+         "max_abs_err": errs["benor_loop"], "ms": bo_ms,
+         "plain_ms": bo_plain_ms, "bound_ms": bo_bound, "bound_by": bo_by,
+         "library_ms": None},
+        {"name": "lv_loop", "route": "cuda",
+         "source": "round_tpu_torch/csrc/lv_loop.cu",
+         "replaces": "round_tpu/ops/fused.py:965",
+         "launches": rung_launches["lv"], "max_abs_err": errs["lv_loop"],
+         "ms": lv_ms, "plain_ms": lv_plain_ms, "bound_ms": lv_bound,
+         "bound_by": lv_by, "library_ms": None},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,17 +1,19 @@
 """round_tpu_torch — the PyTorch/CUDA port of round_tpu.
 
 The same framework for round-based distributed algorithms in the Heard-Of
-model, written in PyTorch with the two TPU kernels of the flagship path
-re-written by hand in CUDA C++ for Hopper (``csrc/``):
+model, written in PyTorch with the TPU kernels of the flagship path and the
+config ladder re-written by hand in CUDA C++ for Hopper (``csrc/``):
 
   - one simulated process  = one lane of a ``torch.func.vmap``
   - one round              = send -> masked exchange -> update
   - one fault scenario     = one batch row
   - the flagship run       = ``engine.fast.run_otr_loop``, one CUDA kernel
                              launch for the whole run (``ops.fused.otr_loop``)
+  - the config ladder      = ``apps.ladder``: OTR, FloodMin, LastVoting and
+                             Ben-Or, each spec-checked (``spec``)
 
-Layout mirrors round_tpu (core/, ops/, engine/, models/, utils/) so every
-module has a counterpart of the same name.  Entry points run on ``cuda``
+Layout mirrors round_tpu (core/, ops/, engine/, models/, spec/, apps/,
+utils/) so every module has a counterpart of the same name.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; on CPU tensors each kernel
 wrapper runs its plain PyTorch version instead.
 """

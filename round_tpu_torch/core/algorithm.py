@@ -3,8 +3,8 @@
 Port of round_tpu/core/algorithm.py.  "vars" are the fields of a state
 dataclass (``utils.tree.struct``), "init" is a per-lane pure function and
 "rounds" is a static tuple — the phase executes round-robin, exactly like
-RtProcess.incrementRound (Process.scala:53-59).  The spec checker is a
-later slice, so ``spec`` stays None here.
+RtProcess.incrementRound (Process.scala:53-59).  ``spec`` is the model's
+round_tpu_torch.spec.Spec (None where a model states none).
 """
 
 from __future__ import annotations

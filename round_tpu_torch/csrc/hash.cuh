@@ -26,14 +26,19 @@ __device__ __forceinline__ uint32_t rt_salt1r(int r, int salt1) {
   return (uint32_t)r * RT_RMIX + (uint32_t)salt1;
 }
 
-// Link (receiver j hears sender i) survives the iid drop: flat index
-// idx = j * n + i, keep iff fmix32(idx * GOLD + salt0 ^ salt1r) & 0xFF >= p8.
-// p8 <= 0 keeps every link without hashing.  The diagonal is the caller's.
+// The 8-bit drop draw of link idx = j * n + i (receiver j, sender i):
+// fmix32(idx * GOLD + salt0 ^ salt1r) & 0xFF.
+__device__ __forceinline__ uint32_t rt_link_draw(uint32_t idx, uint32_t salt0,
+                                                 uint32_t salt1r) {
+  return rt_fmix32((idx * RT_GOLD + salt0) ^ salt1r) & 0xFFu;
+}
+
+// Link idx survives the iid drop: keep iff its draw >= p8.  p8 <= 0 keeps
+// every link without hashing.  The diagonal is the caller's.
 __device__ __forceinline__ bool rt_link_keep(uint32_t idx, uint32_t salt0,
                                              uint32_t salt1r, int p8) {
   if (p8 <= 0) return true;
-  uint32_t z = (idx * RT_GOLD + salt0) ^ salt1r;
-  return (rt_fmix32(z) & 0xFFu) >= (uint32_t)p8;
+  return rt_link_draw(idx, salt0, salt1r) >= (uint32_t)p8;
 }
 
 // Fair coin per (scenario, lane, round): round_tpu/ops/fused.py::hash_coin.

@@ -1,12 +1,12 @@
 """The fused fast engine: histogram rounds through the CUDA exchange kernel.
 
-Port of the main-path parts of round_tpu/engine/fast.py.  For *histogram
-rounds* — broadcast a small-domain value, consume the mailbox only through
-per-value counts (OTR) — the whole round runs through
-``ops.fused.hist_exchange`` (K2, one launch per round: ``run_hist``) or the
-whole run through ``ops.fused.otr_loop`` (K1, one launch per run:
-``run_otr_loop``, the flagship path).  The [S, n, n] mask never exists in
-device memory.
+Port of the main-path and ladder parts of round_tpu/engine/fast.py.  For
+*histogram rounds* — broadcast a small-domain value, consume the mailbox
+only through per-value counts (OTR, FloodMin, Ben-Or) — the whole round
+runs through ``ops.fused.hist_exchange`` (K2, one launch per round:
+``run_hist``) or the whole run through one K1 launch (``ops.fused.hist_loop``:
+``run_otr_loop``, the flagship path, ``run_floodmin_loop`` and
+``run_benor_loop``).  The [S, n, n] mask never exists in device memory.
 
 The fault model is a `FaultMix`: per-scenario structured parameters (crash
 sets, partition sides, a rotating suppressed process, an iid-omission
@@ -200,6 +200,87 @@ class OtrHist(HistRound):
         return state, exit_
 
 
+class FloodMinHist(HistRound):
+    """FloodMin on the fused path (FloodMin.scala:22-33;
+    round_tpu/engine/fast.py::FloodMinHist): x folds to the min over
+    delivered values, decide after round f.  The min over the mailbox is
+    min{v : counts[v] > 0} — straight off the histogram."""
+
+    def __init__(self, n_values: int, f: int):
+        self.num_values = n_values
+        self.f = f
+
+    def payload(self, state, k: int = 0):
+        return state.x
+
+    def update_counts(self, state, counts, size, r, n, k: int = 0, coin=None):
+        V = self.num_values
+        rows = torch.arange(V, dtype=torch.int32,
+                            device=counts.device)[None, :, None]
+        xm = torch.where(counts > 0, rows, V).min(dim=1).values.to(
+            state.x.dtype)
+        x = torch.minimum(state.x, xm)  # self-delivery already includes own x
+        deciding = torch.full(x.shape, r > self.f, dtype=torch.bool,
+                              device=x.device)
+        state = ghost_decide(state.replace(x=x), deciding, x)
+        return state, deciding
+
+
+class BenOrHist(HistRound):
+    """Ben-Or on the fused path (BenOr.scala:11-88;
+    round_tpu/engine/fast.py::BenOrHist): two subrounds per phase over one
+    4-value histogram domain.
+
+    Subround 0 broadcasts (x, canDecide) as v = x + 2·can; subround 1
+    broadcasts the vote as v = vote + 1 (3 live values).  The coin is the
+    deterministic hash coin (ops.fused.hash_coin), replayable in the
+    general engine via BenOr(coin_salt=...)."""
+
+    num_values = 4
+    phase_len = 2
+    needs_coin = True
+
+    def payload(self, state, k: int = 0):
+        if k == 0:
+            return state.x.to(torch.int32) + 2 * state.can_decide.to(
+                torch.int32)
+        return state.vote + 1
+
+    def update_counts(self, state, counts, size, r, n, k: int = 0, coin=None):
+        half = n // 2
+        if k == 0:
+            t_cnt = counts[:, 1] + counts[:, 3]
+            f_cnt = counts[:, 0] + counts[:, 2]
+            t_dec = counts[:, 3] > 0
+            f_dec = counts[:, 2] > 0
+            vote_new = torch.where(
+                (t_cnt > half) | t_dec, 1,
+                torch.where((f_cnt > half) | f_dec, 0, -1)).to(torch.int32)
+            can_any = (counts[:, 2] + counts[:, 3]) > 0
+
+            deciding = state.can_decide
+            state = ghost_decide(state, deciding, state.x)
+            state = state.replace(
+                vote=torch.where(deciding, state.vote, vote_new),
+                can_decide=torch.where(deciding, state.can_decide, can_any),
+            )
+            return state, deciding
+        t = counts[:, 2]
+        f = counts[:, 1]
+        x2 = torch.where(
+            t > half, True,
+            torch.where(f > half, False,
+                        torch.where(t > 1, True,
+                                    torch.where(f > 1, False, coin))))
+        can2 = (t > half) | (f > half) | state.can_decide
+        frozen = state.decided
+        state = state.replace(
+            x=torch.where(frozen, state.x, x2),
+            can_decide=torch.where(frozen, state.can_decide, can2),
+        )
+        return state, torch.zeros_like(frozen)
+
+
 def hist_scan(
     rnd: HistRound,
     state0,
@@ -303,13 +384,11 @@ def run_otr_loop(
     kernel.  A resumed state is refused."""
     from round_tpu_torch.models.otr import OtrState
 
-    if bool(state0.decided.any()) or bool(
-            (state0.after != rnd.after_decision).any()):
-        raise ValueError(
-            "run_otr_loop requires a fresh state0 (nothing decided, after "
-            "counters at their init value); resume partial runs with "
-            "run_hist instead"
-        )
+    _require_fresh(
+        not (bool(state0.decided.any())
+             or bool((state0.after != rnd.after_decision).any())),
+        "otr",
+    )
     x, dec, decision, after, done, dround = fused.otr_loop(
         state0.x, mix.crashed, mix.side, mix.crash_round, mix.heal_round,
         mix.rotate_down, mix.p8, mix.salt0, mix.salt1,
@@ -317,4 +396,73 @@ def run_otr_loop(
         after_decision=rnd.after_decision, mode=mode, dot=dot,
     )
     state = OtrState(x=x, decided=dec, decision=decision, after=after)
+    return state, done, dround
+
+
+def _mix_args(mix: FaultMix):
+    """The mix fields in the argument order of ops.fused.hist_loop after
+    x0 (round_tpu/engine/fast.py::_mix_args)."""
+    return (mix.crashed, mix.side, mix.crash_round, mix.heal_round,
+            mix.rotate_down, mix.p8, mix.salt0, mix.salt1)
+
+
+def _require_fresh(ok: bool, what: str):
+    """Refuse a resumed state0 (round_tpu/engine/fast.py::_require_fresh)."""
+    if not ok:
+        raise ValueError(
+            f"run_{what}_loop requires a fresh state0 (nothing decided, "
+            "round variables at their init values); resume partial runs "
+            "with run_hist instead"
+        )
+
+
+def run_floodmin_loop(
+    rnd: FloodMinHist,
+    state0,
+    mix: FaultMix,
+    max_rounds: int,
+    mode: str = "hash",
+    dot: str = "i8",
+):
+    """FloodMin's whole run as one K1 launch (ops.fused.FloodMinLoop;
+    round_tpu/engine/fast.py::run_floodmin_loop) — drop-in for
+    run_hist(FloodMinHist(...), fresh state0, ...): same
+    (state, done, decided_round).  A resumed state0 is refused."""
+    from round_tpu_torch.models.floodmin import FloodMinState
+
+    _require_fresh(not bool(state0.decided.any()), "floodmin")
+    (x, dec, decision), done, dround = fused.hist_loop(
+        fused.FloodMinLoop(num_values=rnd.num_values, f=rnd.f),
+        state0.x, *_mix_args(mix), rounds=max_rounds, mode=mode, dot=dot,
+    )
+    state = FloodMinState(x=x, decided=dec != 0, decision=decision)
+    return state, done, dround
+
+
+def run_benor_loop(
+    rnd: BenOrHist,
+    state0,
+    mix: FaultMix,
+    max_rounds: int,
+    mode: str = "hash",
+    dot: str = "i8",
+):
+    """Ben-Or's whole run as one K1 launch (ops.fused.BenOrLoop, two
+    subrounds per phase dispatched in the kernel;
+    round_tpu/engine/fast.py::run_benor_loop) — drop-in for
+    run_hist(BenOrHist(), fresh state0, ...); the coin is the deterministic
+    hash coin in both paths.  A resumed state0 is refused."""
+    from round_tpu_torch.models.benor import BenOrState
+
+    _require_fresh(
+        not (bool(state0.decided.any()) or bool(state0.can_decide.any())
+             or bool((state0.vote != -1).any())),
+        "benor",
+    )
+    (x, can, vote, dec, decision), done, dround = fused.hist_loop(
+        fused.BenOrLoop(), state0.x.to(torch.int32), *_mix_args(mix),
+        rounds=max_rounds, mode=mode, dot=dot,
+    )
+    state = BenOrState(x=x != 0, can_decide=can != 0, vote=vote,
+                       decided=dec != 0, decision=decision != 0)
     return state, done, dround

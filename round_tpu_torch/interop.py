@@ -12,6 +12,9 @@ import numpy as np
 import torch
 
 from round_tpu_torch.engine.fast import FaultMix
+from round_tpu_torch.models.benor import BenOrState
+from round_tpu_torch.models.floodmin import FloodMinState
+from round_tpu_torch.models.lastvoting import LVState
 from round_tpu_torch.models.otr import OtrState
 from round_tpu_torch.utils.device import resolve_device
 
@@ -50,4 +53,41 @@ def otr_state_from_numpy(d: Mapping[str, np.ndarray], device=None) -> OtrState:
         decided=_bool(d["decided"], dev),
         decision=_int32(d["decision"], dev),
         after=_int32(d["after"], dev),
+    )
+
+
+def floodmin_state_from_numpy(d: Mapping[str, np.ndarray],
+                              device=None) -> FloodMinState:
+    """A FloodMinState from numpy arrays named x, decided, decision."""
+    dev = resolve_device(device)
+    return FloodMinState(x=_int32(d["x"], dev), decided=_bool(d["decided"], dev),
+                         decision=_int32(d["decision"], dev))
+
+
+def benor_state_from_numpy(d: Mapping[str, np.ndarray],
+                           device=None) -> BenOrState:
+    """A BenOrState from numpy arrays named x, can_decide, vote, decided,
+    decision (x, can_decide, decided and decision as bool)."""
+    dev = resolve_device(device)
+    return BenOrState(
+        x=_bool(d["x"], dev),
+        can_decide=_bool(d["can_decide"], dev),
+        vote=_int32(d["vote"], dev),
+        decided=_bool(d["decided"], dev),
+        decision=_bool(d["decision"], dev),
+    )
+
+
+def lv_state_from_numpy(d: Mapping[str, np.ndarray], device=None) -> LVState:
+    """An LVState from numpy arrays named x, ts, ready, commit, vote,
+    decided, decision."""
+    dev = resolve_device(device)
+    return LVState(
+        x=_int32(d["x"], dev),
+        ts=_int32(d["ts"], dev),
+        ready=_bool(d["ready"], dev),
+        commit=_bool(d["commit"], dev),
+        vote=_int32(d["vote"], dev),
+        decided=_bool(d["decided"], dev),
+        decision=_int32(d["decision"], dev),
     )

@@ -1,11 +1,13 @@
 """OTR — One-Third-Rule consensus.
 
-Port of round_tpu/models/otr.py (without OtrSpec: the spec checker is a
-later slice).  Protocol (example/Otr.scala:56-84): every round, broadcast
-x; if more than 2n/3 messages arrive, set x to the minimum
-most-often-received value, and if that value itself was received from more
-than 2n/3 processes, decide it.  After deciding, keep participating for
-`after_decision` more rounds, then exit.
+Port of round_tpu/models/otr.py.  Protocol (example/Otr.scala:56-84):
+every round, broadcast x; if more than 2n/3 messages arrive, set x to the
+minimum most-often-received value, and if that value itself was received
+from more than 2n/3 processes, decide it.  After deciding, keep
+participating for `after_decision` more rounds, then exit.
+
+Spec (Otr.scala:95-120): agreement/validity/integrity/irrevocability +
+termination under "good rounds"; checked on traces by round_tpu_torch.spec.
 """
 
 from __future__ import annotations
@@ -14,8 +16,11 @@ import torch
 
 from round_tpu_torch.core.algorithm import Algorithm
 from round_tpu_torch.core.rounds import Round, RoundCtx, broadcast
-from round_tpu_torch.models.common import ghost_decide
+from round_tpu_torch.models.common import (
+    agreement, ghost_decide, integrity, irrevocability, termination, validity,
+)
 from round_tpu_torch.ops.mailbox import Mailbox
+from round_tpu_torch.spec.dsl import Spec, implies
 from round_tpu_torch.utils.tree import struct
 
 
@@ -73,6 +78,61 @@ class OtrRound(Round):
         return state.replace(x=torch.where(quorum, v, state.x), after=after)
 
 
+def _keep_init(e):
+    """Every estimate is some process's initial value (Otr.scala:102,107)."""
+    P = e.P
+    return P.forall(lambda i: P.exists(lambda j: i.x == j.init.x))
+
+
+def _decided_on(P, v):
+    return P.forall(lambda i: implies(i.decided, i.decision == v))
+
+
+class OtrSpec(Spec):
+    """Otr.scala:94-120, checked on traces instead of proven
+    (round_tpu/models/otr.py::OtrSpec)."""
+
+    def _good_round(self, e):
+        # S.exists(s => P.forall(p => p.HO == s && s.size > 2n/3))  (:95)
+        return e.S.exists(
+            lambda s: e.P.forall(lambda p: (p.HO == s) & (s.size > 2 * e.n // 3))
+        )
+
+    def _inv0(self, e):
+        P, V = e.P, e.values(e.state.x)
+        no_decision = P.forall(lambda i: ~i.decided)
+        quorum_on_v = V.exists(
+            lambda v: (P.filter(lambda i: i.x == v).size > 2 * e.n // 3)
+            & _decided_on(P, v)
+        )
+        return (no_decision | quorum_on_v) & _keep_init(e)
+
+    def _inv1(self, e):
+        P, V = e.P, e.values(e.state.x)
+        all_on_v = V.exists(
+            lambda v: (P.filter(lambda i: i.x == v).size == e.n)
+            & _decided_on(P, v)
+        )
+        return all_on_v & _keep_init(e)
+
+    def _inv2(self, e):
+        P = e.P
+        return P.exists(
+            lambda j: P.forall(lambda i: i.decided & (i.decision == j.init.x))
+        )
+
+    def __init__(self):
+        self.liveness_predicate = (self._good_round, self._good_round)
+        self.invariants = (self._inv0, self._inv1, self._inv2)
+        self.properties = (
+            ("Termination", termination),
+            ("Agreement", agreement),
+            ("Validity", validity),
+            ("Integrity", integrity),
+            ("Irrevocability", irrevocability),
+        )
+
+
 class OTR(Algorithm):
     """One-Third-Rule consensus over int payloads."""
 
@@ -81,6 +141,7 @@ class OTR(Algorithm):
     def __init__(self, after_decision: int = 2, n_values: int | None = None):
         self.after_decision = after_decision
         self.rounds = (OtrRound(n_values=n_values),)
+        self.spec = OtrSpec()
 
     def make_init_state(self, ctx: RoundCtx, io) -> OtrState:
         x = torch.as_tensor(io["initial_value"]).to(torch.int32)

@@ -26,19 +26,28 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("hist_exchange", "otr_loop")
+KERNELS = ("hist_exchange", "hist_loop", "lv_loop")
 
 _P = ctypes.c_void_p
+_PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 _I = ctypes.c_int
-# C signatures: name -> (argtypes, restype)
+# the three K1 instances of csrc/hist_loop.cu share one C signature
+_LOOP = {
+    f"{algo}_loop_{fn}": sig
+    for algo in ("otr", "floodmin", "benor")
+    for fn, sig in (("launch", ([_P] * 9 + [_PP] + [_I] * 5 + [_P], _I)),
+                    ("smem_bytes", ([_I, _I], ctypes.c_size_t)))
+}
+# C signatures: library -> {function: (argtypes, restype)}
 _SIGNATURES = {
     "hist_exchange": {
         "hist_exchange_launch": ([_P] * 8 + [_I, _I, _I, _P], _I),
         "hist_exchange_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
-    "otr_loop": {
-        "otr_loop_launch": ([_P] * 15 + [_I] * 5 + [_P], _I),
-        "otr_loop_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "hist_loop": _LOOP,
+    "lv_loop": {
+        "lv_loop_launch": ([_P] * 9 + [_PP] + [_I] * 3 + [_P], _I),
+        "lv_loop_smem_bytes": ([_I], ctypes.c_size_t),
     },
 }
 
@@ -121,6 +130,12 @@ def lib(name: str) -> ctypes.CDLL:
                 getattr(so, fn).restype = restype
             _LIBS[name] = so
         return _LIBS[name]
+
+
+def pointer_array(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers, for a C parameter
+    ``int* const* outs``."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def check(err: int, what: str) -> None:

@@ -1,5 +1,6 @@
-"""Fused round exchange: HO-mask generation + value histogram, and the
-whole-run OTR loop — the two kernels of the flagship path.
+"""Fused round exchange: HO-mask generation + value histogram, the
+whole-run histogram loop and the whole LastVoting run — the kernels of the
+flagship path and the config ladder.
 
 Port of round_tpu/ops/fused.py.  For histogram rounds the whole round
 exchange collapses to
@@ -13,11 +14,14 @@ semantics (hash mode, bit-exact with round_tpu):
     deliver[j, i] = ho[j, i] & active[i] & rowmask[j]
     keep(j, i)    = fmix32((j*n + i)*GOLD + salt0 ^ salt1r) & 0xFF >= p8
 
-Two kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
+Kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
 
   * K2 ``hist_exchange`` (replaces round_tpu ``_kernel``): one round's counts.
-  * K1 ``otr_loop`` / ``hist_loop`` (replaces round_tpu ``_loop_kernel``):
-    the whole run, state on chip across rounds.
+  * K1 ``hist_loop`` (replaces round_tpu ``_loop_kernel``): the whole run,
+    state on chip across rounds, one instance per LoopAlgo — ``otr_loop``,
+    ``floodmin_loop`` and ``benor_loop`` (csrc/hist_loop.cu).
+  * K3 ``lv_loop`` (replaces round_tpu ``_lv_kernel``): the whole
+    LastVoting run, O(n) hashes per round (csrc/lv_loop.cu).
 
 Each wrapper takes the kernel for CUDA tensors and its plain PyTorch
 version, in this module, for CPU tensors; there is no fallback from one to
@@ -42,6 +46,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from round_tpu_torch.ops.mailbox import first_true
+
 _GOLD = 0x9E3779B9
 _RMIX = 0x7FEB352D
 _COIN = 0x1B873593  # domain separator: lane-coin stream vs link stream
@@ -54,7 +60,9 @@ _MAX_SMEM = 232_448
 _PLAIN_ELEMS = 1 << 24
 
 #: kernel launches per wrapper, counted where the kernel is launched
-LAUNCHES: Dict[str, int] = {"hist_exchange": 0, "otr_loop": 0}
+LAUNCHES: Dict[str, int] = {"hist_exchange": 0, "otr_loop": 0,
+                             "floodmin_loop": 0, "benor_loop": 0,
+                             "lv_loop": 0}
 
 
 def reset_launches() -> None:
@@ -269,14 +277,22 @@ class LoopAlgo:
                            applies the active-lane freeze.
       decided_slot      -> index in the state tuple of the bool decided flag.
 
-    Only OtrLoop has a CUDA kernel; other algorithms run on the plain
-    template (CPU tensors) until their kernels are ported.
+    On the card each instance has its own policy in csrc/hist_loop.cu,
+    named by ``kernel`` (its C entry points are ``<kernel>_launch`` and
+    ``<kernel>_smem_bytes``; ``kernel_param`` is the policy's one integer
+    parameter); ``n_state`` is the length of the state tuple.
     """
 
     num_values: int
     phase_len: int = 1
     needs_coin: bool = False
     decided_slot: int = 1
+    kernel: str = ""
+    n_state: int = 0
+
+    @property
+    def kernel_param(self) -> int:
+        return 0
 
     def init(self, x0) -> Tuple[torch.Tensor, ...]:
         raise NotImplementedError
@@ -298,6 +314,12 @@ class OtrLoop(LoopAlgo):
     phase_len: int = 1
     needs_coin: bool = False
     decided_slot: int = 1
+    kernel: str = "otr_loop"
+    n_state: int = 4
+
+    @property
+    def kernel_param(self) -> int:
+        return self.after_decision
 
     def init(self, x0):
         return (
@@ -332,6 +354,111 @@ class OtrLoop(LoopAlgo):
         exit_ = decided2 & (after2 <= 0)
         x2 = torch.where(quorum, bestv, x)
         return (x2, decided2, decision2, after2), exit_
+
+
+@dataclasses.dataclass(frozen=True)
+class FloodMinLoop(LoopAlgo):
+    """FloodMin as a LoopAlgo (FloodMin.scala:22-33;
+    round_tpu/ops/fused.py::FloodMinLoop): fold min over the mailbox each
+    round, decide after round f.  The min over delivered values falls out
+    of the histogram: min{v : counts[v] > 0}.  State: (x, decided,
+    decision)."""
+
+    num_values: int = 16
+    f: int = 2
+    phase_len: int = 1
+    needs_coin: bool = False
+    decided_slot: int = 1
+    kernel: str = "floodmin_loop"
+    n_state: int = 3
+
+    @property
+    def kernel_param(self) -> int:
+        return self.f
+
+    def init(self, x0):
+        return (
+            x0.to(torch.int32),
+            torch.zeros(x0.shape, dtype=torch.bool, device=x0.device),
+            torch.full(x0.shape, -1, dtype=torch.int32, device=x0.device),
+        )
+
+    def payload(self, k, us):
+        return us[0]
+
+    def update(self, r, k, us, counts, size, n, coin):
+        x, decided, decision = us
+        V = self.num_values
+        rows = torch.arange(V, dtype=torch.int32, device=counts.device)[:, None]
+        present = counts[..., :V, :] > 0
+        xm = torch.where(present, rows, V).min(dim=-2).values.to(torch.int32)
+        x2 = torch.minimum(x, xm)  # self-delivery already includes own x
+        deciding = torch.full(decided.shape, r > self.f, dtype=torch.bool,
+                              device=decided.device)
+        newly = deciding & ~decided
+        decided2 = decided | deciding
+        decision2 = torch.where(newly, x2, decision)
+        return (x2, decided2, decision2), deciding
+
+
+@dataclasses.dataclass(frozen=True)
+class BenOrLoop(LoopAlgo):
+    """Ben-Or as a LoopAlgo (BenOr.scala:11-88;
+    round_tpu/ops/fused.py::BenOrLoop): two subrounds per phase.  Subround
+    0 broadcasts (x, canDecide) encoded as v = x + 2·can (domain 4);
+    subround 1 broadcasts the vote encoded as v = vote + 1 (domain 3, in
+    the same 4-value histogram).  The coin is the deterministic hash coin
+    (`hash_coin`), replayable in the general engine via
+    BenOr(coin_salt=...).  State: (x, can, vote, decided, decision); x,
+    can and decision are 0/1 int32, vote is {-1, 0, 1}."""
+
+    num_values: int = 4
+    phase_len: int = 2
+    needs_coin: bool = True
+    decided_slot: int = 3
+    kernel: str = "benor_loop"
+    n_state: int = 5
+
+    def init(self, x0):
+        z = torch.zeros(x0.shape, dtype=torch.int32, device=x0.device)
+        return (x0.to(torch.int32), z, z - 1, z != 0, z)
+
+    def payload(self, k, us):
+        if k == 0:
+            return us[0] + 2 * us[1]
+        return us[2] + 1
+
+    def update(self, r, k, us, counts, size, n, coin):
+        x, can, vote, decided, decision = us
+        half = n // 2
+        c = [counts[..., v, :] for v in range(4)]
+        if k == 0:
+            t_cnt = c[1] + c[3]
+            f_cnt = c[0] + c[2]
+            vote_new = torch.where(
+                (t_cnt > half) | (c[3] > 0), 1,
+                torch.where((f_cnt > half) | (c[2] > 0), 0, -1),
+            ).to(torch.int32)
+            can_any = ((c[2] + c[3]) > 0).to(torch.int32)
+            deciding = can != 0
+            newly = deciding & ~decided
+            decided2 = decided | deciding
+            decision2 = torch.where(newly, x, decision)
+            vote2 = torch.where(deciding, vote, vote_new)
+            can2 = torch.where(deciding, can, can_any)
+            return (x, can2, vote2, decided2, decision2), deciding
+        t, f = c[2], c[1]
+        x2 = torch.where(
+            t > half, 1,
+            torch.where(f > half, 0,
+                        torch.where(t > 1, 1,
+                                    torch.where(f > 1, 0,
+                                                coin.to(torch.int32)))),
+        ).to(torch.int32)
+        can2 = ((t > half) | (f > half) | (can != 0)).to(torch.int32)
+        x3 = torch.where(decided, x, x2)
+        can3 = torch.where(decided, can, can2)
+        return (x3, can3, vote, decided, decision), torch.zeros_like(decided)
 
 
 def _hist_loop_chunk(algo: LoopAlgo, x0, crashed, side, crash_round,
@@ -391,30 +518,33 @@ def _hist_loop_plain(algo, x0, crashed, side, crash_round, heal_round,
     return tuple(torch.cat(col, dim=0) for col in zip(*parts))
 
 
-def _otr_loop_cuda(algo: "OtrLoop", x0, crashed, side, crash_round,
-                   heal_round, rotate_down, p8, salt0, salt1, rounds: int):
+def _hist_loop_cuda(algo: LoopAlgo, x0, crashed, side, crash_round,
+                    heal_round, rotate_down, p8, salt0, salt1, rounds: int):
+    """Launch the K1 instance of `algo` (csrc/hist_loop.cu)."""
     from round_tpu_torch.ops import _native
 
+    if not algo.kernel:
+        raise ValueError(f"no CUDA kernel for {type(algo).__name__}")
     S, n = x0.shape
     V = algo.num_values
-    so = _native.lib("otr_loop")
-    smem = so.otr_loop_smem_bytes(n, V)
+    so = _native.lib("hist_loop")
+    smem = getattr(so, f"{algo.kernel}_smem_bytes")(n, V)
     if smem > _MAX_SMEM:
         raise ValueError(
-            f"otr_loop: num_values={V} at n={n} needs {smem} bytes of shared "
-            f"memory per block (max {_MAX_SMEM})")
+            f"{algo.kernel}: num_values={V} at n={n} needs {smem} bytes of "
+            f"shared memory per block (max {_MAX_SMEM})")
     ins = _kernel_inputs(x0.device, S, n, (x0, crashed, side),
                          (crash_round, heal_round, rotate_down, p8, salt0,
                           salt1))
     outs = [torch.empty((S, n), dtype=torch.int32, device=x0.device)
-            for _ in range(6)]
+            for _ in range(algo.n_state + 2)]
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream
-        err = so.otr_loop_launch(
-            *[a.data_ptr() for a in ins], *[o.data_ptr() for o in outs],
-            S, n, V, rounds, algo.after_decision, stream)
-    LAUNCHES["otr_loop"] += 1
-    _native.check(err, "otr_loop launch")
+        err = getattr(so, f"{algo.kernel}_launch")(
+            *[a.data_ptr() for a in ins], _native.pointer_array(outs),
+            S, n, V, rounds, algo.kernel_param, stream)
+    LAUNCHES[algo.kernel] += 1
+    _native.check(err, f"{algo.kernel} launch")
     return tuple(outs)
 
 
@@ -437,18 +567,16 @@ def hist_loop(
 
     Returns (state_arrays, done, decided_round): state_arrays is the algo's
     state tuple as [S, n] int32 (bool slots as 0/1), done [S, n] bool,
-    decided_round [S, n] int32.  CUDA tensors launch the K1 kernel
-    (csrc/otr_loop.cu, OtrLoop only); CPU tensors take the plain template.
-    ``dot`` is validated; the count is int32 either way."""
+    decided_round [S, n] int32.  CUDA tensors launch the algo's K1
+    instance (csrc/hist_loop.cu: OtrLoop, FloodMinLoop, BenOrLoop); CPU
+    tensors take the plain template.  ``dot`` is validated; the count is
+    int32 either way."""
     _check_mode(mode)
     _check_dot(dot)
     args = (x0, crashed, side, crash_round, heal_round, rotate_down, p8,
             salt0, salt1)
     if x0.is_cuda:
-        if not isinstance(algo, OtrLoop):
-            raise NotImplementedError(
-                f"no CUDA kernel for {type(algo).__name__} yet (only OtrLoop)")
-        outs = _otr_loop_cuda(algo, *args, rounds)
+        outs = _hist_loop_cuda(algo, *args, rounds)
     elif x0.device.type == "cpu":
         outs = _hist_loop_plain(algo, *args, rounds, mode)
     else:
@@ -473,6 +601,167 @@ def otr_loop(
         salt0, salt1, rounds=rounds, mode=mode, dot=dot,
     )
     return (x, dec != 0, decision, after, done, dround)
+
+
+# ---------------------------------------------------------------------------
+# K3: the whole LastVoting run, O(n) hashes per round
+# ---------------------------------------------------------------------------
+
+def _lv_keep(idx, s0, salt1r, p8) -> torch.Tensor:
+    """One hash-keep vector (a row or column of the link mask) — bit-exact
+    with scenarios.link_bernoulli / from_fault_params at the same indices
+    (round_tpu/ops/fused.py::_lv_keep).  LastVoting's rounds each touch one
+    receiver row (collect/ack at the coordinator) or one sender column (the
+    coordinator's broadcasts), so a round costs O(n) hashes."""
+    p8 = torch.as_tensor(p8).to(torch.int64)
+    z = _u32(_u32(idx) * _GOLD + _u32(s0))
+    z = z ^ _u32(salt1r)
+    return ((_fmix32(z) & 0xFF) >= p8) | (p8 <= 0)
+
+
+def _lv_loop_plain(x0, crashed, side, crash_round, heal_round, rotate_down,
+                   p8, salt0, salt1, rounds: int):
+    """Plain version of the K3 kernel: round_tpu/ops/fused.py::_lv_kernel
+    over all S scenarios at once ([S, n] tensors), one Python step per
+    round.  Returns the nine [S, n] int32 outputs (x, ts, ready, commit,
+    vote, decided, decision, done, decided_round)."""
+    S, n = x0.shape
+    dev = x0.device
+    lane = torch.arange(n, device=dev)
+    half = n // 2
+    crashed = crashed != 0
+    side = side.to(torch.int32)
+    s0 = salt0[:, None]
+    p8c = p8[:, None]
+    period = torch.clamp(rotate_down, min=1)
+    z = torch.zeros((S, n), dtype=torch.int32, device=dev)
+    x, ts, vote, dec, dround = x0.to(torch.int32), z - 1, z, z - 1, z - 1
+    ready = commit = decided = done = z != 0
+    for r in range(rounds):
+        phase, k = divmod(r, 4)
+        coord = phase % n
+        coh = (lane == coord)[None, :]
+        alive = ~(crashed & (r >= crash_round)[:, None])
+        victim = (r // period) % n
+        rotated = (lane[None, :] == victim[:, None]) & (rotate_down > 0)[:, None]
+        colmask = alive & ~rotated
+        side_r = torch.where((r < heal_round)[:, None], side, 0)
+        side_c = side_r[:, coord:coord + 1]
+        salt1r = _u32(r * _RMIX + _u32(salt1))[:, None]
+        active = ~done
+        exit_ = torch.zeros_like(done)
+        if k in (0, 2):
+            # mailbox at receiver = coord: one receiver row of the mask
+            keep = _lv_keep(coord * n + lane[None, :], s0, salt1r, p8c)
+            mask = ((colmask & (side_r == side_c) & keep) | coh) & active
+            if k == 2:
+                mask = mask & (ts == phase)
+            have = mask.sum(dim=1)
+            if k == 0:
+                ts_m = torch.where(mask, ts, -2)
+                best = ts_m.max(dim=1, keepdim=True).values
+                cand = mask & (ts_m == best)
+                # first True = smallest sender id (Mailbox.arg_best)
+                bi = first_true(cand)
+                best_x = x.gather(1, bi[:, None])
+                act = coh & ((have > half) | ((r == 0) & (have > 0)))[:, None]
+                vote2 = torch.where(act, best_x, vote)
+                commit2 = commit | act
+                x2, ts2, ready2, dec2, decided2 = x, ts, ready, dec, decided
+            else:
+                ready2 = ready | (coh & (have > half)[:, None])
+                x2, ts2, commit2, vote2 = x, ts, commit, vote
+                dec2, decided2 = dec, decided
+        else:
+            # the coordinator's broadcast: one sender column of the mask
+            keep = _lv_keep(lane[None, :] * n + coord, s0, salt1r, p8c)
+            cm_c = colmask[:, coord:coord + 1]
+            act_c = active[:, coord:coord + 1]
+            guard_c = (commit if k == 1 else ready)[:, coord:coord + 1]
+            got = ((cm_c & (side_r == side_c) & keep) | coh) & act_c & guard_c
+            vote_c = vote[:, coord:coord + 1]
+            if k == 1:
+                x2 = torch.where(got, vote_c, x)
+                ts2 = torch.where(got, phase, ts)
+                ready2, commit2, vote2 = ready, commit, vote
+                dec2, decided2 = dec, decided
+            else:
+                newly = got & ~decided
+                decided2 = decided | got
+                dec2 = torch.where(newly, vote_c, dec)
+                ready2 = commit2 = torch.zeros_like(ready)
+                x2, ts2, vote2 = x, ts, vote
+                exit_ = got
+        x = torch.where(active, x2, x)
+        ts = torch.where(active, ts2, ts)
+        ready = torch.where(active, ready2, ready)
+        commit = torch.where(active, commit2, commit)
+        vote = torch.where(active, vote2, vote)
+        decided = torch.where(active, decided2, decided)
+        dec = torch.where(active, dec2, dec)
+        done = done | (active & exit_)
+        dround = torch.where(decided & (dround < 0), r, dround)
+    return tuple(t.to(torch.int32) for t in (
+        x, ts, ready, commit, vote, decided, dec, done, dround))
+
+
+def _lv_loop_cuda(x0, crashed, side, crash_round, heal_round, rotate_down,
+                  p8, salt0, salt1, rounds: int):
+    """Launch K3 (csrc/lv_loop.cu)."""
+    from round_tpu_torch.ops import _native
+
+    S, n = x0.shape
+    so = _native.lib("lv_loop")
+    smem = so.lv_loop_smem_bytes(n)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"lv_loop: n={n} needs {smem} bytes of shared "
+                         f"memory per block (max {_MAX_SMEM})")
+    ins = _kernel_inputs(x0.device, S, n, (x0, crashed, side),
+                         (crash_round, heal_round, rotate_down, p8, salt0,
+                          salt1))
+    outs = [torch.empty((S, n), dtype=torch.int32, device=x0.device)
+            for _ in range(9)]
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        err = so.lv_loop_launch(*[a.data_ptr() for a in ins],
+                                _native.pointer_array(outs), S, n, rounds,
+                                stream)
+    LAUNCHES["lv_loop"] += 1
+    _native.check(err, "lv_loop launch")
+    return tuple(outs)
+
+
+def lv_loop(
+    x0: torch.Tensor,           # [S, n] int32 initial estimates
+    crashed: torch.Tensor,      # [S, n] bool
+    side: torch.Tensor,         # [S, n] int32
+    crash_round: torch.Tensor,  # [S] int32
+    heal_round: torch.Tensor,   # [S] int32
+    rotate_down: torch.Tensor,  # [S] int32
+    p8: torch.Tensor,           # [S] int32
+    salt0: torch.Tensor,        # [S] int32
+    salt1: torch.Tensor,        # [S] int32 (UNmixed; rounds premix inside)
+    rounds: int,
+):
+    """The whole LastVoting run in one kernel launch — O(n) hashes per
+    round per scenario (round_tpu/ops/fused.py::lv_loop).  Hash-sampler
+    masks only: they are bit-replayable in the general engine
+    (scenarios.from_mix_row).
+
+    Returns (x, ts, ready, commit, vote, decided, decision, done,
+    decided_round), each [S, n] (ready/commit/decided/done as bool).  CUDA
+    tensors launch K3 (csrc/lv_loop.cu); CPU tensors take the plain
+    version."""
+    args = (x0, crashed, side, crash_round, heal_round, rotate_down, p8,
+            salt0, salt1)
+    if x0.is_cuda:
+        o = _lv_loop_cuda(*args, rounds)
+    elif x0.device.type == "cpu":
+        o = _lv_loop_plain(*args, rounds)
+    else:
+        raise ValueError(f"lv_loop: unsupported device {x0.device}")
+    return (o[0], o[1], o[2] != 0, o[3] != 0, o[4], o[5] != 0, o[6],
+            o[7] != 0, o[8])
 
 
 # ---------------------------------------------------------------------------

@@ -38,12 +38,12 @@ def _tree_pick(values: Any, idx):
     return pytree.tree_map(lambda v: v[idx], values)
 
 
-def _first_true(mask: torch.Tensor) -> torch.Tensor:
-    """Index of the first True in a [n] bool mask (0 when none, like
-    jnp.argmax over an all-False mask)."""
+def first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis of a bool mask (0 where
+    none, like jnp.argmax over an all-False mask)."""
     n = mask.shape[-1]
     ids = torch.arange(n, device=mask.device)
-    first = torch.where(mask, ids, n).min()
+    first = torch.where(mask, ids, n).min(dim=-1).values
     return torch.where(first == n, 0, first)
 
 
@@ -109,7 +109,7 @@ class Mailbox:
         sender id).  ``key`` is ``[n]``, already computed from values."""
         key = torch.where(self.mask, key, _INT_MIN)
         best = key.max()
-        return _first_true(self.mask & (key == best))
+        return first_true(self.mask & (key == best))
 
     def best_by(self, key: torch.Tensor) -> Any:
         """Payload of ``arg_best(key)`` (``mailbox.maxBy(key)``)."""
@@ -117,7 +117,7 @@ class Mailbox:
 
     def any_value(self) -> Any:
         """Payload of the smallest present sender (``mailbox.head`` refined)."""
-        return _tree_pick(self.values, _first_true(self.mask))
+        return _tree_pick(self.values, first_true(self.mask))
 
     # -- aggregate reductions ---------------------------------------------
 
@@ -162,7 +162,7 @@ class Mailbox:
         vals = self.values if values is None else values
         if num_values is not None:
             counts = self.value_histogram(num_values, vals)
-            return _first_true(counts == counts.max()).to(vals.dtype)
+            return first_true(counts == counts.max()).to(vals.dtype)
         eq = vals[None, :] == vals[:, None]
         counts = (eq & self.mask[None, :]).to(torch.int32).sum(
             dim=1, dtype=torch.int32)

@@ -2,7 +2,8 @@
 
 Marked `cuda`: each test skips (it does not fail) where torch finds no CUDA
 card, deciding inside the test.  On the card, chip_smoke.py is the full
-check at n=1024; these are the quick per-kernel checks:
+check at n=1024; these are the quick per-kernel checks of K2, the three K1
+instances and K3:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -61,8 +62,53 @@ def test_otr_loop_kernel_matches_plain(dev, n):
     args = (x0, mix.crashed, mix.side, mix.crash_round, mix.heal_round,
             mix.rotate_down, mix.p8, mix.salt0, mix.salt1)
     algo = fused.OtrLoop(num_values=V, after_decision=2)
-    got = fused._otr_loop_cuda(algo, *args, rounds)
+    got = fused._hist_loop_cuda(algo, *args, rounds)
     torch.cuda.synchronize()
     want = fused._hist_loop_plain(algo, *args, rounds, "hash")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _loop_inputs(dev, n, S, V, seed, heal_round=5):
+    """standard_mix rows with the p8 grid of every drop regime (0, 1, 13,
+    64, 128, 255 and the 256 blackout) laid over the drop rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mix = fast.standard_mix(g, S, n, heal_round=heal_round, device=dev)
+    grid = torch.tensor([0, 1, 13, 64, 128, 255, 256], dtype=torch.int32,
+                        device=dev).repeat(S // 7 + 1)[:S]
+    over = torch.arange(S, device=dev) % 3 == 0
+    mix = mix.replace(p8=torch.where(over, grid, mix.p8).to(torch.int32))
+    x0 = torch.randint(0, V, (n,), generator=g, device=dev,
+                       dtype=torch.int32).expand(S, n).contiguous()
+    return (x0, mix.crashed, mix.side, mix.crash_round, mix.heal_round,
+            mix.rotate_down, mix.p8, mix.salt0, mix.salt1)
+
+
+@pytest.mark.parametrize("algo,rounds", [
+    (fused.FloodMinLoop(num_values=16, f=2), 6),
+    (fused.FloodMinLoop(num_values=1000, f=2), 6),
+    (fused.BenOrLoop(), 12),
+])
+@pytest.mark.parametrize("n", [64, 1000])
+def test_new_loop_instances_match_plain(dev, n, algo, rounds):
+    args = _loop_inputs(dev, n, 21, algo.num_values, n + rounds)
+    before = fused.LAUNCHES[algo.kernel]
+    got = fused._hist_loop_cuda(algo, *args, rounds)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[algo.kernel] == before + 1
+    want = fused._hist_loop_plain(algo, *args, rounds, "hash")
+    assert len(got) == algo.n_state + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [64, 1000])
+def test_lv_loop_kernel_matches_plain(dev, n):
+    args = _loop_inputs(dev, n, 21, 40, n, heal_round=9)
+    before = fused.LAUNCHES["lv_loop"]
+    got = fused._lv_loop_cuda(*args, 20)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["lv_loop"] == before + 1
+    want = fused._lv_loop_plain(*args, 20)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
