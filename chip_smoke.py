@@ -5,14 +5,18 @@
 
 Builds the hand-written CUDA kernels of round_tpu_torch from
 round_tpu_torch/csrc and holds each against its plain PyTorch version, bit
-for bit (tolerance 0: every output is an integer), before driving the
-paths that run them.  The five kernels:
+for bit (tolerance 0: every output is an integer, or twice a float), before
+driving the paths that run them.  The kernels, in both link streams where
+they have two (hash, and hw: the Philox stream that takes the place of the
+TPU's hardware PRNG):
 
-  hist_exchange   K2, csrc/hist_exchange.cu (one round's exchange)
-  otr_loop        K1, csrc/hist_loop.cu, OTR instance (the whole run)
-  floodmin_loop   K1, csrc/hist_loop.cu, FloodMin instance
-  benor_loop      K1, csrc/hist_loop.cu, Ben-Or instance
-  lv_loop         K3, csrc/lv_loop.cu (the whole LastVoting run)
+  hist_exchange(_hw)   K2, csrc/hist_exchange.cu (one round's exchange)
+  otr_loop(_hw)        K1, csrc/hist_loop.cu, OTR instance (the whole run)
+  floodmin_loop(_hw)   K1, csrc/hist_loop.cu, FloodMin instance
+  benor_loop(_hw)      K1, csrc/hist_loop.cu, Ben-Or instance
+  lv_loop              K3, csrc/lv_loop.cu (the whole LastVoting run)
+  probe_double         P1, csrc/probe.cu (the bisect tool's o = 2 x)
+  philox_bits          P2, csrc/probe.cu (the bisect tool's PRNG probe)
 
 Phases, each printed as one line:
 
@@ -27,14 +31,26 @@ Phases, each printed as one line:
                    LastVoting over 20 rounds with the partition healing
                    mid-run; the public run_floodmin_loop, run_benor_loop
                    and lv_loop on the card against the CPU
-  flagship         OTR, n=1024 x 10,000 scenarios x 50 rounds, through the
-                   bench's entry point on K1 (launches counted)
-  per-round        the same on K2, S=1,000
+  P-vs-plain       P1 and P2 at the bisect shape against their plain
+                   versions; P2 also against Random123's known answers
+  hw-vs-plain      K2 and the three K1 instances in hw mode, n=1024 x 64
+                   and n=1000 x 7, the p8 grid, against their plain hw
+                   versions; the public hw wrappers on the card against
+                   the CPU; run_hist(hw) against run_otr_loop(hw)
+  flagship-hash    OTR, n=1024 x 10,000 scenarios x 50 rounds, hash links,
+                   through the bench's entry point on K1 (launches counted)
+  flagship         the same in hw mode, the bench's default, with the
+                   bench's parity (a hash replay against the general
+                   engine); its decision statistics against the hash run
+  per-round(-hw)   the same on K2, S=1,000, hash and hw
   parity           8 flagship scenarios replayed through the general engine
   ladder-<rung>    otr4, floodmin, lv and benor at their reference shapes
-                   through round_tpu_torch.apps.ladder: rounds/sec, parity,
-                   spec parities and the launches of the rung's kernel
-  K*-time          each kernel's time at its path's shape (K3 also at
+                   through round_tpu_torch.apps.ladder (timed in hw, parity
+                   on hash replays): rounds/sec, parity, spec parities and
+                   the launches of the rung's kernels
+  bisect           python -m round_tpu_torch.tools.bisect: every stage ok,
+                   each in its own process, with the launches it reports
+  K*-time, P*-time each kernel's time at its path's shape (K3 also at
                    n=1024 x 10,000 x 40 rounds), its plain version's time,
                    its bound and what bounds it
 
@@ -50,6 +66,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -59,14 +76,28 @@ ROOT = Path(__file__).resolve().parent
 
 # flagship shape (README / bench defaults)
 N, S_FLAG, ROUNDS, V, P_DROP = 1024, 10_000, 50, 16, 0.25
+S_PLAIN_HW = 512         # scenarios of the flagship K1-hw plain comparison
 S_FUSED = 1_000          # run_hist (K2, one launch per round)
 S_CHECK = 64             # kernel-vs-plain comparisons
 PARITY_K, PARITY_ROUNDS = 8, 10
 SEED = 0
 P8_GRID = (0, 1, 13, 64, 128, 255, 256)
-# the ladder rungs (round_tpu_torch/apps/ladder.py) and the kernel each runs
-RUNG_KERNEL = {"otr4": "otr_loop", "floodmin": "floodmin_loop",
-               "lv": "lv_loop", "benor": "benor_loop"}
+# the ladder rungs (round_tpu_torch/apps/ladder.py) and the kernels each
+# runs: the timed one (hw on the card) and its hash-mode parity replay
+RUNG_KERNELS = {"otr4": ("otr_loop_hw", "otr_loop"),
+                "floodmin": ("floodmin_loop_hw", "floodmin_loop"),
+                "lv": ("lv_loop",),
+                "benor": ("benor_loop_hw", "benor_loop")}
+# Random123's Philox4x32-10 known-answer vectors: counter, key, output
+PHILOX_KAT = (
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+)
+PROBE_SHAPE = (128, 128)  # the bisect tool's P1 and P2 shape
 # K3 beyond the lv rung (whose crash mix has p8 = 0 and hashes nothing)
 LV_N, LV_S, LV_ROUNDS = 1024, 10_000, 40
 
@@ -84,8 +115,16 @@ IMAD_OPS_PER_S = 132 * 64 * 1.98e9
 # & 0xFF fold into one LOP3) and the >= p8 compare; on the FMA pipe: the
 # index multiply-add and fmix32's two multiplies.  The count increments are
 # left out, so the bound is a floor.
-ALU_PER_LINK = 8
-IMAD_PER_LINK = 3
+HASH_OPS = (8, 3)  # (ALU, FMA) per link
+# Per Philox4x32-10 call (csrc/hash.cuh::rt_philox4x32_10, as cuobjdump
+# shows it in the hw loops): 19 three-way xors (LOP3) on the ALU pipe; 20
+# multiplies on the FMA pipe (18 IMAD.WIDE.U32, and IMAD.HI.U32 + IMAD for
+# the first round, whose other product is 0), each counted once.  The key
+# schedule (18 adds) is one per (scenario, round) and is left out.  Per hw
+# link, besides 1/16 of a call: the byte's shift, its & 0xFF and the >=
+# compare on the ALU pipe.
+PHILOX_OPS = (19, 20)
+HW_OPS = (3 + PHILOX_OPS[0] / 16, PHILOX_OPS[1] / 16)
 
 
 def say(phase: str, **fields) -> None:
@@ -114,12 +153,13 @@ def event_ms(fn, reps: int = 1):
     return start.elapsed_time(end) / reps, out
 
 
-def bound_ms(nbytes: float, links: float):
+def bound_ms(nbytes: float, links: float, ops=HASH_OPS):
     """(ms, "bytes" or "operations", pipe): the least time of the work, the
-    larger of the byte time and the busier integer pipe's time."""
+    larger of the byte time and the busier integer pipe's time, for `links`
+    units of work of `ops` = (ALU, FMA) operations each."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_alu = links * ALU_PER_LINK / ALU_OPS_PER_S * 1e3
-    t_imad = links * IMAD_PER_LINK / IMAD_OPS_PER_S * 1e3
+    t_alu = links * ops[0] / ALU_OPS_PER_S * 1e3
+    t_imad = links * ops[1] / IMAD_OPS_PER_S * 1e3
     t_ops, pipe = (t_alu, "ALU") if t_alu >= t_imad else (t_imad, "FMA")
     if t_bytes >= t_ops:
         return t_bytes, "bytes", "HBM"
@@ -275,9 +315,9 @@ def main() -> None:
                     f"K2 vs its plain version (n={n}, S={S}, rowmask="
                     f"{rm is not None}, side={sd is not None})",
                     [fused._hist_exchange_cuda(vals, senders, rm, sd, s0, s1,
-                                               p8, V)],
+                                               p8, V, "hash")],
                     [fused._hist_exchange_plain(vals, senders, rm, sd, s0,
-                                                s1, p8, V)]))
+                                                s1, p8, V, "hash")]))
                 if n != N:
                     continue
                 # the public wrapper (sender silencing, the self-delivery
@@ -290,8 +330,8 @@ def main() -> None:
                 k2_err = max(k2_err, compare(
                     f"hist_exchange on the card vs the CPU (rowmask="
                     f"{rm is not None}, side={sd is not None})",
-                    [fused.hist_exchange(*wargs).cpu()],
-                    [fused.hist_exchange(*_on_cpu(wargs))]))
+                    [fused.hist_exchange(*wargs, mode="hash").cpu()],
+                    [fused.hist_exchange(*_on_cpu(wargs), mode="hash")]))
     say("K2-vs-plain", n=N, S=S_CHECK, V=V, p8="0,1,13,64,128,255,256",
         cases="rowmask x side, plus n=1000, plus the public wrapper vs CPU",
         tolerance=0, max_abs_err=k2_err, equal=True)
@@ -310,13 +350,14 @@ def main() -> None:
                 mix.rotate_down, mix.p8, mix.salt0, mix.salt1)
         k1_err = max(k1_err, compare(
             f"K1 vs its plain version (n={n}, S={S})",
-            fused._hist_loop_cuda(algo, *args, PARITY_ROUNDS),
+            fused._hist_loop_cuda(algo, *args, PARITY_ROUNDS, "hash"),
             fused._hist_loop_plain(algo, *args, PARITY_ROUNDS, "hash")))
         if n != N:
             continue
         # the public wrapper on the card against the same call on CPU copies
         wargs = tuple(a[:9] for a in args)  # the four families + a blackout
-        kw = dict(num_values=V, rounds=PARITY_ROUNDS, after_decision=2)
+        kw = dict(num_values=V, rounds=PARITY_ROUNDS, after_decision=2,
+                  mode="hash")
         k1_err = max(k1_err, compare(
             "otr_loop on the card vs the CPU",
             [t.cpu() for t in fused.otr_loop(*wargs, **kw)],
@@ -351,7 +392,7 @@ def main() -> None:
             args = (x0, *fast._mix_args(mix))
             errs[lalgo.kernel] = max(errs[lalgo.kernel], compare(
                 f"{lalgo.kernel} {label} n={n}",
-                fused._hist_loop_cuda(lalgo, *args, rounds),
+                fused._hist_loop_cuda(lalgo, *args, rounds, "hash"),
                 fused._hist_loop_plain(lalgo, *args, rounds, "hash")))
         # the public runner on the card against the same call on CPU copies
         wmix, wx0 = loop_inputs(N, S_PUB, xv)
@@ -363,9 +404,9 @@ def main() -> None:
             rnd, st0 = fast.BenOrHist(), BenOrState.fresh(wx0[0], S_PUB, N)
             run = fast.run_benor_loop
             fields = ("x", "can_decide", "vote", "decided", "decision")
-        got = run(rnd, st0, wmix, rounds)
+        got = run(rnd, st0, wmix, rounds, mode="hash")
         want = run(rnd, tree_map(lambda t: t.cpu(), st0),
-                   tree_map(lambda t: t.cpu(), wmix), rounds)
+                   tree_map(lambda t: t.cpu(), wmix), rounds, mode="hash")
         errs[lalgo.kernel] = max(errs[lalgo.kernel], compare(
             f"{run.__name__} on the card vs the CPU",
             [getattr(got[0], f) for f in fields] + list(got[1:]),
@@ -396,31 +437,160 @@ def main() -> None:
         cases="standard_mix + p8 grid, plus lv_loop vs CPU", outputs=9,
         tolerance=0, max_abs_err=errs["lv_loop"], equal=True)
 
+    # -- 4c. the probes and the hw link stream against their plain versions -
+    x = torch.randn(PROBE_SHAPE, generator=gen, device=dev)
+    got, want = fused.probe_double(x).cpu(), fused.probe_double(x.cpu())
+    p1_err = float((got - want).abs().max())
+    require(torch.equal(got, want),
+            f"probe_double differs from x * 2 (max_abs_err={p1_err})")
+    seed = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    p2_err = compare("philox_bits vs its plain version",
+                     [fused.philox_bits(seed, PROBE_SHAPE)],
+                     [fused.philox_bits(seed.cpu(), PROBE_SHAPE)])
+    for counter, key, words in PHILOX_KAT:
+        kat = fused.philox_bits(fused._i32(torch.tensor(key)).to(dev), (4,),
+                                counter=counter)
+        require([w & 0xFFFFFFFF for w in kat.tolist()] == list(words),
+                f"philox_bits at counter {counter}, key {key}: not "
+                "Random123's known answer")
+    say("P-vs-plain", shape="128x128", tolerance=0, p1_max_abs_err=p1_err,
+        p2_max_abs_err=p2_err, known_answers=len(PHILOX_KAT), equal=True)
+
+    hw_err = {"hist_exchange_hw": 0.0, "otr_loop_hw": 0.0,
+              "floodmin_loop_hw": 0.0, "benor_loop_hw": 0.0}
+    hw_algos = ((fused.OtrLoop(num_values=V, after_decision=2),
+                 PARITY_ROUNDS, V),
+                (fused.FloodMinLoop(num_values=16, f=2), 6, 16),
+                (fused.BenOrLoop(), 12, 2))
+    for n, S in ((N, S_CHECK), (1000, 7)):
+        vals = torch.randint(0, V, (S, n), generator=gen, device=dev,
+                             dtype=torch.int32)
+        active = torch.rand((S, n), generator=gen, device=dev) < 0.9
+        colmask = torch.rand((S, n), generator=gen, device=dev) < 0.8
+        rowmask = torch.rand((S, n), generator=gen, device=dev) < 0.9
+        side = torch.randint(0, 2, (S, n), generator=gen, device=dev,
+                             dtype=torch.int32)
+        s0 = fast._salts(gen, S, 0, dev)
+        s1 = fast._salts(gen, S, 1, dev)
+        p8 = torch.tensor(P8_GRID, dtype=torch.int32,
+                          device=dev).repeat(S // 7 + 1)[:S]
+        senders = colmask & active & (p8 < 256)[:, None]
+        for rm in (None, rowmask):
+            for sd in (None, side):
+                hw_err["hist_exchange_hw"] = max(
+                    hw_err["hist_exchange_hw"], compare(
+                        f"K2-hw vs its plain version (n={n}, rowmask="
+                        f"{rm is not None}, side={sd is not None})",
+                        [fused._hist_exchange_cuda(vals, senders, rm, sd, s0,
+                                                   s1, p8, V, "hw")],
+                        [fused._hist_exchange_plain(vals, senders, rm, sd,
+                                                    s0, s1, p8, V, "hw")]))
+        for lalgo, rounds, xv in hw_algos:
+            mix, x0 = loop_inputs(n, S, xv)
+            args = (x0, *fast._mix_args(mix))
+            name = lalgo.kernel + "_hw"
+            hw_err[name] = max(hw_err[name], compare(
+                f"{name} n={n}",
+                fused._hist_loop_cuda(lalgo, *args, rounds, "hw"),
+                fused._hist_loop_plain(lalgo, *args, rounds, "hw")))
+    # the public hw wrappers on the card against the same calls on CPU
+    # copies, and the per-round engine against the whole-run kernel
+    cut = slice(0, 14)  # every p8 of the grid twice
+    wargs = (vals[cut], active[cut], colmask[cut], rowmask[cut], side[cut],
+             s0[cut], s1[cut], p8[cut], V)
+    hw_err["hist_exchange_hw"] = max(hw_err["hist_exchange_hw"], compare(
+        "hist_exchange(hw) on the card vs the CPU",
+        [fused.hist_exchange(*wargs, mode="hw").cpu()],
+        [fused.hist_exchange(*_on_cpu(wargs), mode="hw")]))
+    mix, x0 = loop_inputs(N, S_CHECK, V)
+    wargs = (x0[cut], *(a[cut] for a in fast._mix_args(mix)))
+    kw = dict(num_values=V, rounds=PARITY_ROUNDS, after_decision=2)
+    hw_err["otr_loop_hw"] = max(hw_err["otr_loop_hw"], compare(
+        "otr_loop(hw) on the card vs the CPU",
+        [t.cpu() for t in fused.otr_loop(*wargs, **kw)],
+        fused.otr_loop(*_on_cpu(wargs), **kw)))
+    rnd = fast.OtrHist(n_values=V, after_decision=2)
+    st_h, done_h, dr_h = fast.run_hist(
+        rnd, OtrState.fresh(x0[0], S_CHECK, N), lambda s: s.decided, mix,
+        PARITY_ROUNDS)
+    st_l, done_l, dr_l = fast.run_otr_loop(
+        rnd, OtrState.fresh(x0[0], S_CHECK, N), mix, PARITY_ROUNDS)
+    fields = ("x", "decided", "decision", "after")
+    compare("run_hist(hw) vs run_otr_loop(hw)",
+            [getattr(st_h, f) for f in fields] + [done_h, dr_h],
+            [getattr(st_l, f) for f in fields] + [done_l, dr_l])
+    say("hw-vs-plain", n=f"{N},1000", S=f"{S_CHECK},7",
+        p8=",".join(map(str, P8_GRID)),
+        cases="K2 rowmask x side; K1 OTR, FloodMin V=16, Ben-Or; the public "
+              "hist_exchange and otr_loop vs CPU; run_hist(hw) vs "
+              "run_otr_loop(hw)", tolerance=0,
+        max_abs_err=json.dumps(hw_err).replace(" ", ""),
+        run_hist_equals_loop=True)
+
     # -- 5. the main paths, through the bench's entry point ------------------
     common = ["--n", str(N), "--phases", str(ROUNDS), "--values", str(V),
               "--p-drop", str(P_DROP), "--seed", str(SEED), "--parity", "0",
               "--device", "cuda"]
+    flag_args = ["--scenarios", str(S_FLAG), "--engine", "loop",
+                 "--repeats", "2"]
     fused.reset_launches()
-    flag = bench.main(common + ["--scenarios", str(S_FLAG), "--engine",
-                                "loop", "--repeats", "2"])
+    flag_hash = bench.main(common + flag_args + ["--rng", "hash"])
     k1_launches = fused.LAUNCHES["otr_loop"]
-    require(k1_launches > 0, "the flagship path launched no K1 kernel")
-    fe = flag["extra"]
-    say("flagship", engine="loop", n=N, S=S_FLAG, rounds=ROUNDS,
-        rounds_per_sec=flag["value"],
+    require(k1_launches > 0, "the hash flagship launched no K1 kernel")
+    fe = flag_hash["extra"]
+    say("flagship-hash", engine="loop", rng="hash", n=N, S=S_FLAG,
+        rounds=ROUNDS, rounds_per_sec=flag_hash["value"],
         frac_lanes_decided=fe["frac_lanes_decided"],
         decided_round_p50=fe["decided_round_p50"], K1_launches=k1_launches)
     require(fe["frac_lanes_decided"] > 0.5, "the flagship decided too little")
 
+    # the bench's default, hw links, with its parity (a hash-mode replay of
+    # PARITY_K scenarios against the general engine)
     fused.reset_launches()
-    per_round = bench.main(common + ["--scenarios", str(S_FUSED), "--engine",
-                                     "fused", "--repeats", "1"])
+    flag = bench.main(common + flag_args + ["--parity", str(PARITY_K)])
+    k1_hw_launches = fused.LAUNCHES["otr_loop_hw"]
+    require(k1_hw_launches > 0, "the hw flagship launched no K1-hw kernel")
+    hx = flag["extra"]
+    require(hx["rng"] == "hw", f"the bench's default rng is {hx['rng']}")
+    # Both runs draw the same mixes and initial values; only the link
+    # stream differs.  Scenarios are the independent units, so the decided
+    # fractions may differ by 4 standard deviations of the difference of
+    # two binomial fractions over S_FLAG scenarios (the variance floored at
+    # that of one scenario in S_FLAG); the p50 decided round by one round.
+    f_hash = fe["frac_lanes_decided"]
+    tol = 4 * math.sqrt(2 * max(f_hash * (1 - f_hash), 1 / S_FLAG) / S_FLAG)
+    say("flagship", engine="loop", rng="hw", n=N, S=S_FLAG, rounds=ROUNDS,
+        rounds_per_sec=flag["value"], hash_rounds_per_sec=flag_hash["value"],
+        frac_lanes_decided=hx["frac_lanes_decided"],
+        hash_frac_lanes_decided=f_hash, tolerance=round(tol, 6),
+        decided_round_p50=hx["decided_round_p50"],
+        hash_decided_round_p50=fe["decided_round_p50"],
+        parity_frac=hx["parity_frac"], K1_hw_launches=k1_hw_launches)
+    require(abs(hx["frac_lanes_decided"] - f_hash) <= tol,
+            "the hw flagship's decided fraction is off the hash one's")
+    require(abs(hx["decided_round_p50"] - fe["decided_round_p50"]) <= 1,
+            "the hw flagship's p50 decided round is off the hash one's")
+    require(hx["parity_frac"] == 1.0,
+            f"hw flagship parity {hx['parity_frac']} != 1.0")
+
+    round_args = ["--scenarios", str(S_FUSED), "--engine", "fused",
+                  "--repeats", "1"]
+    fused.reset_launches()
+    per_round = bench.main(common + round_args + ["--rng", "hash"])
     k2_launches = fused.LAUNCHES["hist_exchange"]
     require(k2_launches > 0, "the per-round path launched no K2 kernel")
-    say("per-round", engine="fused", n=N, S=S_FUSED, rounds=ROUNDS,
-        rounds_per_sec=per_round["value"],
+    say("per-round", engine="fused", rng="hash", n=N, S=S_FUSED,
+        rounds=ROUNDS, rounds_per_sec=per_round["value"],
         frac_lanes_decided=per_round["extra"]["frac_lanes_decided"],
         K2_launches=k2_launches)
+    fused.reset_launches()
+    per_round_hw = bench.main(common + round_args)
+    k2_hw_launches = fused.LAUNCHES["hist_exchange_hw"]
+    require(k2_hw_launches > 0, "the hw per-round path launched no K2-hw")
+    say("per-round-hw", engine="fused", rng="hw", n=N, S=S_FUSED,
+        rounds=ROUNDS, rounds_per_sec=per_round_hw["value"],
+        frac_lanes_decided=per_round_hw["extra"]["frac_lanes_decided"],
+        K2_hw_launches=k2_hw_launches)
 
     # -- 6. parity against the general engine --------------------------------
     pgen = torch.Generator(device=dev).manual_seed(SEED)
@@ -433,7 +603,7 @@ def main() -> None:
         "salt0", "salt1")})
     rnd = fast.OtrHist(n_values=V, after_decision=2)
     st, _, _ = fast.run_otr_loop(rnd, OtrState.fresh(init, PARITY_K, N), sub,
-                                 PARITY_ROUNDS)
+                                 PARITY_ROUNDS, mode="hash")
     algo_g = OTR(after_decision=2, n_values=V)
     agree = 0
     for s in range(PARITY_K):
@@ -449,11 +619,11 @@ def main() -> None:
 
     # -- 6b. the config ladder at its reference shapes -----------------------
     rung_launches = {}
-    for name, kernel in RUNG_KERNEL.items():
+    for name, kernels in RUNG_KERNELS.items():
         fused.reset_launches()
         res = ladder.RUNGS[name](repeats=2, device=dev)
         launches = {k: v for k, v in fused.LAUNCHES.items() if v}
-        rung_launches[name] = launches.get(kernel, 0)
+        rung_launches[name] = launches
         ex = res["extra"]
         parity = ex.get("parity_frac", ex.get("loop_parity_frac"))
         spec = {k: v for k, v in ex.items() if k.endswith("_parity")}
@@ -466,16 +636,43 @@ def main() -> None:
         require(parity == 1.0, f"ladder rung {name}: parity {parity} != 1.0")
         require(all(v is True for v in spec.values()),
                 f"ladder rung {name}: a spec parity is false: {spec}")
-        require(rung_launches[name] > 0,
-                f"ladder rung {name} launched no {kernel} kernel")
+        for kernel in kernels:
+            require(launches.get(kernel, 0) > 0,
+                    f"ladder rung {name} launched no {kernel} kernel")
+
+    # -- 6c. the bisect tool, each stage in its own process ------------------
+    t0 = time.perf_counter()
+    cp = subprocess.run(
+        [sys.executable, "-m", "round_tpu_torch.tools.bisect"], cwd=ROOT,
+        capture_output=True, text=True, timeout=900)
+    stages = {}
+    for line in cp.stdout.splitlines():
+        if line.startswith("{"):
+            stages.update(json.loads(line))
+    bisect_launches = {}
+    for res in stages.values():
+        for k, v in res.get("launches", {}).items():
+            bisect_launches[k] = bisect_launches.get(k, 0) + v
+    say("bisect", stages=len(stages),
+        ok=sum(bool(r["ok"]) for r in stages.values()),
+        wall_s=round(time.perf_counter() - t0, 1),
+        launches=json.dumps(bisect_launches).replace(" ", ""))
+    require(cp.returncode == 0 and stages and all(
+        r["ok"] for r in stages.values()),
+        f"bisect failed (exit {cp.returncode}):\n{cp.stdout[-3000:]}\n"
+        f"{cp.stderr[-3000:]}")
+    for kernel in ("probe_double", "philox_bits", "otr_loop_hw",
+                   "hist_exchange_hw"):
+        require(bisect_launches.get(kernel, 0) > 0,
+                f"the bisect tool launched no {kernel} kernel")
 
     # -- 7. kernel times, bounds, plain and library times --------------------
     # K1 at the flagship shape (the flagship mix of seed SEED)
     x0 = init.expand(S_FLAG, N).contiguous()
     args = (x0, mix.crashed, mix.side, mix.crash_round, mix.heal_round,
             mix.rotate_down, mix.p8, mix.salt0, mix.salt1)
-    k1_ms, out = event_ms(lambda: fused._hist_loop_cuda(algo, *args, ROUNDS),
-                          reps=3)
+    k1_ms, out = event_ms(
+        lambda: fused._hist_loop_cuda(algo, *args, ROUNDS, "hash"), reps=3)
     cnt, hist = decided_summary(out[1] != 0, out[5], ROUNDS)
     k1_links = loop_links(mix, out[5], ROUNDS, linger=1)
     k1_bytes = 4 * S_FLAG * N * (3 + 6) + 4 * 6 * S_FLAG
@@ -492,6 +689,25 @@ def main() -> None:
         frac_lanes_decided=round(float(cnt) / (S_FLAG * N), 4),
         decided_round_p50=p50_from_hist(hist.cpu()))
 
+    # K1-hw on the same inputs; its plain version on the first S_PLAIN_HW
+    # scenarios (each scenario's run depends on its own row alone)
+    k1hw_ms, out = event_ms(
+        lambda: fused._hist_loop_cuda(algo, *args, ROUNDS, "hw"), reps=3)
+    cnt, hist = decided_summary(out[1] != 0, out[5], ROUNDS)
+    k1hw_links = loop_links(mix, out[5], ROUNDS, linger=1)
+    k1hw_bound, k1hw_by, k1hw_pipe = bound_ms(k1_bytes, k1hw_links, HW_OPS)
+    cut = slice(0, S_PLAIN_HW)
+    k1hw_plain_ms, plain = plain_ms(lambda: fused._hist_loop_plain(
+        algo, *(a[cut] for a in args), ROUNDS, "hw"))
+    compare(f"K1-hw at the flagship shape (first {S_PLAIN_HW} scenarios)",
+            [o[cut] for o in out], plain)
+    say("K1-hw-time", ms=round(k1hw_ms, 3),
+        plain_ms=round(k1hw_plain_ms, 1), plain_scenarios=S_PLAIN_HW,
+        bound_ms=round(k1hw_bound, 3), bound_by=k1hw_by, pipe=k1hw_pipe,
+        drawn_links=f"{k1hw_links:.4g}",
+        frac_lanes_decided=round(float(cnt) / (S_FLAG * N), 4),
+        decided_round_p50=p50_from_hist(hist.cpu()))
+
     # K2 at round 0 of the per-round path (S_FUSED scenarios, every lane
     # active): one launch's work
     fgen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -502,34 +718,39 @@ def main() -> None:
     vals = finit.expand(S_FUSED, N).contiguous()
     senders = colmask & (p8 < 256)[:, None]
     k2_args = (vals, senders, None, side_r, salt0, salt1r, p8, V)
-    k2_ms, got = event_ms(lambda: fused._hist_exchange_cuda(*k2_args), reps=5)
-    t0 = time.perf_counter()
-    want = fused._hist_exchange_plain(*k2_args)
-    torch.cuda.synchronize()
-    k2_plain_ms = (time.perf_counter() - t0) * 1e3
-    compare("K2 at the per-round shape", [got], [want])
+    onehot = ((vals[:, None, :] == rows[None, :, None])
+              & senders[:, None, :]).to(torch.float32)
     hashed = ((p8 > 0) & (p8 < 256)).to(torch.float64)
     k2_links = float((hashed * senders.sum(1).to(torch.float64)
                       * (N - 1)).sum())
     k2_bytes = 4 * S_FUSED * N * 3 + 4 * 3 * S_FUSED + 4 * S_FUSED * V * N
-    k2_bound, k2_by, k2_pipe = bound_ms(k2_bytes, k2_links)
-    # yardstick only (the port never calls it): one torch.bmm of the
-    # one-hot senders and the materialised keep mask
-    keep = torch.empty((S_FUSED, N, N), dtype=torch.float32, device=dev)
-    for sl in fused._chunks(S_FUSED, N):
-        k = fused._keep_mask(N, "hash", salt0[sl], salt1r[sl], p8[sl])
-        k = k & (side_r[sl][:, :, None] == side_r[sl][:, None, :])
-        keep[sl] = k.to(torch.float32)
-    onehot = ((vals[:, None, :] == rows[None, :, None])
-              & senders[:, None, :]).to(torch.float32)
-    lib_ms, lib_out = event_ms(
-        lambda: torch.bmm(onehot, keep.transpose(1, 2)), reps=5)
-    require(torch.equal(lib_out, got), "the bmm yardstick disagrees with K2")
-    del keep, lib_out
-    say("K2-time", ms=round(k2_ms, 3), plain_ms=round(k2_plain_ms, 1),
-        bound_ms=round(k2_bound, 4), bound_by=k2_by, pipe=k2_pipe,
-        bytes_ms=round(k2_bytes / HBM_BYTES_PER_S * 1e3, 4),
-        library_ms=round(lib_ms, 3), hashed_links=f"{k2_links:.4g}")
+    k2_rows = {}
+    for mode, ops in (("hash", HASH_OPS), ("hw", HW_OPS)):
+        k2m_ms, got = event_ms(
+            lambda: fused._hist_exchange_cuda(*k2_args, mode), reps=5)
+        k2m_plain_ms, want = plain_ms(
+            lambda: fused._hist_exchange_plain(*k2_args, mode))
+        compare(f"K2 ({mode}) at the per-round shape", [got], [want])
+        bnd, by, pipe = bound_ms(k2_bytes, k2_links, ops)
+        # yardstick only (the port never calls it): one torch.bmm of the
+        # one-hot senders and the materialised keep mask
+        keep = torch.empty((S_FUSED, N, N), dtype=torch.float32, device=dev)
+        for sl in fused._chunks(S_FUSED, N):
+            k = fused._keep_mask(N, mode, salt0[sl], salt1r[sl], p8[sl])
+            k = k & (side_r[sl][:, :, None] == side_r[sl][:, None, :])
+            keep[sl] = k.to(torch.float32)
+        lib_m_ms, lib_out = event_ms(
+            lambda: torch.bmm(onehot, keep.transpose(1, 2)), reps=5)
+        require(torch.equal(lib_out, got),
+                f"the bmm yardstick disagrees with K2 ({mode})")
+        del keep, lib_out
+        say("K2-time" if mode == "hash" else "K2-hw-time",
+            ms=round(k2m_ms, 3), plain_ms=round(k2m_plain_ms, 1),
+            bound_ms=round(bnd, 4), bound_by=by, pipe=pipe,
+            bytes_ms=round(k2_bytes / HBM_BYTES_PER_S * 1e3, 4),
+            library_ms=round(lib_m_ms, 3), drawn_links=f"{k2_links:.4g}")
+        k2_rows[mode] = (k2m_ms, k2m_plain_ms, bnd, by, lib_m_ms)
+    k2_ms, k2_plain_ms, k2_bound, k2_by, lib_ms = k2_rows["hash"]
 
     # K1 FloodMin at its rung's shape (crash mix: p8 = 0, nothing hashed)
     fgen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -539,18 +760,24 @@ def main() -> None:
                        dtype=torch.int32).expand(S, n).contiguous()
     algo_fm = fused.FloodMinLoop(num_values=Vf, f=f)
     args = (x0, *fast._mix_args(mix))
-    fm_ms, out = event_ms(lambda: fused._hist_loop_cuda(algo_fm, *args,
-                                                        rounds), reps=20)
-    fm_plain_ms, plain = plain_ms(
-        lambda: fused._hist_loop_plain(algo_fm, *args, rounds, "hash"))
-    compare("floodmin_loop at the rung's shape", out, plain)
-    fm_links = loop_links(mix, out[-1], rounds, linger=0)
     fm_bytes = 4 * S * n * (3 + 5) + 4 * 6 * S
-    fm_bound, fm_by, fm_pipe = bound_ms(fm_bytes, fm_links)
-    say("K1-FloodMin-time", n=n, S=S, V=Vf, rounds=rounds,
-        launches=rung_launches["floodmin"], ms=round(fm_ms, 4),
-        plain_ms=round(fm_plain_ms, 2), bound_ms=round(fm_bound, 5),
-        bound_by=fm_by, pipe=fm_pipe, hashed_links=f"{fm_links:.4g}")
+    fm_rows = {}
+    for mode, ops in (("hash", HASH_OPS), ("hw", HW_OPS)):
+        ms, out = event_ms(lambda: fused._hist_loop_cuda(
+            algo_fm, *args, rounds, mode), reps=20)
+        p_ms, plain = plain_ms(
+            lambda: fused._hist_loop_plain(algo_fm, *args, rounds, mode))
+        compare(f"floodmin_loop ({mode}) at the rung's shape", out, plain)
+        links = loop_links(mix, out[-1], rounds, linger=0)
+        bnd, by, pipe = bound_ms(fm_bytes, links, ops)
+        name = fused._launch_name("floodmin_loop", mode)
+        say("K1-FloodMin-time" if mode == "hash" else "K1-FloodMin-hw-time",
+            n=n, S=S, V=Vf, rounds=rounds,
+            launches=rung_launches["floodmin"].get(name, 0),
+            ms=round(ms, 4), plain_ms=round(p_ms, 2),
+            bound_ms=round(bnd, 5), bound_by=by, pipe=pipe,
+            drawn_links=f"{links:.4g}")
+        fm_rows[mode] = (ms, p_ms, bnd, by)
 
     # K1 Ben-Or at its rung's shape (iid omission at p8 = 13)
     bgen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -560,19 +787,25 @@ def main() -> None:
         torch.int32).expand(S, n).contiguous()
     algo_bo = fused.BenOrLoop()
     args = (x0, *fast._mix_args(mix))
-    bo_ms, out = event_ms(lambda: fused._hist_loop_cuda(algo_bo, *args,
-                                                        rounds), reps=5)
-    bo_plain_ms, plain = plain_ms(
-        lambda: fused._hist_loop_plain(algo_bo, *args, rounds, "hash"))
-    compare("benor_loop at the rung's shape", out, plain)
-    bo_links = loop_links(mix, out[-1], rounds, linger=0)
     bo_bytes = 4 * S * n * (3 + 7) + 4 * 6 * S
-    bo_bound, bo_by, bo_pipe = bound_ms(bo_bytes, bo_links)
-    say("K1-BenOr-time", n=n, S=S, rounds=rounds,
-        launches=rung_launches["benor"], ms=round(bo_ms, 4),
-        plain_ms=round(bo_plain_ms, 2), bound_ms=round(bo_bound, 5),
-        bound_by=bo_by, pipe=bo_pipe, hashed_links=f"{bo_links:.4g}",
-        frac_lanes_decided=round(float((out[3] != 0).float().mean()), 4))
+    bo_rows = {}
+    for mode, ops in (("hash", HASH_OPS), ("hw", HW_OPS)):
+        ms, out = event_ms(lambda: fused._hist_loop_cuda(
+            algo_bo, *args, rounds, mode), reps=5)
+        p_ms, plain = plain_ms(
+            lambda: fused._hist_loop_plain(algo_bo, *args, rounds, mode))
+        compare(f"benor_loop ({mode}) at the rung's shape", out, plain)
+        links = loop_links(mix, out[-1], rounds, linger=0)
+        bnd, by, pipe = bound_ms(bo_bytes, links, ops)
+        name = fused._launch_name("benor_loop", mode)
+        say("K1-BenOr-time" if mode == "hash" else "K1-BenOr-hw-time",
+            n=n, S=S, rounds=rounds,
+            launches=rung_launches["benor"].get(name, 0), ms=round(ms, 4),
+            plain_ms=round(p_ms, 2), bound_ms=round(bnd, 5), bound_by=by,
+            pipe=pipe, drawn_links=f"{links:.4g}",
+            frac_lanes_decided=round(float((out[3] != 0).float().mean()),
+                                     4))
+        bo_rows[mode] = (ms, p_ms, bnd, by)
 
     # K3 at the lv rung's shape (crash mix), then on the four-family mix
     lgen = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -593,13 +826,35 @@ def main() -> None:
         nbytes = 4 * S * n * (3 + 9) + 4 * 6 * S
         bnd, by, pipe = bound_ms(nbytes, links)
         say("K3-time", n=n, S=S, rounds=rounds, mix=kind,
-            launches=rung_launches["lv"], ms=round(ms, 4),
+            launches=rung_launches["lv"].get("lv_loop", 0), ms=round(ms, 4),
             plain_ms=round(p_ms, 2), bound_ms=round(bnd, 5), bound_by=by,
             pipe=pipe, bytes_ms=round(nbytes / HBM_BYTES_PER_S * 1e3, 5),
             hashed_links=f"{links:.4g}",
             frac_lanes_decided=round(float((out[5] != 0).float().mean()), 4))
         lv_rows.append((ms, p_ms, bnd, by))
     lv_ms, lv_plain_ms, lv_bound, lv_by = lv_rows[-1]
+
+    # P1 and P2 at the bisect shape.  P1's plain version is x * 2.0, the
+    # same call as the library's torch.mul; no PyTorch call draws a keyed
+    # Philox stream, so P2 has no library time.
+    x = torch.randn(PROBE_SHAPE, generator=gen, device=dev)
+    p1_ms, got = event_ms(lambda: fused.probe_double(x), reps=100)
+    p1_plain_ms, want = plain_ms(lambda: x * 2.0)
+    require(torch.equal(got, want), "probe_double differs from x * 2")
+    p1_lib_ms, _ = event_ms(lambda: torch.mul(x, 2.0), reps=100)
+    p1_bound, p1_by, _pipe = bound_ms(2 * 4 * x.numel(), 0)
+    say("P1-time", ms=round(p1_ms, 5), plain_ms=round(p1_plain_ms, 4),
+        library_ms=round(p1_lib_ms, 5), bound_ms=f"{p1_bound:.3g}",
+        bound_by=p1_by)
+    m = PROBE_SHAPE[0] * PROBE_SHAPE[1]
+    p2_ms, got = event_ms(lambda: fused.philox_bits(seed, PROBE_SHAPE),
+                          reps=100)
+    p2_plain_ms, want = plain_ms(
+        lambda: fused._philox_bits_plain(seed, m, (0, 0, 0, 0)))
+    compare("philox_bits at the bisect shape", [got.reshape(-1)], [want])
+    p2_bound, p2_by, p2_pipe = bound_ms(8 + 4 * m, m / 4, PHILOX_OPS)
+    say("P2-time", ms=round(p2_ms, 5), plain_ms=round(p2_plain_ms, 4),
+        bound_ms=f"{p2_bound:.3g}", bound_by=p2_by, pipe=p2_pipe)
 
     kernels = [
         {"name": "otr_loop", "route": "cuda",
@@ -614,27 +869,56 @@ def main() -> None:
          "launches": k2_launches, "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": lib_ms},
-        # no single PyTorch call computes a whole run: library_ms is null
-        {"name": "floodmin_loop", "route": "cuda",
+        {"name": "otr_loop_hw", "route": "cuda",
          "source": "round_tpu_torch/csrc/hist_loop.cu",
          "replaces": "round_tpu/ops/fused.py:557",
-         "launches": rung_launches["floodmin"],
-         "max_abs_err": errs["floodmin_loop"], "ms": fm_ms,
-         "plain_ms": fm_plain_ms, "bound_ms": fm_bound, "bound_by": fm_by,
-         "library_ms": None},
-        {"name": "benor_loop", "route": "cuda",
-         "source": "round_tpu_torch/csrc/hist_loop.cu",
-         "replaces": "round_tpu/ops/fused.py:557",
-         "launches": rung_launches["benor"],
-         "max_abs_err": errs["benor_loop"], "ms": bo_ms,
-         "plain_ms": bo_plain_ms, "bound_ms": bo_bound, "bound_by": bo_by,
-         "library_ms": None},
+         "launches": k1_hw_launches, "max_abs_err": hw_err["otr_loop_hw"],
+         "ms": k1hw_ms, "plain_ms": k1hw_plain_ms,
+         "plain_scenarios": S_PLAIN_HW, "bound_ms": k1hw_bound,
+         "bound_by": k1hw_by, "library_ms": None},
+        {"name": "hist_exchange_hw", "route": "cuda",
+         "source": "round_tpu_torch/csrc/hist_exchange.cu",
+         "replaces": "round_tpu/ops/fused.py:167",
+         "launches": k2_hw_launches,
+         "max_abs_err": hw_err["hist_exchange_hw"], "ms": k2_rows["hw"][0],
+         "plain_ms": k2_rows["hw"][1], "bound_ms": k2_rows["hw"][2],
+         "bound_by": k2_rows["hw"][3], "library_ms": k2_rows["hw"][4]},
+    ]
+    # no single PyTorch call computes a whole run: library_ms is null
+    for name, rows, rung, err in (
+            ("floodmin_loop", fm_rows, "floodmin", errs["floodmin_loop"]),
+            ("benor_loop", bo_rows, "benor", errs["benor_loop"])):
+        for mode in ("hash", "hw"):
+            kname = fused._launch_name(name, mode)
+            ms, p_ms, bnd, by = rows[mode]
+            kernels.append({
+                "name": kname, "route": "cuda",
+                "source": "round_tpu_torch/csrc/hist_loop.cu",
+                "replaces": "round_tpu/ops/fused.py:557",
+                "launches": rung_launches[rung].get(kname, 0),
+                "max_abs_err": err if mode == "hash" else hw_err[kname],
+                "ms": ms, "plain_ms": p_ms, "bound_ms": bnd, "bound_by": by,
+                "library_ms": None})
+    kernels += [
         {"name": "lv_loop", "route": "cuda",
          "source": "round_tpu_torch/csrc/lv_loop.cu",
          "replaces": "round_tpu/ops/fused.py:965",
-         "launches": rung_launches["lv"], "max_abs_err": errs["lv_loop"],
-         "ms": lv_ms, "plain_ms": lv_plain_ms, "bound_ms": lv_bound,
-         "bound_by": lv_by, "library_ms": None},
+         "launches": rung_launches["lv"].get("lv_loop", 0),
+         "max_abs_err": errs["lv_loop"], "ms": lv_ms,
+         "plain_ms": lv_plain_ms, "bound_ms": lv_bound, "bound_by": lv_by,
+         "library_ms": None},
+        {"name": "probe_double", "route": "cuda",
+         "source": "round_tpu_torch/csrc/probe.cu",
+         "replaces": "tools/tpu_bisect.py:31",
+         "launches": bisect_launches["probe_double"], "max_abs_err": p1_err,
+         "ms": p1_ms, "plain_ms": p1_plain_ms, "bound_ms": p1_bound,
+         "bound_by": p1_by, "library_ms": p1_lib_ms},
+        {"name": "philox_bits", "route": "cuda",
+         "source": "round_tpu_torch/csrc/probe.cu",
+         "replaces": "tools/tpu_bisect.py:45",
+         "launches": bisect_launches["philox_bits"], "max_abs_err": p2_err,
+         "ms": p2_ms, "plain_ms": p2_plain_ms, "bound_ms": p2_bound,
+         "bound_by": p2_by, "library_ms": None},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

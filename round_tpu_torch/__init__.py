@@ -11,9 +11,15 @@ config ladder re-written by hand in CUDA C++ for Hopper (``csrc/``):
                              launch for the whole run (``ops.fused.otr_loop``)
   - the config ladder      = ``apps.ladder``: OTR, FloodMin, LastVoting and
                              Ben-Or, each spec-checked (``spec``)
+  - link drops             = ``mode="hw"`` (the default): a Philox4x32-10
+                             stream in place of the TPU's hardware PRNG;
+                             ``mode="hash"``: bit-exact with round_tpu
+  - the device bisect tool = ``tools.bisect`` (the port of
+                             tools/tpu_bisect.py, with its two probes)
 
 Layout mirrors round_tpu (core/, ops/, engine/, models/, spec/, apps/,
-utils/) so every module has a counterpart of the same name.  Entry points run on ``cuda``
+utils/, and tools/ for the repo's tools/) so every module has a
+counterpart of the same name.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; on CPU tensors each kernel
 wrapper runs its plain PyTorch version instead.
 """

@@ -24,11 +24,18 @@ The reference's fifth rung, ε-agreement (``rung_epsilon``), is absent: it
 runs engine/epsfast.py and ops/detsum.py, which are not ported yet
 (ROADMAP Queue 1, item 11).
 
+Link streams, as in the reference: the timed runs draw their links in
+``mode="hw"`` on the card (the Philox stream of ops.fused, in the place of
+the TPU's hardware PRNG) and in ``mode="hash"`` on the CPU; the parity and
+spec checks replay the warm-up draw in hash mode, the one stream the
+general engine reproduces.  Only otr4's kernel part (p8=26) and benor
+(p8=13) draw links; floodmin and lv run p8=0, and lv is hash-only, as
+round_tpu's ``lv_loop``.
+
 Differences from the reference, on purpose:
-  - hash-mode links only (the TPU hardware PRNG ``mode="hw"`` is not
-    ported), so the timed kernels' outputs replay bit-exactly in the
-    general engine and the parity checks run on the timed engine's own
-    outputs (the reference re-runs the per-round engine for them);
+  - the parity replays run the timed whole-run kernel in hash mode (the
+    reference replays through the per-round engine, which agrees with it
+    bit for bit);
   - nothing falls back: a rung whose kernel or check fails raises (no loop
     to per-round degradation, no general-engine stand-in for lv_loop, no
     caught-and-recorded rung failure, no time budget that skips rungs);
@@ -69,6 +76,12 @@ from round_tpu_torch.utils.device import resolve_device
 
 def _gen(seed: int, dev) -> torch.Generator:
     return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _timed_mode(dev) -> str:
+    """The link stream of the timed runs: "hw" on the card, "hash" on the
+    CPU (round_tpu/apps/ladder.py: ``"hash" if interpret else "hw"``)."""
+    return "hash" if dev.type == "cpu" else "hw"
 
 
 def _time_best(fn: Callable[[int], Any], repeats: int, dev):
@@ -144,13 +157,13 @@ def _crash_mix(gen: torch.Generator, S: int, n: int, f: int,
 # ---------------------------------------------------------------------------
 
 def floodmin_body(mix: fast.FaultMix, init: torch.Tensor, f: int, V: int,
-                  rounds: int):
-    """FloodMin's whole run on K1 (run_floodmin_loop).  Returns
+                  rounds: int, mode: str):
+    """FloodMin's whole run on K1 (run_floodmin_loop) in `mode`.  Returns
     ((cnt, hist, checksum), state, decided_round)."""
     S, n = mix.crashed.shape
     state, _done, dround = fast.run_floodmin_loop(
         fast.FloodMinHist(n_values=V, f=f), FloodMinState.fresh(init, S, n),
-        mix, max_rounds=rounds)
+        mix, max_rounds=rounds, mode=mode)
     return (decided_summary(state.decided, dround, rounds, state.decision),
             state, dround)
 
@@ -170,13 +183,14 @@ def lv_body(mix: fast.FaultMix, init: torch.Tensor, rounds: int):
             dround)
 
 
-def benor_body(mix: fast.FaultMix, init: torch.Tensor, rounds: int):
-    """Ben-Or's whole run on K1 (run_benor_loop).  Returns
+def benor_body(mix: fast.FaultMix, init: torch.Tensor, rounds: int,
+               mode: str):
+    """Ben-Or's whole run on K1 (run_benor_loop) in `mode`.  Returns
     ((cnt, hist, checksum), state, decided_round)."""
     S, n = mix.crashed.shape
     state, _done, dround = fast.run_benor_loop(
         fast.BenOrHist(), BenOrState.fresh(init, S, n), mix,
-        max_rounds=rounds)
+        max_rounds=rounds, mode=mode)
     summary = decided_summary(state.decided, dround, rounds,
                               state.decision.to(torch.int32))
     return summary, state, dround
@@ -226,27 +240,30 @@ def rung_otr4(repeats: int = 2, device=None) -> Dict[str, Any]:
                         p50_key="decided_phase_p50")
     extra.update({"invariant_parity": inv_ok, "property_parity": prop_ok})
 
-    # the same shape on the flagship loop kernel, parity-checked
+    # the same shape on the flagship loop kernel, timed in the ladder's
+    # mode and parity-checked on a hash-mode replay
     V = 3
     rnd = fast.OtrHist(n_values=V, after_decision=2)
     p8 = max(1, round(0.1 * 256))
+    mode = _timed_mode(dev)
 
-    def loop_run(seed):
+    def loop_run(seed, run_mode):
         gen = _gen(seed, dev)
         mix = fast.fault_free(gen, S, n, device=dev).replace(
             p8=torch.full((S,), p8, dtype=torch.int32, device=dev))
         init = torch.randint(0, V, (n,), generator=gen, device=dev,
                              dtype=torch.int32)
         state, _done, dround = fast.run_otr_loop(
-            rnd, OtrState.fresh(init, S, n), mix, max_rounds=phases)
+            rnd, OtrState.fresh(init, S, n), mix, max_rounds=phases,
+            mode=run_mode)
         return state, dround, mix, init
 
     def loop_bench(seed):
-        state, dround, _mix, _init = loop_run(seed)
+        state, dround, _mix, _init = loop_run(seed, mode)
         return decided_summary(state.decided, dround, phases, state.decision)
 
     lbest, _ = _time_best(loop_bench, repeats, dev)
-    state, dround, mix, init = loop_run(0)
+    state, dround, mix, init = loop_run(0, "hash")
     extra["loop_rounds_per_sec"] = round(rounds / lbest, 1)
     extra["loop_parity_frac"] = _diff_parity(
         state, dround, mix, lambda s: OTR(), consensus_io(init), n, phases,
@@ -272,12 +289,14 @@ def rung_floodmin(repeats: int = 2, n: int = 64, S: int = 256,
                              dtype=torch.int32)
         return mix, init
 
+    mode = _timed_mode(dev)
     best, (cnt, hist, _ck) = _time_best(
-        lambda seed: floodmin_body(*draw(seed), f, V, rounds)[0], repeats,
-        dev)
+        lambda seed: floodmin_body(*draw(seed), f, V, rounds, mode)[0],
+        repeats, dev)
 
+    # parity and safety on a hash-mode replay of the warm-up draw
     mix, init = draw(0)
-    _summary, state, dround = floodmin_body(mix, init, f, V, rounds)
+    _summary, state, dround = floodmin_body(mix, init, f, V, rounds, "hash")
     parity_frac = _diff_parity(
         state, dround, mix, lambda s: FloodMin(f), consensus_io(init), n,
         rounds, ("x", "decided", "decision"), min(16, S), dev)
@@ -352,11 +371,14 @@ def rung_benor(repeats: int = 2, n: int = 512, S: int = 4096,
         init = torch.rand((n,), generator=gen, device=dev) < 0.5
         return mix, init
 
+    mode = _timed_mode(dev)
     best, (cnt, hist, _ck) = _time_best(
-        lambda seed: benor_body(*draw(seed), rounds)[0], repeats, dev)
+        lambda seed: benor_body(*draw(seed), rounds, mode)[0], repeats, dev)
 
+    # parity (masks and coins) and agreement on a hash-mode replay of the
+    # warm-up draw
     mix, init = draw(0)
-    _summary, state, dround = benor_body(mix, init, rounds)
+    _summary, state, dround = benor_body(mix, init, rounds, "hash")
     parity_frac = _diff_parity(
         state, dround, mix,
         lambda s: BenOr(coin_salt=(int(mix.salt0[s]), int(mix.salt1[s]))),

@@ -6,8 +6,10 @@ Port of the worker of bench.py (round_tpu).  Run as
 
 It prints one JSON line: ``otr_n{n}_s{S}_rounds_per_sec`` with ``value``,
 ``unit`` and ``extra`` (decision health, the card's name and power limit,
-and with ``--parity K`` the fraction of lanes on which the benched engine
-and the general engine agree over K scenarios).
+and with ``--parity K`` the fraction of lanes on which the benched engine,
+replayed in hash mode, and the general engine agree over K scenarios).
+``--rng hw`` (the default, as in round_tpu) draws the links from the
+Philox stream; ``--rng hash`` from the hash, bit for bit as round_tpu.
 
 On the card the timed region is bracketed by CUDA events and ends with an
 on-device reduction of the outputs to an O(1) summary (decided_summary);
@@ -47,9 +49,10 @@ def parse_args(argv=None):
                     default="loop")
     ap.add_argument("--workload", choices=["mixed", "omission"],
                     default="mixed")
-    ap.add_argument("--rng", choices=["hash", "hw"], default="hash",
-                    help="per-link RNG: the hash sampler (hw, the TPU "
-                         "hardware PRNG, is not ported yet)")
+    ap.add_argument("--rng", choices=["hash", "hw"], default="hw",
+                    help="per-link RNG: hw (the Philox stream that takes "
+                         "the place of the TPU's hardware PRNG) or hash "
+                         "(bit-exact with round_tpu and the general engine)")
     ap.add_argument("--parity", type=int, default=8, metavar="K",
                     help="also run K scenarios through the general engine "
                          "and report agreement (0 = off)")
@@ -96,15 +99,15 @@ class Bench:
         return torch.randint(0, a.values, (a.n,), generator=gen,
                              dtype=torch.int32, device=self.dev)
 
-    def run_fast(self, engine, mix, init, rounds):
+    def run_fast(self, engine, mix, init, rounds, mode):
         a = self.args
         S = mix.crashed.shape[0]
         rnd = fast.OtrHist(n_values=a.values, after_decision=2)
         state0 = OtrState.fresh(init, S, a.n)
         if engine == "loop":
-            return fast.run_otr_loop(rnd, state0, mix, rounds, mode=a.rng)
+            return fast.run_otr_loop(rnd, state0, mix, rounds, mode=mode)
         return fast.run_hist(rnd, state0, lambda s: s.decided, mix, rounds,
-                             mode=a.rng)
+                             mode=mode)
 
     def run_reference(self, mix, init, rounds):
         """The general engine over every scenario row of the mix."""
@@ -131,20 +134,23 @@ class Bench:
                                                            a.phases)
         else:
             state, _done, dround = self.run_fast(a.engine, mix, init,
-                                                 a.phases)
+                                                 a.phases, a.rng)
             decided, decision = state.decided, state.decision
         return decided_summary(decided, dround, a.phases, decision)
 
     def parity(self, k: int) -> float:
-        """Fraction of lanes where the benched fast engine and the general
-        engine agree on (decided, decision) over k scenarios (hash mode)."""
+        """Fraction of lanes where the benched fast engine, replayed in hash
+        mode whatever ``--rng`` is, and the general engine agree on
+        (decided, decision) over k scenarios (round_tpu bench.py's
+        parity_check): only the hash stream replays in the general
+        engine."""
         a = self.args
         rounds = min(a.phases, 10)
         gen = _gen(a.seed, self.dev)
         mix = self.make_mix(gen, k)
         init = self.init_values(gen)
         engine = a.engine if a.engine != "reference" else "fused"
-        state, _done, _dr = self.run_fast(engine, mix, init, rounds)
+        state, _done, _dr = self.run_fast(engine, mix, init, rounds, "hash")
         decided, _dround, decision = self.run_reference(mix, init, rounds)
         agree = (state.decided == decided) & (state.decision == decision)
         return float(agree.to(torch.float64).mean())

@@ -28,12 +28,27 @@
 // Payloads outside [0, V) are counted in the size and otherwise ignored, as
 // the TPU one-hot ignores them (fused.py:467).
 //
+// Each instance comes in two link streams, a kernel template switch:
+// hash mode (keep(idx) = fmix32 draw >= p8, bit-exact with round_tpu) and
+// hw mode (round_tpu's hardware PRNG draw, fused.py:333-346, as the
+// Philox4x32-10 stream of hash.cuh: keep(idx) = byte idx & 3 of element
+// idx >> 2 >= min(p8, 255)).  Senders are compacted in atomicAdd order, so
+// a receiver's links need not come in ascending order; RtHwStream calls
+// Philox again whenever the counter idx >> 4 changes and reuses its four
+// words otherwise (within a warp the compaction keeps lane order, so most
+// runs of 16 links share one call).
+//
 // Bound on the card: the per-link hash where p8 > 0.  Every link of every
 // round of every 0 < p8 < 256 scenario needs one murmur3 finalizer and the
 // threshold compare: 8 operations on the ALU pipe and 3 multiplies on the
-// FMA pipe, which runs alongside it, so the ALU pipe sets the floor.  A
-// p8 == 0 run hashes nothing and reads O(S*n) inputs and writes O(S*n)
-// outputs: it is bound by bytes.  Design (the simple version): one block
+// FMA pipe, which runs alongside it, so the ALU pipe sets the floor.  In
+// hw mode a link needs its byte's shift, mask and compare (3 ALU-pipe
+// operations) and 1/16 of a Philox call (19 LOP3 on the ALU pipe, 20
+// multiplies on the FMA pipe), about 4.2 ALU-pipe operations: half the
+// hash mode's floor, though the hw loop, with its per-link counter test
+// and word select, ran 44% slower than the hash loop at the flagship shape
+// on an H100.  A p8 == 0 run draws nothing and reads O(S*n) inputs and
+// writes O(S*n) outputs: it is bound by bytes.  Design (the simple version): one block
 // per scenario; each thread owns receivers j, j + blockDim, ...; the state
 // vectors live in shared memory for the whole run and only the final state
 // is written out.  Each round the block compacts this round's senders
@@ -255,34 +270,39 @@ struct BenOrPolicy {
 
 // Receiver j's mailbox of one round: walk the compacted senders, keep the
 // links that survive, accumulate their payloads.  Returns the mailbox size
-// without the self-delivery.  The partition test and the hash are template
-// switches, so each of the four loops carries only the tests it needs.  As
+// without the self-delivery.  The partition test, the draw and its stream
+// (kHw) are template switches, so each loop carries only the tests it
+// needs.  As
 // one loop the compiler kept both tests, and the round salt's multiply, in
 // every link's path, and the OTR instance ran 35% slower than the
 // single-purpose kernel it replaced (54.5 ms against 40.3 at the flagship
 // shape on an H100); split, it runs faster than that kernel.
-template <class A, bool kSided, bool kHashed>
+template <class A, bool kSided, bool kHashed, bool kHw>
 __device__ __forceinline__ int mailbox(typename A::Acc& acc,
                                        const RoundInfo& ri, const int* cid,
                                        const int* cpay, const int* sd, int ns,
                                        int j, uint32_t s1r, int p8) {
   const uint32_t row = (uint32_t)j * (uint32_t)ri.n;
   const int sj = sd[j];
+  RtHwStream hw(ri.salt0, s1r);
+  const uint32_t thr = kHw ? rt_hw_threshold(p8) : (uint32_t)p8;
   int size = 0;
   for (int c = 0; c < ns; ++c) {
     const int i = cid[c];
     if (i == j) continue;
     if (kSided && sd[i] != sj) continue;
-    if (kHashed &&
-        rt_link_draw(row + (uint32_t)i, ri.salt0, s1r) < (uint32_t)p8)
-      continue;
+    if (kHashed) {
+      const uint32_t idx = row + (uint32_t)i;
+      if ((kHw ? hw.draw(idx) : rt_link_draw(idx, ri.salt0, s1r)) < thr)
+        continue;
+    }
     ++size;
     A::add(acc, ri, cpay[c]);
   }
   return size;
 }
 
-template <class A>
+template <class A, bool kHw>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     hist_loop_kernel(LoopParams p) {
   constexpr int K = A::kState;
@@ -352,15 +372,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       A::reset(acc, ri);
       int size;
       if (sided)
-        size = p8 > 0 ? mailbox<A, true, true>(acc, ri, cid, cpay, sd, ns, j,
-                                               s1r, p8)
-                      : mailbox<A, true, false>(acc, ri, cid, cpay, sd, ns, j,
-                                                s1r, p8);
+        size = p8 > 0 ? mailbox<A, true, true, kHw>(acc, ri, cid, cpay, sd,
+                                                    ns, j, s1r, p8)
+                      : mailbox<A, true, false, kHw>(acc, ri, cid, cpay, sd,
+                                                     ns, j, s1r, p8);
       else
-        size = p8 > 0 ? mailbox<A, false, true>(acc, ri, cid, cpay, sd, ns,
-                                                j, s1r, p8)
-                      : mailbox<A, false, false>(acc, ri, cid, cpay, sd, ns,
-                                                 j, s1r, p8);
+        size = p8 > 0 ? mailbox<A, false, true, kHw>(acc, ri, cid, cpay, sd,
+                                                     ns, j, s1r, p8)
+                      : mailbox<A, false, false, kHw>(acc, ri, cid, cpay, sd,
+                                                      ns, j, s1r, p8);
       // self-delivery: an active lane hears its own payload (the state
       // before the update, which only this thread writes)
       ++size;
@@ -385,9 +405,19 @@ size_t smem_bytes(int n, int V) {
                         (A::kSharedCounts ? (size_t)V * kThreads : 0));
 }
 
+template <class A, bool kHw>
+int launch_stream(const LoopParams& p, int S, size_t smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      hist_loop_kernel<A, kHw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  hist_loop_kernel<A, kHw><<<S, kThreads, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <class A>
 int launch(const int* const* ins, int* const* outs, int S, int n, int V,
-           int rounds, int param, void* stream) {
+           int rounds, int param, int hw, void* stream) {
   if (S <= 0 || n <= 0) return (int)cudaSuccess;
   LoopParams p;
   p.x0 = ins[0];
@@ -406,12 +436,8 @@ int launch(const int* const* ins, int* const* outs, int S, int n, int V,
   p.rounds = rounds;
   p.param = param;
   const size_t smem = smem_bytes<A>(n, V);
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_loop_kernel<A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  hist_loop_kernel<A><<<S, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  return hw ? launch_stream<A, true>(p, S, smem, stream)
+            : launch_stream<A, false>(p, S, smem, stream);
 }
 
 }  // namespace
@@ -419,8 +445,9 @@ int launch(const int* const* ins, int* const* outs, int S, int n, int V,
 // C entry points, one pair per instance.  Inputs in hist_loop's order:
 // x0, crashed, side ([S, n] int32), crash_round, heal_round, rotate_down,
 // p8, salt0, salt1 ([S] int32).  Outputs: the policy's state slots, done,
-// decided_round ([S, n] int32).  Each launch runs on `stream` and returns
-// cudaGetLastError().
+// decided_round ([S, n] int32).  hw != 0 draws the links from the hw-mode
+// Philox stream, else from the hash.  Each launch runs on `stream` and
+// returns cudaGetLastError().
 extern "C" {
 
 #define RT_LOOP_ENTRY(NAME, POLICY)                                          \
@@ -429,11 +456,11 @@ extern "C" {
                     const int* crash_round, const int* heal_round,          \
                     const int* rotate_down, const int* p8, const int* salt0, \
                     const int* salt1, int* const* outs, int S, int n, int V, \
-                    int rounds, int param, void* stream) {                  \
+                    int rounds, int param, int hw, void* stream) {          \
     const int* ins[9] = {x0,         crashed,     side, crash_round, \
                          heal_round, rotate_down, p8,   salt0,       \
                          salt1};                                             \
-    return launch<POLICY>(ins, outs, S, n, V, rounds, param, stream);       \
+    return launch<POLICY>(ins, outs, S, n, V, rounds, param, hw, stream);   \
   }
 
 RT_LOOP_ENTRY(otr_loop, OtrPolicy)

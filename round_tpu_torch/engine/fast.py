@@ -13,6 +13,11 @@ sets, partition sides, a rotating suppressed process, an iid-omission
 threshold, hash salts) from which each round's O(S·n) kernel inputs are
 derived.  The same parameters replay exactly in the general engine through
 ``scenarios.from_fault_params`` (hash mode).
+
+Every runner takes ``mode``: "hw" (the default, as in round_tpu) draws the
+links from the hw-mode Philox stream of ``ops.fused``, "hash" from the
+hash that the general engine replays.  A caller that needs round_tpu's
+bits, or a replay in the general engine, passes ``mode="hash"``.
 """
 
 from __future__ import annotations
@@ -338,7 +343,7 @@ def run_hist(
     decided_fn: Callable,
     mix: FaultMix,
     max_rounds: int,
-    mode: str = "hash",
+    mode: str = "hw",
     dot: str = "i8",
 ):
     """`max_rounds` fused rounds over the full scenario batch, one K2 launch
@@ -371,15 +376,15 @@ def run_otr_loop(
     state0,
     mix: FaultMix,
     max_rounds: int,
-    mode: str = "hash",
+    mode: str = "hw",
     dot: str = "i8",
 ):
     """The flagship fast path: the whole OTR run as ONE kernel launch
     (ops.fused.otr_loop) — state stays on chip across rounds
     (round_tpu/engine/fast.py::run_otr_loop).
 
-    Drop-in for run_hist(OtrHist(...), fresh state0, ...): same
-    (state, done, decided_round).  `state0` must be a FRESH OtrState
+    Drop-in for run_hist(OtrHist(...), fresh state0, ...) in the same
+    mode: same (state, done, decided_round), bit for bit.  `state0` must be a FRESH OtrState
     (decided/decision/after at their init values); only its `x` enters the
     kernel.  A resumed state is refused."""
     from round_tpu_torch.models.otr import OtrState
@@ -421,7 +426,7 @@ def run_floodmin_loop(
     state0,
     mix: FaultMix,
     max_rounds: int,
-    mode: str = "hash",
+    mode: str = "hw",
     dot: str = "i8",
 ):
     """FloodMin's whole run as one K1 launch (ops.fused.FloodMinLoop;
@@ -444,7 +449,7 @@ def run_benor_loop(
     state0,
     mix: FaultMix,
     max_rounds: int,
-    mode: str = "hash",
+    mode: str = "hw",
     dot: str = "i8",
 ):
     """Ben-Or's whole run as one K1 launch (ops.fused.BenOrLoop, two

@@ -26,28 +26,34 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("hist_exchange", "hist_loop", "lv_loop")
+KERNELS = ("hist_exchange", "hist_loop", "lv_loop", "probe")
 
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_U = ctypes.c_uint
 # the three K1 instances of csrc/hist_loop.cu share one C signature
 _LOOP = {
     f"{algo}_loop_{fn}": sig
     for algo in ("otr", "floodmin", "benor")
-    for fn, sig in (("launch", ([_P] * 9 + [_PP] + [_I] * 5 + [_P], _I)),
+    for fn, sig in (("launch", ([_P] * 9 + [_PP] + [_I] * 6 + [_P], _I)),
                     ("smem_bytes", ([_I, _I], ctypes.c_size_t)))
 }
 # C signatures: library -> {function: (argtypes, restype)}
 _SIGNATURES = {
     "hist_exchange": {
-        "hist_exchange_launch": ([_P] * 8 + [_I, _I, _I, _P], _I),
+        "hist_exchange_launch": ([_P] * 8 + [_I] * 4 + [_P], _I),
         "hist_exchange_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "hist_loop": _LOOP,
     "lv_loop": {
         "lv_loop_launch": ([_P] * 9 + [_PP] + [_I] * 3 + [_P], _I),
         "lv_loop_smem_bytes": ([_I], ctypes.c_size_t),
+    },
+    "probe": {
+        "probe_double_launch": ([_P, _P, _L, _P], _I),
+        "philox_bits_launch": ([_P, _P, _L] + [_U] * 4 + [_P], _I),
     },
 }
 

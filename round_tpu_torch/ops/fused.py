@@ -1,6 +1,7 @@
 """Fused round exchange: HO-mask generation + value histogram, the
 whole-run histogram loop and the whole LastVoting run — the kernels of the
-flagship path and the config ladder.
+flagship path and the config ladder — and the two device probes of the
+bisect tool.
 
 Port of round_tpu/ops/fused.py.  For histogram rounds the whole round
 exchange collapses to
@@ -8,11 +9,30 @@ exchange collapses to
     counts[s, v, j] = #{ i : deliver[s, j, i] and vals[s, i] == v }
 
 and the [S, n, n] deliver mask never needs to exist in memory.  Mask
-semantics (hash mode, bit-exact with round_tpu):
+semantics:
 
     ho[j, i]      = (colmask[i] & (side[j] == side[i]) & keep(j, i)) | (i == j)
     deliver[j, i] = ho[j, i] & active[i] & rowmask[j]
-    keep(j, i)    = fmix32((j*n + i)*GOLD + salt0 ^ salt1r) & 0xFF >= p8
+
+with keep(j, i) drawn for link idx = j*n + i from one of two streams:
+
+  * ``mode="hash"``, bit-exact with round_tpu:
+        keep = fmix32(idx*GOLD + salt0 ^ salt1r) & 0xFF >= p8
+  * ``mode="hw"`` (the default, as in round_tpu, whose hw mode draws from
+    the TPU's hardware PRNG seeded with both salts): Philox4x32-10 keyed
+    (salt0, salt1r).  Element e of the stream is word e & 3 of
+    Philox(counter (e >> 2, 0, 0, 0)); link idx draws byte idx & 3 of
+    element idx >> 2 (counter idx >> 4, word (idx >> 2) & 3), and
+        keep = p8 <= 0 or draw >= min(p8, 255)
+    so P(keep) = 1 - p8/256 exactly, as round_tpu's ``bits >= p8 << 24``.
+    The TPU's bits cannot be reproduced: hw mode agrees with round_tpu in
+    distribution, and within the port every hw kernel agrees bit for bit
+    with its plain version (``philox4x32_10`` is the plain twin of
+    csrc/hash.cuh::rt_philox4x32_10).
+
+salt1r = r*RMIX + salt1 is premixed by the caller of K2 and derived per
+round inside K1, so for one (scenario, round) both draw the same bits in
+either mode: run_hist and the whole-run loops agree bit for bit.
 
 Kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
 
@@ -21,11 +41,16 @@ Kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
     state on chip across rounds, one instance per LoopAlgo — ``otr_loop``,
     ``floodmin_loop`` and ``benor_loop`` (csrc/hist_loop.cu).
   * K3 ``lv_loop`` (replaces round_tpu ``_lv_kernel``): the whole
-    LastVoting run, O(n) hashes per round (csrc/lv_loop.cu).
+    LastVoting run, O(n) hashes per round (csrc/lv_loop.cu); hash mode
+    only, as in round_tpu.
+  * P1 ``probe_double`` and P2 ``philox_bits`` (replace
+    tools/tpu_bisect.py's ``stage_pallas_min`` and ``stage_pallas_prng``;
+    csrc/probe.cu).
 
 Each wrapper takes the kernel for CUDA tensors and its plain PyTorch
 version, in this module, for CPU tensors; there is no fallback from one to
-the other.  Each kernel launch adds one to ``LAUNCHES[name]``.
+the other.  Each kernel launch adds one to ``LAUNCHES[name]``; K1 and K2
+count hw-mode launches under ``<name>_hw``.
 
 Hashing runs in int64 holding uint32 values (``& 0xFFFFFFFF`` after every
 wrapping step): torch on the CPU has no ``>>`` or ``>=`` for uint32, and an
@@ -35,13 +60,13 @@ patterns and are widened with ``_u32``.
 Knobs that exist only for TPU lowering (``sb``, ``interpret``, ``variant``)
 are not carried over.  ``dot`` stays in the signatures and is validated;
 the kernels count in int32 whichever value is passed (both round_tpu dtypes
-are exact and give identical bits).  ``mode="hw"`` (the TPU hardware PRNG)
-is not ported yet and raises ``NotImplementedError``.
+are exact and give identical bits).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -52,6 +77,9 @@ _GOLD = 0x9E3779B9
 _RMIX = 0x7FEB352D
 _COIN = 0x1B873593  # domain separator: lane-coin stream vs link stream
 _M32 = 0xFFFFFFFF
+# Philox4x32 multipliers and key increments (Random123)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 # Shared memory one block may use on Hopper (H100: 227 KB).
 _MAX_SMEM = 232_448
@@ -60,9 +88,13 @@ _MAX_SMEM = 232_448
 _PLAIN_ELEMS = 1 << 24
 
 #: kernel launches per wrapper, counted where the kernel is launched
-LAUNCHES: Dict[str, int] = {"hist_exchange": 0, "otr_loop": 0,
-                             "floodmin_loop": 0, "benor_loop": 0,
-                             "lv_loop": 0}
+LAUNCHES: Dict[str, int] = {
+    "hist_exchange": 0, "hist_exchange_hw": 0,
+    "otr_loop": 0, "otr_loop_hw": 0,
+    "floodmin_loop": 0, "floodmin_loop_hw": 0,
+    "benor_loop": 0, "benor_loop_hw": 0,
+    "lv_loop": 0, "probe_double": 0, "philox_bits": 0,
+}
 
 
 def reset_launches() -> None:
@@ -105,13 +137,130 @@ def hash_coin(salt0, salt1, r, lane) -> torch.Tensor:
 
 
 def _check_mode(mode: str) -> None:
-    if mode == "hw":
-        raise NotImplementedError(
-            "mode='hw' (the TPU hardware PRNG) is not ported: it becomes an "
-            "in-kernel Philox stream compared statistically (ROADMAP.md, "
-            "Slice 1 leftovers and follow-ups); use mode='hash'")
-    if mode != "hash":
-        raise ValueError(f"unknown mode {mode!r}")
+    if mode not in ("hash", "hw"):
+        raise ValueError(f"unknown mode {mode!r} (expected 'hash' or 'hw')")
+
+
+def _launch_name(kernel: str, mode: str) -> str:
+    """The LAUNCHES entry of a K1/K2 launch in `mode`."""
+    return kernel + "_hw" if mode == "hw" else kernel
+
+
+# ---------------------------------------------------------------------------
+# The hw-mode stream: Philox4x32-10, and the probes P1 and P2
+# ---------------------------------------------------------------------------
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) 32-bit halves of a * m, for uint32 values a held in int64
+    and a uint32 constant m.  The 64-bit product overflows int64, so m is
+    split into 16-bit halves: each partial product stays below 2^48."""
+    ph = a * (m >> 16)
+    t = a * (m & 0xFFFF) + ((ph & 0xFFFF) << 16)
+    return (ph >> 16) + (t >> 32), t & _M32
+
+
+def philox4x32_10(counter, key) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32-10 (Salmon et al., SC'11, "Random123"): the four output
+    words for counter (c0, c1, c2, c3) under key (k0, k1), each word a
+    uint32 value held in int64.  Counter and key words are ints or integer
+    tensors (int32 bit patterns or uint32 values) and broadcast.  The plain
+    twin of csrc/hash.cuh::rt_philox4x32_10; the generator that takes the
+    place of the TPU's hardware PRNG (round_tpu/ops/fused.py::_keep_mask,
+    hw branch)."""
+    c = [_u32(w) for w in counter]
+    k0, k1 = (_u32(w) for w in key)
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _M32
+            k1 = (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo(c[0], _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c[2], _PHILOX_M[1])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+    return tuple(c)
+
+
+def _philox_words(key0, key1, m: int, device, counter=(0, 0, 0, 0)):
+    """[..., m] uint32 words (int64) of the stream keyed (key0, key1) (each
+    [...] or a scalar): element e is word e & 3 of counter
+    (c0 + (e >> 2), c1, c2, c3)."""
+    t = torch.arange((m + 3) // 4, dtype=torch.int64, device=device)
+    k0, k1 = _u32(key0)[..., None], _u32(key1)[..., None]
+    c1, c2, c3 = counter[1:]
+    w = philox4x32_10((t + counter[0], c1, c2, c3), (k0, k1))
+    words = torch.stack(torch.broadcast_tensors(*w), dim=-1)
+    return words.reshape(*words.shape[:-2], -1)[..., :m]
+
+
+def _philox_bits_plain(seed: torch.Tensor, m: int, counter) -> torch.Tensor:
+    """Plain version of the P2 kernel: m words as int32."""
+    return _i32(_philox_words(seed[0], seed[1], m, seed.device, counter))
+
+
+def _philox_bits_cuda(seed: torch.Tensor, m: int, counter) -> torch.Tensor:
+    from round_tpu_torch.ops import _native
+
+    so = _native.lib("probe")
+    key = seed.to(torch.int32).contiguous()
+    out = torch.empty((m,), dtype=torch.int32, device=seed.device)
+    with torch.cuda.device(seed.device):
+        stream = torch.cuda.current_stream(seed.device).cuda_stream
+        err = so.philox_bits_launch(key.data_ptr(), out.data_ptr(), m,
+                                    *[c & _M32 for c in counter], stream)
+    LAUNCHES["philox_bits"] += 1
+    _native.check(err, "philox_bits launch")
+    return out
+
+
+def philox_bits(seed: torch.Tensor, shape, counter=(0, 0, 0, 0)):
+    """P2: random bits from a two-word seed, the port of
+    tools/tpu_bisect.py::stage_pallas_prng (``prng_seed(s0, s1)`` then
+    ``prng_random_bits(shape)``) on the hw-mode stream.
+
+    ``seed`` is an int32 tensor [2]; returns int32 ``shape`` whose element
+    e (row-major) is word e & 3 of Philox4x32-10(counter (c0 + (e >> 2),
+    c1, c2, c3), key (seed[0], seed[1])).  The default counter base 0 is
+    the stream the hw link draws read; another base serves the
+    known-answer vectors.  A CUDA seed launches csrc/probe.cu, a CPU seed
+    runs the plain version."""
+    seed = torch.as_tensor(seed)
+    if tuple(seed.shape) != (2,):
+        raise ValueError(f"philox_bits: seed of shape {tuple(seed.shape)}; "
+                         "expected (2,)")
+    shape = tuple(shape)
+    m = math.prod(shape)
+    counter = tuple(int(c) for c in counter)
+    if seed.is_cuda:
+        out = _philox_bits_cuda(seed, m, counter)
+    elif seed.device.type == "cpu":
+        out = _philox_bits_plain(seed, m, counter)
+    else:
+        raise ValueError(f"philox_bits: unsupported device {seed.device}")
+    return out.reshape(shape)
+
+
+def probe_double(x: torch.Tensor) -> torch.Tensor:
+    """P1: ``2 * x`` for a float32 tensor, the port of
+    tools/tpu_bisect.py::stage_pallas_min (the smallest kernel that proves
+    the toolchain builds and launches).  A CUDA tensor launches
+    csrc/probe.cu; a CPU tensor takes the plain version."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"probe_double: dtype {x.dtype}; expected float32")
+    if x.device.type == "cpu":
+        return x * 2.0
+    if not x.is_cuda:
+        raise ValueError(f"probe_double: unsupported device {x.device}")
+    from round_tpu_torch.ops import _native
+
+    so = _native.lib("probe")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = so.probe_double_launch(x.data_ptr(), out.data_ptr(), x.numel(),
+                                     stream)
+    LAUNCHES["probe_double"] += 1
+    _native.check(err, "probe_double launch")
+    return out
 
 
 def _check_dot(dot: str) -> None:
@@ -119,18 +268,35 @@ def _check_dot(dot: str) -> None:
         raise ValueError(f"unknown dot {dot!r} (expected 'i8' or 'bf16')")
 
 
+def _hw_draws(n: int, salt0, salt1r) -> torch.Tensor:
+    """[c, n(recv), n(send)] 8-bit hw-mode draws of one round: link
+    idx = j*n + i takes byte idx & 3 of element idx >> 2 of the stream
+    keyed (salt0, salt1r) ([c] each)."""
+    salt0 = torch.as_tensor(salt0)
+    c = salt0.shape[0]
+    words = _philox_words(salt0, salt1r, (n * n + 3) // 4, salt0.device)
+    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=salt0.device)
+    draws = (words[..., None] >> shifts) & 0xFF  # [c, elements, 4 bytes]
+    return draws.reshape(c, -1)[:, :n * n].reshape(c, n, n)
+
+
 def _keep_mask(n: int, mode: str, salt0, salt1r, p8) -> torch.Tensor:
     """[c, n(recv), n(send)] per-link delivery mask for one round of c
-    scenarios: hash keeps minus the diagonal (round_tpu _keep_mask, hash
-    mode, in receiver-major layout).  salt0/salt1r/p8 are [c]."""
+    scenarios: the mode's keeps minus the diagonal (round_tpu/ops/fused.py::
+    _keep_mask, in receiver-major layout).  salt0/salt1r/p8 are [c]."""
     _check_mode(mode)
     p8 = torch.as_tensor(p8).to(torch.int64)
     dev = p8.device
     ids = torch.arange(n, dtype=torch.int64, device=dev)
-    idx = ids[:, None] * n + ids[None, :]  # receiver j * n + sender i
-    z = _u32(idx * _GOLD + _u32(salt0)[:, None, None])
-    z = z ^ _u32(salt1r)[:, None, None]
-    keep = (_fmix32(z) & 0xFF) >= p8[:, None, None]
+    if mode == "hw":
+        keep = ((_hw_draws(n, salt0, salt1r)
+                 >= torch.clamp(p8, max=255)[:, None, None])
+                | (p8 <= 0)[:, None, None])
+    else:
+        idx = ids[:, None] * n + ids[None, :]  # receiver j * n + sender i
+        z = _u32(idx * _GOLD + _u32(salt0)[:, None, None])
+        z = z ^ _u32(salt1r)[:, None, None]
+        keep = (_fmix32(z) & 0xFF) >= p8[:, None, None]
     return keep & (ids[:, None] != ids[None, :])
 
 
@@ -152,14 +318,14 @@ def _count(onehot: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _hist_exchange_plain(vals, senders, rowmask, side, salt0, salt1r, p8,
-                         num_values: int) -> torch.Tensor:
+                         num_values: int, mode: str) -> torch.Tensor:
     """Plain version of the K2 kernel: counts without the diagonal."""
     S, n = vals.shape
     rows = torch.arange(num_values, dtype=vals.dtype, device=vals.device)
     out = torch.empty((S, num_values, n), dtype=torch.float32,
                       device=vals.device)
     for sl in _chunks(S, n):
-        keep = _keep_mask(n, "hash", salt0[sl], salt1r[sl], p8[sl])
+        keep = _keep_mask(n, mode, salt0[sl], salt1r[sl], p8[sl])
         if side is not None:
             sd = side[sl]
             keep = keep & (sd[:, :, None] == sd[:, None, :])
@@ -190,7 +356,7 @@ def _kernel_inputs(device, S: int, n: int, lanes, scalars):
 
 
 def _hist_exchange_cuda(vals, senders, rowmask, side, salt0, salt1r, p8,
-                        num_values: int) -> torch.Tensor:
+                        num_values: int, mode: str) -> torch.Tensor:
     from round_tpu_torch.ops import _native
 
     S, n = vals.shape
@@ -208,8 +374,8 @@ def _hist_exchange_cuda(vals, senders, rowmask, side, salt0, salt1r, p8,
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = so.hist_exchange_launch(
             *[None if a is None else a.data_ptr() for a in args],
-            out.data_ptr(), S, n, num_values, stream)
-    LAUNCHES["hist_exchange"] += 1
+            out.data_ptr(), S, n, num_values, int(mode == "hw"), stream)
+    LAUNCHES[_launch_name("hist_exchange", mode)] += 1
     _native.check(err, "hist_exchange launch")
     return out
 
@@ -224,13 +390,13 @@ def hist_exchange(
     salt1r: torch.Tensor,    # [S] int32 (round premixed)
     p8: torch.Tensor,        # [S] int32
     num_values: int,
-    mode: str = "hash",
+    mode: str = "hw",
     dot: str = "i8",
 ) -> torch.Tensor:
     """Fused masked exchange + per-value histogram (round_tpu/ops/fused.py::
-    hist_exchange).  Returns counts [S, num_values, n] float32 (exact
-    integers): counts[s, v, j] = number of senders i with deliver[s, j, i]
-    and vals[s, i] == v.
+    hist_exchange), its links drawn in `mode` ("hw" or "hash").  Returns
+    counts [S, num_values, n] float32 (exact integers): counts[s, v, j] =
+    number of senders i with deliver[s, j, i] and vals[s, i] == v.
 
     CUDA tensors launch the K2 kernel (csrc/hist_exchange.cu); CPU tensors
     take its plain version.  As in round_tpu, senders of scenarios with
@@ -244,10 +410,10 @@ def hist_exchange(
     senders = (colmask != 0) & (active != 0) & (p8 < 256)[:, None]
     if vals.is_cuda:
         counts = _hist_exchange_cuda(vals, senders, rowmask, side, salt0,
-                                     salt1r, p8, num_values)
+                                     salt1r, p8, num_values, mode)
     elif vals.device.type == "cpu":
         counts = _hist_exchange_plain(vals, senders, rowmask, side, salt0,
-                                      salt1r, p8, num_values)
+                                      salt1r, p8, num_values, mode)
     else:
         raise ValueError(f"hist_exchange: unsupported device {vals.device}")
     # self-delivery (Round.scala:114-117): a process always hears itself
@@ -519,8 +685,9 @@ def _hist_loop_plain(algo, x0, crashed, side, crash_round, heal_round,
 
 
 def _hist_loop_cuda(algo: LoopAlgo, x0, crashed, side, crash_round,
-                    heal_round, rotate_down, p8, salt0, salt1, rounds: int):
-    """Launch the K1 instance of `algo` (csrc/hist_loop.cu)."""
+                    heal_round, rotate_down, p8, salt0, salt1, rounds: int,
+                    mode: str):
+    """Launch the K1 instance of `algo` (csrc/hist_loop.cu) in `mode`."""
     from round_tpu_torch.ops import _native
 
     if not algo.kernel:
@@ -542,8 +709,8 @@ def _hist_loop_cuda(algo: LoopAlgo, x0, crashed, side, crash_round,
         stream = torch.cuda.current_stream(x0.device).cuda_stream
         err = getattr(so, f"{algo.kernel}_launch")(
             *[a.data_ptr() for a in ins], _native.pointer_array(outs),
-            S, n, V, rounds, algo.kernel_param, stream)
-    LAUNCHES[algo.kernel] += 1
+            S, n, V, rounds, algo.kernel_param, int(mode == "hw"), stream)
+    LAUNCHES[_launch_name(algo.kernel, mode)] += 1
     _native.check(err, f"{algo.kernel} launch")
     return tuple(outs)
 
@@ -560,10 +727,11 @@ def hist_loop(
     salt0: torch.Tensor,        # [S] int32
     salt1: torch.Tensor,        # [S] int32 (UNmixed; rounds premix inside)
     rounds: int,
-    mode: str = "hash",
+    mode: str = "hw",
     dot: str = "i8",
 ):
-    """Run a whole LoopAlgo workload (round_tpu/ops/fused.py::hist_loop).
+    """Run a whole LoopAlgo workload (round_tpu/ops/fused.py::hist_loop),
+    its links drawn in `mode` ("hw" or "hash").
 
     Returns (state_arrays, done, decided_round): state_arrays is the algo's
     state tuple as [S, n] int32 (bool slots as 0/1), done [S, n] bool,
@@ -576,7 +744,7 @@ def hist_loop(
     args = (x0, crashed, side, crash_round, heal_round, rotate_down, p8,
             salt0, salt1)
     if x0.is_cuda:
-        outs = _hist_loop_cuda(algo, *args, rounds)
+        outs = _hist_loop_cuda(algo, *args, rounds, mode)
     elif x0.device.type == "cpu":
         outs = _hist_loop_plain(algo, *args, rounds, mode)
     else:
@@ -588,7 +756,7 @@ def hist_loop(
 def otr_loop(
     x0, crashed, side, crash_round, heal_round, rotate_down, p8, salt0,
     salt1, num_values: int, rounds: int, after_decision: int = 2,
-    mode: str = "hash", dot: str = "i8",
+    mode: str = "hw", dot: str = "i8",
 ):
     """The whole OTR flagship workload in one kernel launch (the OtrLoop
     instance of `hist_loop`; round_tpu/ops/fused.py::otr_loop).

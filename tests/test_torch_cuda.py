@@ -3,7 +3,8 @@
 Marked `cuda`: each test skips (it does not fail) where torch finds no CUDA
 card, deciding inside the test.  On the card, chip_smoke.py is the full
 check at n=1024; these are the quick per-kernel checks of K2, the three K1
-instances and K3:
+instances and K3 (hash mode), K2 and K1 in hw mode, and the probes P1 and
+P2:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -42,11 +43,11 @@ def test_hist_exchange_kernel_matches_plain(dev, n):
         for sd in (None, side):
             before = fused.LAUNCHES["hist_exchange"]
             got = fused._hist_exchange_cuda(vals, senders, rm, sd, s0, s1,
-                                            p8, V)
+                                            p8, V, "hash")
             torch.cuda.synchronize()
             assert fused.LAUNCHES["hist_exchange"] == before + 1
             want = fused._hist_exchange_plain(vals, senders, rm, sd, s0, s1,
-                                              p8, V)
+                                              p8, V, "hash")
             assert torch.equal(got, want)
 
 
@@ -62,7 +63,7 @@ def test_otr_loop_kernel_matches_plain(dev, n):
     args = (x0, mix.crashed, mix.side, mix.crash_round, mix.heal_round,
             mix.rotate_down, mix.p8, mix.salt0, mix.salt1)
     algo = fused.OtrLoop(num_values=V, after_decision=2)
-    got = fused._hist_loop_cuda(algo, *args, rounds)
+    got = fused._hist_loop_cuda(algo, *args, rounds, "hash")
     torch.cuda.synchronize()
     want = fused._hist_loop_plain(algo, *args, rounds, "hash")
     for a, b in zip(got, want):
@@ -93,7 +94,7 @@ def _loop_inputs(dev, n, S, V, seed, heal_round=5):
 def test_new_loop_instances_match_plain(dev, n, algo, rounds):
     args = _loop_inputs(dev, n, 21, algo.num_values, n + rounds)
     before = fused.LAUNCHES[algo.kernel]
-    got = fused._hist_loop_cuda(algo, *args, rounds)
+    got = fused._hist_loop_cuda(algo, *args, rounds, "hash")
     torch.cuda.synchronize()
     assert fused.LAUNCHES[algo.kernel] == before + 1
     want = fused._hist_loop_plain(algo, *args, rounds, "hash")
@@ -112,3 +113,81 @@ def test_lv_loop_kernel_matches_plain(dev, n):
     want = fused._lv_loop_plain(*args, 20)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [64, 1000])
+def test_hw_hist_exchange_kernel_matches_plain(dev, n):
+    """K2 in hw mode: n=1000 is not a multiple of 16, so a Philox block
+    straddles two receivers' rows."""
+    S, V = 14, 8
+    g = torch.Generator(device=dev).manual_seed(n + 1)
+    vals = torch.randint(0, V, (S, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    senders = torch.rand((S, n), generator=g, device=dev) < 0.8
+    side = torch.randint(0, 2, (S, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    s0, s1 = fast._salts(g, S, 0, dev), fast._salts(g, S, 1, dev)
+    p8 = torch.tensor([0, 1, 13, 64, 128, 255, 256] * 2, dtype=torch.int32,
+                      device=dev)
+    senders = senders & (p8 < 256)[:, None]
+    for sd in (None, side):
+        before = fused.LAUNCHES["hist_exchange_hw"]
+        got = fused._hist_exchange_cuda(vals, senders, None, sd, s0, s1, p8,
+                                        V, "hw")
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES["hist_exchange_hw"] == before + 1
+        want = fused._hist_exchange_plain(vals, senders, None, sd, s0, s1,
+                                          p8, V, "hw")
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("algo,rounds", [
+    (fused.OtrLoop(num_values=8, after_decision=2), 8),
+    (fused.FloodMinLoop(num_values=16, f=2), 6),
+    (fused.BenOrLoop(), 12),
+])
+@pytest.mark.parametrize("n", [64, 1000])
+def test_hw_loop_instances_match_plain(dev, n, algo, rounds):
+    args = _loop_inputs(dev, n, 21, algo.num_values, n + rounds + 1)
+    name = algo.kernel + "_hw"
+    before = fused.LAUNCHES[name]
+    got = fused._hist_loop_cuda(algo, *args, rounds, "hw")
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[name] == before + 1
+    want = fused._hist_loop_plain(algo, *args, rounds, "hw")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_probe_double_kernel_matches_plain(dev):
+    x = torch.randn((128, 128), generator=torch.Generator(device=dev)
+                    .manual_seed(0), device=dev)
+    before = fused.LAUNCHES["probe_double"]
+    got = fused.probe_double(x)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["probe_double"] == before + 1
+    assert torch.equal(got.cpu(), fused.probe_double(x.cpu()))
+
+
+KAT = [  # Random123's Philox4x32-10 known-answer vectors
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+def test_philox_bits_kernel_matches_plain(dev):
+    seed = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    before = fused.LAUNCHES["philox_bits"]
+    got = fused.philox_bits(seed, (128, 128))
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["philox_bits"] == before + 1
+    assert torch.equal(got.cpu(), fused.philox_bits(seed.cpu(), (128, 128)))
+    for counter, key, words in KAT:
+        k = fused._i32(torch.tensor(key)).to(dev)
+        got = fused.philox_bits(k, (4,), counter=counter)
+        assert [w & 0xFFFFFFFF for w in got.tolist()] == list(words)

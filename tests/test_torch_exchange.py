@@ -78,8 +78,17 @@ def test_hist_exchange_knobs():
     assert torch.equal(a, b)
     with pytest.raises(ValueError):
         tfused.hist_exchange(num_values=V, dot="f64", **tin)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfused.hist_exchange(num_values=V, mode="hw", **tin)
+    with pytest.raises(ValueError, match="unknown mode"):
+        tfused.hist_exchange(num_values=V, mode="tpu", **tin)
+    # hw mode is the default: counts as exact integers with hash mode's
+    # marginals (same senders, at most n per receiver, p8=0 rows equal)
+    hw = tfused.hist_exchange(num_values=V, **tin)
+    assert torch.equal(hw, tfused.hist_exchange(num_values=V, mode="hw",
+                                                **tin))
+    assert hw.shape == a.shape and torch.equal(hw, hw.round())
+    assert bool((hw.sum(1) <= 8).all())
+    free = tin["p8"] == 0
+    assert torch.equal(hw[free], a[free])
 
 
 def test_exchange_ops_match_jax():

@@ -36,7 +36,8 @@ def test_port_files_exist():
     names = {p.relative_to(REPO).as_posix() for p in _port_files()}
     for want in ("round_tpu_torch/engine/fast.py", "round_tpu_torch/ops/fused.py",
                  "round_tpu_torch/bench.py", "round_tpu_torch/apps/ladder.py",
-                 "round_tpu_torch/spec/check.py", "chip_smoke.py"):
+                 "round_tpu_torch/spec/check.py",
+                 "round_tpu_torch/tools/bisect.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -52,7 +53,8 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import round_tpu_torch.engine.fast, round_tpu_torch.bench, "
         "round_tpu_torch.engine.executor, round_tpu_torch.interop, "
-        "round_tpu_torch.apps.ladder, round_tpu_torch.spec, sys; "
+        "round_tpu_torch.apps.ladder, round_tpu_torch.spec, "
+        "round_tpu_torch.tools.bisect, sys; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'round_tpu')); assert not bad, bad"
     )

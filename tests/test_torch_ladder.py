@@ -90,7 +90,8 @@ def test_floodmin_body_matches_jax(seed):
         interpret=True)
     want = jbenchstat.decided_summary(state.decided, dround, rounds,
                                       state.decision)
-    got = ladder.floodmin_body(tmix, torch.as_tensor(init), f, V, rounds)[0]
+    got = ladder.floodmin_body(tmix, torch.as_tensor(init), f, V, rounds,
+                               mode="hash")[0]
     _assert_summary(got, want)
 
 
@@ -121,7 +122,8 @@ def test_benor_body_matches_jax(seed):
         jfast.BenOrHist(), st0, jmix, rounds, mode="hash", interpret=True)
     want = jbenchstat.decided_summary(state.decided, dround, rounds,
                                       state.decision.astype(jnp.int32))
-    got = ladder.benor_body(tmix, torch.as_tensor(init), rounds)[0]
+    got = ladder.benor_body(tmix, torch.as_tensor(init), rounds,
+                            mode="hash")[0]
     _assert_summary(got, want)
 
 

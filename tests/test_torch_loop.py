@@ -109,13 +109,18 @@ def test_otr_loop_plain_matches_jax_kernel(case):
 
 
 def test_otr_loop_knobs():
-    """mode='hw' is not ported and says where it is queued; `dot` is
-    validated and both values give the same bits."""
+    """mode='hw' is the default and runs (a p8=0 run draws nothing, so it
+    equals hash mode); an unknown mode is refused; `dot` is validated and
+    both values give the same bits."""
     x0 = torch.zeros((2, 4), dtype=torch.int32)
     z = torch.zeros((2,), dtype=torch.int32)
     args = (x0, x0 != 0, x0, z, z, z, z, z, z)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfused.otr_loop(*args, num_values=4, rounds=2, mode="hw")
+    hw = tfused.otr_loop(*args, num_values=4, rounds=2)
+    for u, v in zip(hw, tfused.otr_loop(*args, num_values=4, rounds=2,
+                                        mode="hash")):
+        assert torch.equal(u, v)
+    with pytest.raises(ValueError, match="unknown mode"):
+        tfused.otr_loop(*args, num_values=4, rounds=2, mode="tpu")
     with pytest.raises(ValueError):
         tfused.otr_loop(*args, num_values=4, rounds=2, dot="int4")
     a = tfused.otr_loop(*args, num_values=4, rounds=2, dot="i8")
@@ -141,7 +146,7 @@ def test_floodmin_loop_plain_matches_jax_kernel(case):
         {k: np.asarray(getattr(st0, k)) for k in ("x", "decided", "decision")},
         device="cpu")
     got = tfast.run_floodmin_loop(tfast.FloodMinHist(Vf, f), tst0,
-                                  _port_mix(mix), rounds)
+                                  _port_mix(mix), rounds, mode="hash")
     _assert_fields(got[0], want[0], ("x", "decided", "decision"))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
@@ -164,7 +169,8 @@ def test_benor_loop_plain_matches_jax_kernel(case):
     tst0 = interop.benor_state_from_numpy(
         {k: np.asarray(getattr(st0, k)) for k in
          ("x", "can_decide", "vote", "decided", "decision")}, device="cpu")
-    got = tfast.run_benor_loop(tfast.BenOrHist(), tst0, _port_mix(mix), 12)
+    got = tfast.run_benor_loop(tfast.BenOrHist(), tst0, _port_mix(mix), 12,
+                               mode="hash")
     _assert_fields(got[0], want[0],
                    ("x", "can_decide", "vote", "decided", "decision"))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))

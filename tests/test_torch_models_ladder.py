@@ -109,7 +109,7 @@ def test_floodmin_run_hist_matches_jax():
     got = tfast.run_hist(tfast.FloodMinHist(V, 2),
                          FloodMinState.fresh(torch.as_tensor(np.array(init)),
                                              S, N),
-                         lambda s: s.decided, tmix, 5)
+                         lambda s: s.decided, tmix, 5, mode="hash")
     for name in ("x", "decided", "decision"):
         np.testing.assert_array_equal(getattr(got[0], name).numpy(),
                                       np.asarray(getattr(want[0], name)))
@@ -130,7 +130,7 @@ def test_benor_run_hist_matches_jax():
     got = tfast.run_hist(tfast.BenOrHist(),
                          BenOrState.fresh(torch.as_tensor(np.array(bits)),
                                           S, N),
-                         lambda s: s.decided, tmix, 8)
+                         lambda s: s.decided, tmix, 8, mode="hash")
     for name in ("x", "can_decide", "vote", "decided", "decision"):
         np.testing.assert_array_equal(getattr(got[0], name).numpy(),
                                       np.asarray(getattr(want[0], name)))
