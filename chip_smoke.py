@@ -15,6 +15,8 @@ TPU's hardware PRNG):
   floodmin_loop(_hw)   K1, csrc/hist_loop.cu, FloodMin instance
   benor_loop(_hw)      K1, csrc/hist_loop.cu, Ben-Or instance
   lv_loop              K3, csrc/lv_loop.cu (the whole LastVoting run)
+  ring_exchange(_i8)   K4, csrc/ring_exchange.cu (the sharded engines'
+                       all-gather: int32 codes, int8 bit-planes)
   probe_double         P1, csrc/probe.cu (the bisect tool's o = 2 x)
   philox_bits          P2, csrc/probe.cu (the bisect tool's PRNG probe)
 
@@ -53,6 +55,26 @@ Phases, each printed as one line:
   K*-time, P*-time each kernel's time at its path's shape (K3 also at
                    n=1024 x 10,000 x 40 rounds), its plain version's time,
                    its bound and what bounds it
+  K4-vs-plain      the all-gather over p = 2, 4, 8 shards on cuda:0, int32
+                   and int8, aligned and odd widths, feature dims, 50 calls
+                   back to back, p = 1, a 2 x 2 mesh
+  sharded-families hist, benor, tpc, erb and lattice at n=64 on a 2 x 2 mesh
+                   of cuda:0: the hand-written exchange against the library
+                   gather, pipelined and straight, and each against its
+                   single-device runner (TPC and ERB launch K2 there)
+  sharded-loop     sharded_hist_loop over 4 scenario shards, hw and hash,
+                   against one K1 launch
+  sharded-flagship run_hist_proc_sharded(OtrHist(V=16)) at n=1024 on a 1 x 4
+                   mesh of cuda:0 through K4, against the library gather
+                   and the single-device hash run (launches counted)
+  K4-time          K4's time at the sharded flagship's and the lattice
+                   family's shapes, with its plain, library and bound times
+  ring-peers       the same checks and time over distinct cards, where more
+                   than one is visible; otherwise it says it skipped
+
+With ``--only sharded`` the script builds the kernels and runs the K4 and
+sharded phases alone; with ``--only peers`` just K4-vs-plain and ring-peers
+(for a machine with several cards).
 
 Then the card's name and power limit as nvidia-smi reports them, a
 {"kernels": [...]} line (per kernel: launches on its path, max_abs_err
@@ -100,6 +122,16 @@ PHILOX_KAT = (
 PROBE_SHAPE = (128, 128)  # the bisect tool's P1 and P2 shape
 # K3 beyond the lv rung (whose crash mix has p8 = 0 and hashes nothing)
 LV_N, LV_S, LV_ROUNDS = 1024, 10_000, 40
+
+# the sharded phases: the families' mesh and shape, and the sharded
+# flagship, whose scenarios and rounds are cut from the flagship's 10,000
+# and 50: the receiver-block mask and count outside K4 are plain PyTorch (as
+# they are plain XLA in round_tpu) and set the time of a run
+FAM_N, FAM_S, FAM_ROUNDS = 64, 16, 6
+# a sleep kernel of ~30 ms: launches queued behind it run back to back on
+# the card, so their event time is the card's, not the host's issue time
+SLEEP_CYCLES = 60_000_000
+SHARD_S, SHARD_ROUNDS, SHARDS = 2_000, 10, 4
 
 # Published peaks of one H100 SXM at its 700 W limit: HBM bandwidth from
 # NVIDIA's data sheet; integer issue rates from the Hopper white paper over
@@ -241,6 +273,373 @@ def plain_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def _ring_devices(torch, p, cards=1):
+    """p ring positions over the first `cards` cards, neighbours first."""
+    return [torch.device("cuda", (i * cards) // p) for i in range(p)]
+
+
+def ring_case(torch, what, chunks, calls=1):
+    """K4 on one chunk per shard (each on its shard's device) against the
+    plain version: every shard's output of every call, bit for bit.  With
+    calls > 1 the shards exchange `calls` times back to back, on fresh
+    inputs (chunk * (i + 1) + i)."""
+    from round_tpu_torch.parallel import ici, mesh as M
+
+    p = len(chunks)
+    grid = [c.device for c in chunks]
+    ring = M.Mesh.line(grid, "ring")
+
+    def body(x_l):
+        return torch.stack([
+            ici.ring_exchange(x_l * (i + 1) + i, axis="ring", p=p)
+            for i in range(calls)])[None]
+
+    x = torch.cat([c.to(grid[0]) for c in chunks], dim=1)
+    got = M.shard_map(body, ring, in_specs=(M.P(None, "ring"),),
+                      out_specs=M.P("ring"))(x)          # [p, calls, S_l, ..]
+    err = 0.0
+    for i in range(calls):
+        want = ici._ring_exchange_plain([c * (i + 1) + i for c in chunks])
+        err = max(err, compare(f"{what}, call {i}",
+                               [got[d, i] for d in range(p)], want))
+    return err
+
+
+def time_ring(torch, chunks, reps=50):
+    """(ms, issue_ms, outputs): K4 launched `reps` times through its
+    launcher, without the shards' threads, timed by CUDA events on the
+    first device's stream.  `ms` is the card's time for one exchange (the
+    launches queued behind a sleep kernel); `issue_ms` is the time from one
+    exchange to the next when the host issues them back to back."""
+    from round_tpu_torch.parallel import ici
+
+    p = len(chunks)
+    state = ici._RingState(p)
+    items = []
+    for rank, x in enumerate(chunks):
+        with torch.cuda.device(x.device):
+            state.flags[rank] = torch.zeros((p, ici.MAX_BLOCKS),
+                                            dtype=torch.int32, device=x.device)
+            state.status[rank] = torch.zeros((1,), dtype=torch.int32,
+                                             device=x.device)
+            out = torch.empty((x.shape[0], p * x.shape[1]), dtype=x.dtype,
+                              device=x.device)
+            stream = torch.cuda.current_stream(x.device)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+            items.append({"x": x, "out": out, "ready": ready,
+                          "stream": stream})
+    ici._launch_all(state, items)  # warm-up
+    first = items[0]["stream"]
+
+    def run(queued):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(chunks[0].device):
+            if queued:
+                torch.cuda._sleep(SLEEP_CYCLES)
+            start.record(first)
+            for _ in range(reps):
+                ici._launch_all(state, items)
+            end.record(first)
+        for x in chunks:
+            torch.cuda.synchronize(x.device)
+        return start.elapsed_time(end) / reps
+
+    issue_ms, ms = run(False), run(True)
+    for status in state.status:
+        require(int(status.item()) == 0, "K4 gave up waiting for a peer")
+    return ms, issue_ms, [it["out"] for it in items]
+
+
+def queued_ms(torch, fn, reps):
+    """Milliseconds of fn() on the card, with `reps` calls queued behind a
+    sleep kernel so that the host's issue time does not set the pace."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ring_rows(torch, name, chunks, launches, err, reps=50, link_rate=None):
+    """One K4 entry of the kernels line: its time, plain, library and bound
+    times on `chunks` (one per shard)."""
+    from round_tpu_torch.parallel import ici
+
+    p = len(chunks)
+    ms, issue_ms, outs = time_ring(torch, chunks, reps)
+    p_ms, want = plain_ms(lambda: ici._ring_exchange_plain(chunks))
+    compare(f"{name} at its path's shape", outs, want)
+    if link_rate is None:
+        # yardstick only: the library's gather of the chunks into p outputs
+        lib_ms = queued_ms(
+            torch, lambda: [torch.cat(chunks, dim=1) for _ in range(p)], reps)
+        # p chunks read, p * p chunk slots written, over the card's memory
+        chunk = chunks[0].numel() * chunks[0].element_size()
+        bnd = (p + p * p) * chunk / HBM_BYTES_PER_S * 1e3
+    else:
+        lib_ms, bnd = link_rate
+    return {"name": name, "route": "cuda",
+            "source": "round_tpu_torch/csrc/ring_exchange.cu",
+            "replaces": "round_tpu/parallel/ici.py:74",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "issue_ms": issue_ms, "plain_ms": p_ms, "bound_ms": bnd,
+            "bound_by": "bytes", "library_ms": lib_ms}
+
+
+def k4_vs_plain(torch, gen, cards=1):
+    """The K4-vs-plain phase over `cards` cards; returns its max_abs_err
+    per dtype."""
+    from round_tpu_torch.ops import fused
+    from round_tpu_torch.parallel import ici, mesh as M
+
+    def draw(shape, dtype, dev):
+        hi = 127 if dtype == torch.int8 else 2**31 - 1
+        return torch.randint(-hi, hi, shape, generator=gen, device="cuda:0",
+                             dtype=torch.int64).to(dtype).to(dev)
+
+    errs = {torch.int32: 0.0, torch.int8: 0.0}
+    shards = (2, 4, 8) if cards == 1 else (cards, 2 * cards)
+    for p in shards:
+        devs = _ring_devices(torch, p, cards)
+        for dtype, shapes in ((torch.int32, ((64, 256), (7, 250), (1, 1))),
+                              (torch.int8, ((64, 256 * 11), (5, 44)))):
+            for shape in shapes:
+                chunks = [draw(shape, dtype, d) // 4 for d in devs]
+                errs[dtype] = max(errs[dtype], ring_case(
+                    torch, f"K4 p={p} {dtype} {shape}", chunks))
+        # epochs: 50 exchanges back to back on fresh inputs
+        chunks = [draw((7, 250), torch.int32, d) // 64 for d in devs]
+        errs[torch.int32] = max(errs[torch.int32], ring_case(
+            torch, f"K4 p={p} 50 calls", chunks, calls=50))
+        # feature dims through make_ring_gather: [S_l, n_l, m + 1] int8
+        ring = M.Mesh.line(devs, "ring")
+        x = draw((5, p * 4, 11), torch.int8, devs[0])
+        got = M.shard_map(
+            lambda x_l: ici.make_ring_gather("ring", p)(x_l)[None], ring,
+            in_specs=(M.P(None, "ring"),), out_specs=M.P("ring"))(x)
+        errs[torch.int8] = max(errs[torch.int8], compare(
+            f"make_ring_gather p={p} [5, 4, 11] int8", list(got), [x] * p))
+    # p = 1: the identity, no launch
+    before = dict(fused.LAUNCHES)
+    x = draw((3, 5), torch.int32, "cuda:0")
+    require(ici.make_ring_gather("ring", 1)(x) is x
+            and fused.LAUNCHES == before,
+            "make_ring_gather(p=1) is not the identity without a launch")
+    # a 2 x 2 mesh: each ring stays in its scenario row
+    mesh = M.make_mesh(4, proc_shards=2, devices=_ring_devices(torch, 4, cards))
+    x = draw((2 * 6, 2 * 10), torch.int32, "cuda:0")
+    got = M.shard_map(
+        lambda x_l: ici.ring_exchange(x_l, axis=M.PROC_AXIS, p=2), mesh,
+        in_specs=(M.P(M.SCENARIO_AXIS, M.PROC_AXIS),),
+        out_specs=M.P(M.SCENARIO_AXIS, M.PROC_AXIS))(x)
+    errs[torch.int32] = max(errs[torch.int32], compare(
+        "K4 on a 2 x 2 mesh", [got], [torch.cat([x, x], dim=1)]))
+    say("K4-vs-plain", shards=",".join(map(str, shards)), cards=cards,
+        int32="(64,256),(7,250),(1,1)", int8="(64,2816),(5,44)",
+        cases="each shard's out vs torch.cat; [5,4,11] int8 through "
+              "make_ring_gather; 50 calls back to back; p=1 identity, no "
+              "launch; 2x2 mesh rows", tolerance=0,
+        max_abs_err=max(errs.values()), equal=True)
+    return errs
+
+
+def nvlink_rate():
+    """Bytes per second one card sends over its NVLinks, summed over the
+    links `nvidia-smi nvlink -s` lists for GPU 0; None when it lists none."""
+    import re
+
+    cp = subprocess.run(["nvidia-smi", "nvlink", "-s", "-i", "0"],
+                        capture_output=True, text=True)
+    rates = [float(m) for m in re.findall(r"Link \d+: ([0-9.]+) GB/s",
+                                          cp.stdout)]
+    return sum(rates) * 1e9 if rates else None
+
+
+def ring_peers(torch, gen):
+    """K4 over distinct cards, where more than one is visible."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(json.dumps({"phase": "ring-peers",
+                          "skipped": "one card visible"}), flush=True)
+        return None
+    errs = k4_vs_plain(torch, gen, cards=cards)
+    devs = _ring_devices(torch, cards, cards)
+    chunks = [torch.randint(0, 17, (SHARD_S, N // SHARDS), generator=gen,
+                            device="cuda:0", dtype=torch.int32).to(d)
+              for d in devs]
+    rate = nvlink_rate()
+    chunk = chunks[0].numel() * chunks[0].element_size()
+    bnd = (cards - 1) * chunk / rate * 1e3 if rate else None
+    try:
+        outs = [torch.empty((cards * SHARD_S, N // SHARDS),
+                            dtype=torch.int32, device=d) for d in devs]
+        lib_ms = queued_ms(
+            torch, lambda: torch.cuda.nccl.all_gather(chunks, outs), 20)
+        for d in devs:
+            torch.cuda.synchronize(d)
+        compare("nccl all_gather yardstick", outs,
+                [torch.cat([c.to(o.device) for c in chunks]) for o in outs])
+    except Exception as exc:  # noqa: BLE001 - a yardstick, reported
+        lib_ms = None
+        say("ring-peers-nccl", unavailable=repr(exc)[:200])
+    row = ring_rows(torch, "ring_exchange_peers", chunks, 0,
+                    errs[torch.int32], reps=20, link_rate=(lib_ms, bnd))
+    say("ring-peers", cards=cards, shape=f"[{SHARD_S},{N // SHARDS}] int32",
+        ms=round(row["ms"], 4), issue_ms=round(row["issue_ms"], 4),
+        plain_ms=round(row["plain_ms"], 3), nccl_all_gather_ms=None if lib_ms is None else round(lib_ms, 4),
+        bound_ms=None if bnd is None else round(bnd, 5),
+        nvlink_bytes_per_s=rate, bound_by="bytes over NVLink",
+        max_abs_err=row["max_abs_err"])
+    return row
+
+
+def sharded_phases(torch, gen):
+    """The K4 phases and the sharded paths; returns K4's two entries of the
+    kernels line."""
+    from round_tpu_torch.engine import fast
+    from round_tpu_torch.models.otr import OtrState
+    from round_tpu_torch.ops import fused
+    from round_tpu_torch.parallel import ici, mesh as M
+
+    dev = torch.device("cuda:0")
+    errs = k4_vs_plain(torch, gen)
+
+    # -- the five families on a 2 x 2 mesh of cuda:0 -------------------------
+    mesh = M.make_mesh(4, proc_shards=2, devices=[dev] * 4)
+    fused.reset_launches()
+    for family in ici.FAMILIES:
+        fgen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        state0, mix, run = ici._family_runner(family, FAM_N, FAM_S,
+                                              FAM_ROUNDS, fgen, dev)
+        single = ici.single_device_run(family, state0, mix, FAM_ROUNDS)
+        M.reset_collective()
+        runs = {"collective": run(state0, mix, mesh, "collective", False)}
+        gathers = M.COLLECTIVE["calls"]
+        M.reset_collective()
+        runs["ici pipelined"] = run(state0, mix, mesh, "ici", True)
+        runs["ici straight"] = run(state0, mix, mesh, "ici", False)
+        require(gathers > 0 and M.COLLECTIVE["calls"] == 0,
+                f"{family}: the ici runs called the library gather "
+                f"{M.COLLECTIVE['calls']} times (collective run: {gathers})")
+        for label, got in runs.items():
+            require(ici._trees_equal(got, single),
+                    f"sharded {family} ({label}) differs from its "
+                    "single-device run")
+        require(ici.family_parity(family, n=FAM_N, S=FAM_S, proc_shards=2,
+                                  rounds=FAM_ROUNDS, devices=[dev] * 4),
+                f"family_parity({family}) is false")
+    fam_launches = {k: v for k, v in fused.LAUNCHES.items() if v}
+    say("sharded-families", families=",".join(ici.FAMILIES), n=FAM_N, S=FAM_S,
+        rounds=FAM_ROUNDS, mesh="2x2 of cuda:0",
+        cases="ici pipelined, ici straight and collective, each equal to "
+              "run_hist / run_tpc_fast / run_erb_fast / run_lattice_fast "
+              "(hash); family_parity", equal=True,
+        launches=json.dumps(fam_launches).replace(" ", ""))
+    require(fam_launches.get("hist_exchange", 0) > 0,
+            "run_tpc_fast and run_erb_fast launched no K2 kernel")
+    for name in ("ring_exchange", "ring_exchange_i8"):
+        require(fam_launches.get(name, 0) > 0,
+                f"the sharded families launched no {name} kernel")
+
+    # -- the whole-run loop over 4 scenario shards ---------------------------
+    loop_mesh = M.Mesh.line([dev] * SHARDS, M.SCENARIO_AXIS)
+    lgen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    mix = fast.standard_mix(lgen, SHARD_S, N, p_drop=P_DROP, device=dev)
+    init = torch.randint(0, V, (N,), generator=lgen, dtype=torch.int32,
+                         device=dev)
+    x0 = init.expand(SHARD_S, N).contiguous()
+    algo = fused.OtrLoop(num_values=V, after_decision=2)
+    fused.reset_launches()
+    for mode in ("hw", "hash"):
+        got = M.sharded_hist_loop(algo, x0, mix, SHARD_ROUNDS, loop_mesh,
+                                  mode=mode)
+        want = fused.hist_loop(algo, x0, *fast._mix_args(mix),
+                               rounds=SHARD_ROUNDS, mode=mode)
+        compare(f"sharded_hist_loop ({mode})", [*got[0], *got[1:]],
+                [*want[0], *want[1:]])
+    say("sharded-loop", n=N, S=SHARD_S, rounds=SHARD_ROUNDS,
+        shards=f"{SHARDS} scenario shards of cuda:0", modes="hw,hash",
+        equal=True, launches=json.dumps(
+            {k: v for k, v in fused.LAUNCHES.items() if v}).replace(" ", ""))
+
+    # -- the sharded flagship: the sharded path at full width -----------------
+    mesh = M.make_mesh(SHARDS, proc_shards=SHARDS, devices=[dev] * SHARDS)
+    rnd = fast.OtrHist(n_values=V, after_decision=2)
+    st0 = OtrState.fresh(init, SHARD_S, N)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_launches()
+    M.reset_collective()
+    got, ici_s = timed(lambda: M.run_hist_proc_sharded(
+        rnd, st0, mix, SHARD_ROUNDS, mesh, exchange="ici"))
+    k4_launches = fused.LAUNCHES["ring_exchange"]
+    require(k4_launches == SHARD_ROUNDS and M.COLLECTIVE["calls"] == 0,
+            f"the sharded flagship launched K4 {k4_launches} times in "
+            f"{SHARD_ROUNDS} rounds and called the library gather "
+            f"{M.COLLECTIVE['calls']} times")
+    coll, coll_s = timed(lambda: M.run_hist_proc_sharded(
+        rnd, st0, mix, SHARD_ROUNDS, mesh, exchange="collective"))
+    gathers = M.COLLECTIVE["calls"]
+    single, single_s = timed(lambda: fast.run_hist(
+        rnd, st0, lambda s: s.decided, mix, SHARD_ROUNDS, mode="hash"))
+    require(ici._trees_equal(got, single),
+            "the sharded flagship (ici) differs from run_hist(hash)")
+    require(ici._trees_equal(coll, single),
+            "the sharded flagship (collective) differs from run_hist(hash)")
+    decided = float(got[0].decided.float().mean())
+    say("sharded-flagship", n=N, S=SHARD_S, rounds=SHARD_ROUNDS, V=V,
+        mesh=f"1x{SHARDS} of cuda:0", n_local=N // SHARDS,
+        cut_from="S=10000, rounds=50: the mask and count around K4 are "
+                 "plain PyTorch and set the time",
+        ici_wall_s=round(ici_s, 3), collective_wall_s=round(coll_s, 3),
+        single_device_wall_s=round(single_s, 3),
+        frac_lanes_decided=round(decided, 4), K4_launches=k4_launches,
+        ici_all_gather_calls=0, collective_all_gather_calls=gathers,
+        peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2),
+        equal=True)
+    require(decided > 0.5, "the sharded flagship decided too little")
+
+    # -- K4's time at the shapes of its paths --------------------------------
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    codes = [torch.randint(0, V + 1, (SHARD_S, N // SHARDS), generator=tgen,
+                           device=dev, dtype=torch.int32)
+             for _ in range(SHARDS)]
+    planes = [torch.randint(0, 2, (FAM_S // 2, (FAM_N // 2) * 11),
+                            generator=tgen, device=dev,
+                            dtype=torch.int64).to(torch.int8)
+              for _ in range(2)]
+    rows = [ring_rows(torch, "ring_exchange", codes, k4_launches,
+                      errs[torch.int32]),
+            ring_rows(torch, "ring_exchange_i8", planes,
+                      fam_launches["ring_exchange_i8"], errs[torch.int8])]
+    for row, shape in zip(rows, (f"[{SHARD_S},{N // SHARDS}] int32 p={SHARDS}",
+                                 f"[{FAM_S // 2},{(FAM_N // 2) * 11}] int8 "
+                                 "p=2")):
+        say("K4-time", kernel=row["name"], shape=shape,
+            launches=row["launches"], ms=round(row["ms"], 5),
+            issue_ms=round(row["issue_ms"], 5),
+            plain_ms=round(row["plain_ms"], 4),
+            library_ms=round(row["library_ms"], 5),
+            library="torch.cat of the chunks, once per shard",
+            bound_ms=f"{row['bound_ms']:.3g}", bound_by=row["bound_by"])
+    ring_peers(torch, gen)
+    return rows
+
+
 def main() -> None:
     if not (ROOT / "round_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: round_tpu_torch/csrc is not beside "
@@ -293,6 +692,22 @@ def main() -> None:
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = torch.arange(V, dtype=torch.int32, device=dev)
+
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
+        else None
+    if only is not None:
+        require(only in ("sharded", "peers"), f"unknown --only {only}")
+        if only == "sharded":
+            part = sharded_phases(torch, gen)
+        else:
+            k4_vs_plain(torch, gen)
+            part = [ring_peers(torch, gen)]
+        print(card, flush=True)
+        print(json.dumps({"kernels": part}), flush=True)
+        print(json.dumps({"ok": True, "only": only, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     # -- 3. K2 against its plain version (tolerance 0: integer counts) -------
     k2_err = 0.0
@@ -856,6 +1271,9 @@ def main() -> None:
     say("P2-time", ms=round(p2_ms, 5), plain_ms=round(p2_plain_ms, 4),
         bound_ms=f"{p2_bound:.3g}", bound_by=p2_by, pipe=p2_pipe)
 
+    # -- 8. K4 and the sharded paths ------------------------------------------
+    ring_kernels = sharded_phases(torch, gen)
+
     kernels = [
         {"name": "otr_loop", "route": "cuda",
          "source": "round_tpu_torch/csrc/hist_loop.cu",
@@ -920,6 +1338,7 @@ def main() -> None:
          "ms": p2_ms, "plain_ms": p2_plain_ms, "bound_ms": p2_bound,
          "bound_by": p2_by, "library_ms": None},
     ]
+    kernels += ring_kernels
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

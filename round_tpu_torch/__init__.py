@@ -16,6 +16,10 @@ config ladder re-written by hand in CUDA C++ for Hopper (``csrc/``):
                              ``mode="hash"``: bit-exact with round_tpu
   - the device bisect tool = ``tools.bisect`` (the port of
                              tools/tpu_bisect.py, with its two probes)
+  - several devices        = ``parallel.mesh``: a (scenario × proc) mesh
+                             of devices held by one process, in which a
+                             device may repeat; ``parallel.ici``: the
+                             hand-written all-gather of its exchange
 
 Layout mirrors round_tpu (core/, ops/, engine/, models/, spec/, apps/,
 utils/, and tools/ for the repo's tools/) so every module has a

@@ -1,12 +1,17 @@
 """The fused fast engine: histogram rounds through the CUDA exchange kernel.
 
-Port of the main-path and ladder parts of round_tpu/engine/fast.py.  For
-*histogram rounds* — broadcast a small-domain value, consume the mailbox
-only through per-value counts (OTR, FloodMin, Ben-Or) — the whole round
-runs through ``ops.fused.hist_exchange`` (K2, one launch per round:
-``run_hist``) or the whole run through one K1 launch (``ops.fused.hist_loop``:
-``run_otr_loop``, the flagship path, ``run_floodmin_loop`` and
-``run_benor_loop``).  The [S, n, n] mask never exists in device memory.
+Port of the main-path, ladder and sharded-family parts of
+round_tpu/engine/fast.py.  For *histogram rounds* — broadcast a
+small-domain value, consume the mailbox only through per-value counts (OTR,
+FloodMin, Ben-Or, and with guarded sends Two-Phase Commit and eager
+reliable broadcast) — the whole round runs through
+``ops.fused.hist_exchange`` (K2, one launch per round: ``run_hist``,
+``run_tpc_fast``, ``run_erb_fast``) or the whole run through one K1 launch
+(``ops.fused.hist_loop``: ``run_otr_loop``, the flagship path,
+``run_floodmin_loop`` and ``run_benor_loop``).  The [S, n, n] mask never
+exists in device memory on those paths.  Lattice agreement
+(``run_lattice_fast``) rides the same ``hist_scan`` scaffolding over
+bit-plane count matmuls and the dense hash-mode mask (``mix_ho``).
 
 The fault model is a `FaultMix`: per-scenario structured parameters (crash
 sets, partition sides, a rotating suppressed process, an iid-omission
@@ -163,11 +168,16 @@ class HistRound:
     """A round whose update consumes only the value histogram; its
     `update_counts` is batched over [S, n] (round_tpu/engine/fast.py::
     HistRound).  ``phase_len > 1`` selects the subround ``k = r % phase_len``;
-    ``needs_coin`` asks for the [S, n] hash-coin matrix each round."""
+    ``needs_coin`` asks for the [S, n] hash-coin matrix each round;
+    ``needs_lane_ids`` passes the global ids of the local lanes to
+    ``update_counts`` as ``lane_ids=``; ``no_exchange_subrounds`` names the
+    subrounds that consume no counts, whose exchange the engines skip."""
 
     num_values: int
     phase_len: int = 1
     needs_coin: bool = False
+    needs_lane_ids: bool = False
+    no_exchange_subrounds: Tuple[int, ...] = ()
 
     def payload(self, state, k: int = 0) -> torch.Tensor:
         raise NotImplementedError
@@ -286,6 +296,274 @@ class BenOrHist(HistRound):
         return state, torch.zeros_like(frozen)
 
 
+def subtract_self_delivery(counts, payload, excl, num_values: int):
+    """The exchange kernel hard-wires broadcast self-delivery (the eye term
+    of the HO formula) even through colmask; a GUARDED send must not
+    self-deliver on excluded lanes — subtract the own-payload count where
+    `excl` marks an active lane the guard excludes.  Shared by every
+    guarded-send fused path (TPC's commit round, ERB's flooding;
+    round_tpu/engine/fast.py::subtract_self_delivery)."""
+    onehot_own = (
+        payload[:, None, :]
+        == torch.arange(num_values, dtype=payload.dtype,
+                        device=payload.device)[None, :, None]
+    ) & excl[:, None, :]
+    return counts - onehot_own.to(torch.int32)
+
+
+class TpcHist(HistRound):
+    """Two-Phase Commit on the fused path (models/tpc.py semantics,
+    TwoPhaseCommit.scala:16-81; round_tpu/engine/fast.py::TpcHist): one
+    3-subround phase over a V=2 histogram.  The guarded sends become
+    per-subround column masks (prepare/commit: only the coordinator's
+    column transmits); the vote round's coordinator-only delivery needs no
+    row mask — non-coordinator receivers compute a discarded value, exactly
+    as their general-engine mailboxes are empty.
+
+      k=0 prepare: no state change.
+      k=1 vote:    coord decides commit iff all n votes heard and yes
+                   (size == n and yes-count == size).
+      k=2 commit:  receivers adopt the (present) decision and decide;
+                   an empty mailbox decides None = -1 (coord suspected)."""
+
+    num_values = 2
+    phase_len = 3
+    needs_lane_ids = True  # the coordinator test is a lane-identity compare
+    no_exchange_subrounds = (0,)  # prepare consumes nothing
+
+    def payload(self, state, k: int = 0):
+        from round_tpu_torch.models.tpc import DEC_COMMIT
+
+        if k == 1:
+            return state.vote.to(torch.int32)
+        if k == 2:
+            return (state.decision == DEC_COMMIT).to(torch.int32)
+        return torch.zeros_like(state.decision)
+
+    def update_counts(self, state, counts, size, r, n, k: int = 0, coin=None,
+                      lane_ids=None):
+        from round_tpu_torch.models.tpc import DEC_ABORT, DEC_COMMIT
+
+        no_exit = torch.zeros_like(size, dtype=torch.bool)
+        if k == 0:
+            return state, no_exit
+        if k == 1:
+            is_coord = lane_ids.to(state.coord.dtype)[None, :] == state.coord
+            yes = counts[:, 1, :]
+            all_yes = (size == n) & (yes == size)
+            dec = torch.where(all_yes, DEC_COMMIT, DEC_ABORT).to(torch.int32)
+            return state.replace(
+                decision=torch.where(is_coord, dec, state.decision)
+            ), no_exit
+        got = size > 0
+        v = torch.where(counts[:, 1, :] > 0, DEC_COMMIT, DEC_ABORT).to(
+            torch.int32)
+        state = state.replace(
+            decision=torch.where(got, v, state.decision),
+            decided=torch.ones_like(state.decided),
+        )
+        return state, ~no_exit
+
+
+def run_tpc_fast(state0, mix: FaultMix, max_rounds: int = 3,
+                 mode: str = "hash"):
+    """TPC through the fused exchange (round_tpu/engine/fast.py::
+    run_tpc_fast): hist_scan with a per-subround column mask (the
+    coordinator's guarded broadcasts), one K2 launch per vote and commit
+    round.  Lane-exact against the general engine on mixed-fault mixes,
+    including the coordinator-crash suspect path (decision None = -1).
+    The coordinator is uniform per scenario (column 0 of ``coord``)."""
+    S, n = mix.crashed.shape
+    rnd = TpcHist()
+    coord_col = state0.coord[:, :1]                        # [S, 1] uniform
+    is_coord_col = torch.arange(
+        n, dtype=coord_col.dtype, device=coord_col.device)[None, :] == coord_col
+
+    def counts_fn(state, k, done, r):
+        if k in rnd.no_exchange_subrounds:
+            # prepare consumes nothing (TwoPhaseCommit.scala:42-44): skip
+            # the exchange kernel entirely
+            return torch.zeros((S, rnd.num_values, n), dtype=torch.int32,
+                               device=done.device)
+        colmask, side_r, p8, salt0, salt1r = round_params(mix, r)
+        if k == 2:
+            # guarded broadcast: only the coordinator's column sends
+            colmask = colmask & is_coord_col
+        payload = rnd.payload(state, k)
+        counts = fused.hist_exchange(
+            payload, ~done, colmask, None, side_r, salt0, salt1r, p8,
+            rnd.num_values, mode=mode,
+        ).to(torch.int32)
+        if k == 2:
+            # without the subtraction a non-coordinator receiver with an
+            # otherwise-empty mailbox would hear itself and miss the
+            # coordinator-suspect path (decision None)
+            counts = subtract_self_delivery(
+                counts, payload, (~done) & ~is_coord_col, rnd.num_values)
+        return counts
+
+    return hist_scan(rnd, state0, lambda s: s.decided, max_rounds, n,
+                     counts_fn)
+
+
+class ErbHist(HistRound):
+    """Eager reliable broadcast on the fused path (models/erb.py semantics,
+    EagerReliableBroadcast.scala:13-47; round_tpu/engine/fast.py::ErbHist):
+    the defined-senders flooding as a guarded histogram exchange.
+
+    Adoption decodes as min{v : counts[v] > 0}.  The general engine adopts
+    the LOWEST-ID heard sender's value (Mailbox.any_value); the two
+    coincide exactly on ERB's protocol class — every defined sender of one
+    instance carries the ORIGINATOR's value (the flooding invariant) —
+    which is why the differential parity is lane-exact on
+    protocol-generated runs.
+
+    CONTRACT (do NOT reuse outside the flooding-invariant class): any round
+    family where concurrently-defined senders may broadcast DIFFERENT
+    values in the same exchange would make min-of-heard and
+    lowest-sender-id adoption diverge silently.  Multi-writer broadcast
+    needs its own HistRound with an explicit tie-break matching the general
+    engine, not this class."""
+
+    def __init__(self, n_values: int):
+        from round_tpu_torch.models.erb import GIVE_UP_ROUND
+
+        self.num_values = n_values
+        self.give_up_round = GIVE_UP_ROUND  # the model's constant: one source
+
+    def payload(self, state, k: int = 0):
+        return state.x_val
+
+    def update_counts(self, state, counts, size, r, n, k: int = 0, coin=None):
+        V = self.num_values
+        got_any = size > 0
+        rows = torch.arange(V, dtype=torch.int32,
+                            device=counts.device)[None, :, None]
+        adopted = torch.where(counts > 0, rows, V).min(dim=1).values.to(
+            state.x_val.dtype)
+        delivering = state.x_def
+        give_up = ~state.x_def & ~got_any & (r > self.give_up_round)
+        newly = delivering & ~state.delivered
+        state = state.replace(
+            x_val=torch.where(~state.x_def & got_any, adopted, state.x_val),
+            x_def=state.x_def | got_any,
+            delivered=state.delivered | delivering,
+            delivery=torch.where(newly, state.x_val, state.delivery),
+        )
+        return state, delivering | give_up
+
+
+def run_erb_fast(state0, mix: FaultMix, max_rounds: int, n_values: int,
+                 mode: str = "hash"):
+    """ERB through the fused exchange (round_tpu/engine/fast.py::
+    run_erb_fast): the send guard (only DEFINED lanes broadcast,
+    models/erb.py ErbRound.send) becomes a state-dependent column mask,
+    with the kernel's hard-wired self-delivery subtracted on guard-excluded
+    lanes (the run_tpc_fast discipline).  One K2 launch per round.
+
+    CONTRACT: valid only for single-instance ERB state0 (one originator
+    per instance), where every defined sender floods the originator's
+    value — see ErbHist's contract note; feeding multi-writer initial
+    states would diverge from the general engine silently."""
+    S, n = mix.crashed.shape
+    rnd = ErbHist(n_values)
+
+    def counts_fn(state, k, done, r):
+        colmask, side_r, p8, salt0, salt1r = round_params(mix, r)
+        payload = rnd.payload(state, k)
+        counts = fused.hist_exchange(
+            payload, ~done, colmask & state.x_def,  # guarded broadcast
+            None, side_r, salt0, salt1r, p8, rnd.num_values, mode=mode,
+        ).to(torch.int32)
+        return subtract_self_delivery(
+            counts, payload, (~done) & ~state.x_def, rnd.num_values)
+
+    return hist_scan(rnd, state0, lambda s: s.delivered, max_rounds, n,
+                     counts_fn)
+
+
+def mix_ho(mix: FaultMix, r) -> torch.Tensor:
+    """[S, n(recv), n(send)] HO matrix for round r — the hash-mode link
+    formula (ops.fused.ho_link_mask, the one shared implementation) over
+    the whole mix, for fused paths whose exchange is not histogram-shaped
+    (the bitset family).  Bit-identical to the per-scenario replay
+    (scenarios.from_fault_params; round_tpu/engine/fast.py::mix_ho)."""
+    colmask, side_r, p8, salt0, salt1r = round_params(mix, r)
+    return fused.ho_link_mask(colmask, side_r, salt0, salt1r, p8)
+
+
+class LatticeHist(HistRound):
+    """Lattice agreement on the fused path (models/lattice.py semantics,
+    LatticeAgreement.scala:32-67; round_tpu/engine/fast.py::LatticeHist):
+    the [m]-bit set payload rides bit-plane matmuls instead of per-receiver
+    mailbox folds.
+
+    counts layout ([S, m+1, n]): plane 0 = #heard senders whose proposal
+    EQUALS the receiver's (equality via a Hamming-distance matmul pair,
+    M = P·(1-P)ᵀ + (1-P)·Pᵀ, eq ⇔ M = 0); planes 1..m = per-bit heard
+    counts, whose >0 test is the join (union = OR across heard sets)."""
+
+    def __init__(self, m: int):
+        self.num_values = m + 1
+        self.m = m
+
+    def payload(self, state, k: int = 0):
+        return state.proposed                              # [S, n, m] bool
+
+    def update_counts(self, state, counts, size, r, n, k: int = 0, coin=None):
+        same = counts[:, 0, :]                             # [S, n]
+        or_any = counts[:, 1:, :] > 0                      # [S, m, n]
+        joined = state.proposed | or_any.transpose(1, 2)
+        deciding = state.active & (same > n // 2)
+        newly = deciding & ~state.decided
+        grow = state.active & ~deciding
+        state = state.replace(
+            active=grow,
+            proposed=torch.where(grow[..., None], joined, state.proposed),
+            decided=state.decided | deciding,
+            decision=torch.where(newly[..., None], state.proposed,
+                                 state.decision),
+        )
+        return state, deciding
+
+
+def lattice_counts(deliver, P_recv, P_send) -> torch.Tensor:
+    """The lattice count planes ([.., m+1, n_recv] int32) from a delivery
+    mask and the receiver/sender proposal matrices — ONE implementation
+    shared by the single-device runner (P_recv = P_send) and the
+    receiver-sharded path (P_recv = local slice, P_send = the gathered full
+    matrix): plane 0 = #heard equal proposals (Hamming matmul pair), planes
+    1..m = per-bit heard counts (the join).  The products run in float32 on
+    0/1 operands, exact below 2^24 (round_tpu/engine/fast.py::
+    lattice_counts)."""
+    Pr = P_recv.to(torch.float32)
+    Ps = P_send.to(torch.float32)
+    ham = (torch.matmul(Pr, (1 - Ps).transpose(-1, -2))
+           + torch.matmul(1 - Pr, Ps.transpose(-1, -2)))   # [.., j, i]
+    eq = ham == 0
+    same = (deliver & eq).sum(dim=-1, dtype=torch.int32)
+    orc = torch.matmul(deliver.to(torch.float32), Ps).transpose(-1, -2)
+    return torch.cat([same[..., None, :], orc.to(torch.int32)], dim=-2)
+
+
+def run_lattice_fast(state0, mix: FaultMix, max_rounds: int):
+    """Lattice agreement over the fused bitset exchange (round_tpu/engine/
+    fast.py::run_lattice_fast): three [n, m]-class matmuls per
+    scenario-round (two Hamming halves + the OR-count pass), through the
+    shared hist_scan scaffolding.  Lane-exact against the general engine.
+    Hash links only, as in round_tpu: the dense mask is the one the general
+    engine replays."""
+    S, n = mix.crashed.shape
+    rnd = LatticeHist(state0.proposed.shape[-1])
+
+    def counts_fn(state, k, done, r):
+        deliver = mix_ho(mix, r) & (~done)[:, None, :]    # [S, j, i]
+        return lattice_counts(deliver, state.proposed, state.proposed)
+
+    return hist_scan(rnd, state0, lambda s: s.decided, max_rounds, n,
+                     counts_fn)
+
+
 def hist_scan(
     rnd: HistRound,
     state0,
@@ -294,30 +572,61 @@ def hist_scan(
     n: int,
     counts_fn: Callable,
     coin_fn: Optional[Callable] = None,
+    lane_ids: Optional[torch.Tensor] = None,
+    ho_fn: Optional[Callable] = None,
 ):
-    """The round-step scaffolding every histogram engine shares: subround
-    dispatch, exit/freeze bookkeeping (exited lanes stop sending and their
-    state freezes) and decided_round recording.  Engines differ only in
-    how counts are produced:
+    """The round-step scaffolding every histogram engine shares
+    (round_tpu/engine/fast.py::hist_scan): subround dispatch, exit/freeze
+    bookkeeping (exited lanes stop sending and their state freezes) and
+    decided_round recording.  Engines differ only in how counts are
+    produced:
 
       counts_fn(state, k, done, r) -> counts [.., V, lanes] int32
       coin_fn(r) -> per-lane coin matrix (rnd.needs_coin engines)
 
-    A Python loop over rounds (round_tpu: lax.scan).  The pipelined
-    ``ho_fn`` form of round_tpu serves the sharded paths, a later slice."""
+    Shared by run_hist (the fused exchange on one device) and
+    parallel.mesh.run_hist_proc_sharded (receiver-sharded count blocks);
+    `n` is the GLOBAL group size (quorum thresholds), which may exceed the
+    local lane axis.  `lane_ids` are the global ids of the local lanes
+    (default: arange), passed to update_counts for rounds with
+    needs_lane_ids.
+
+    ``ho_fn(r) -> block`` selects the cross-round pipelined form: round
+    r+1's HO block is produced before round r's update (it depends on the
+    round index alone, so on the card its kernels are queued ahead of the
+    count and the update) and counts_fn is called as
+    counts_fn(state, k, done, r, block).  ``ho_fn=None`` is the
+    straight-line loop: counts_fn makes its own mask in-round.  The two
+    forms are bit-identical; only when the block is computed moves.
+
+    A Python loop over rounds (round_tpu: lax.scan)."""
     lanes_like = decided_fn(state0)
     done = torch.zeros(lanes_like.shape, dtype=torch.bool,
                        device=lanes_like.device)
     decided_round = torch.full(lanes_like.shape, -1, dtype=torch.int32,
                                device=lanes_like.device)
+    extra = {}
+    if rnd.needs_lane_ids:
+        extra["lane_ids"] = (
+            torch.arange(lanes_like.shape[-1], dtype=torch.int32,
+                         device=lanes_like.device)
+            if lane_ids is None else lane_ids)
     state = state0
+    ho = ho_fn(0) if ho_fn is not None and max_rounds > 0 else None
     for r in range(max_rounds):
         coin = coin_fn(r) if coin_fn is not None else None
         k = r % rnd.phase_len
-        counts = counts_fn(state, k, done, r)
+        if ho_fn is None:
+            counts = counts_fn(state, k, done, r)
+        else:
+            # the carried block is this round's; the next round's is
+            # produced before this round's count and update
+            block, ho = ho, ho_fn(r + 1)
+            counts = counts_fn(state, k, done, r, block)
+            del block
         size = counts.sum(dim=1, dtype=torch.int32)
         new_state, exit_ = rnd.update_counts(state, counts, size, r, n, k=k,
-                                             coin=coin)
+                                             coin=coin, **extra)
         # frozen lanes keep their state; exits only count for active lanes
         active = ~done
         state = tree_where(active, new_state, state)

@@ -13,9 +13,12 @@ import torch
 
 from round_tpu_torch.engine.fast import FaultMix
 from round_tpu_torch.models.benor import BenOrState
+from round_tpu_torch.models.erb import ErbState
 from round_tpu_torch.models.floodmin import FloodMinState
 from round_tpu_torch.models.lastvoting import LVState
+from round_tpu_torch.models.lattice import LatticeState
 from round_tpu_torch.models.otr import OtrState
+from round_tpu_torch.models.tpc import TpcState
 from round_tpu_torch.utils.device import resolve_device
 
 _MIX_INT_FIELDS = ("crash_round", "side", "heal_round", "rotate_down", "p8",
@@ -91,3 +94,35 @@ def lv_state_from_numpy(d: Mapping[str, np.ndarray], device=None) -> LVState:
         decided=_bool(d["decided"], dev),
         decision=_int32(d["decision"], dev),
     )
+
+
+def tpc_state_from_numpy(d: Mapping[str, np.ndarray], device=None) -> TpcState:
+    """A TpcState from numpy arrays named coord, vote, decision, decided."""
+    dev = resolve_device(device)
+    return TpcState(
+        coord=_int32(d["coord"], dev),
+        vote=_bool(d["vote"], dev),
+        decision=_int32(d["decision"], dev),
+        decided=_bool(d["decided"], dev),
+    )
+
+
+def erb_state_from_numpy(d: Mapping[str, np.ndarray], device=None) -> ErbState:
+    """An ErbState from numpy arrays named x_val, x_def, delivered,
+    delivery."""
+    dev = resolve_device(device)
+    return ErbState(
+        x_val=_int32(d["x_val"], dev),
+        x_def=_bool(d["x_def"], dev),
+        delivered=_bool(d["delivered"], dev),
+        delivery=_int32(d["delivery"], dev),
+    )
+
+
+def lattice_state_from_numpy(d: Mapping[str, np.ndarray],
+                             device=None) -> LatticeState:
+    """A LatticeState from numpy arrays named active, proposed ([.., m]),
+    decided, decision ([.., m]), all bool."""
+    dev = resolve_device(device)
+    return LatticeState(**{k: _bool(d[k], dev) for k in
+                           ("active", "proposed", "decided", "decision")})

@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("hist_exchange", "hist_loop", "lv_loop", "probe")
+KERNELS = ("hist_exchange", "hist_loop", "lv_loop", "probe", "ring_exchange")
 
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
@@ -54,6 +54,12 @@ _SIGNATURES = {
     "probe": {
         "probe_double_launch": ([_P, _P, _L, _P], _I),
         "philox_bits_launch": ([_P, _P, _L] + [_U] * 4 + [_P], _I),
+    },
+    "ring_exchange": {
+        "ring_exchange_launch": ([_PP] * 3 + [_P] + [_I] * 7 + [_U, _L, _P],
+                                 _I),
+        "ring_exchange_max_blocks": ([_I], _I),
+        "ring_enable_peer": ([_I, _I], _I),
     },
 }
 

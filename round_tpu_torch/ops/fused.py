@@ -94,6 +94,8 @@ LAUNCHES: Dict[str, int] = {
     "floodmin_loop": 0, "floodmin_loop_hw": 0,
     "benor_loop": 0, "benor_loop_hw": 0,
     "lv_loop": 0, "probe_double": 0, "philox_bits": 0,
+    # K4 (parallel/ici.py::ring_exchange): int32 codes, int8 bit-planes
+    "ring_exchange": 0, "ring_exchange_i8": 0,
 }
 
 

@@ -3,8 +3,8 @@
 Marked `cuda`: each test skips (it does not fail) where torch finds no CUDA
 card, deciding inside the test.  On the card, chip_smoke.py is the full
 check at n=1024; these are the quick per-kernel checks of K2, the three K1
-instances and K3 (hash mode), K2 and K1 in hw mode, and the probes P1 and
-P2:
+instances and K3 (hash mode), K2 and K1 in hw mode, the probes P1 and P2,
+and K4 over shards of one card:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -14,6 +14,7 @@ import torch
 
 from round_tpu_torch.engine import fast
 from round_tpu_torch.ops import fused
+from round_tpu_torch.parallel import ici, mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -191,3 +192,47 @@ def test_philox_bits_kernel_matches_plain(dev):
         k = fused._i32(torch.tensor(key)).to(dev)
         got = fused.philox_bits(k, (4,), counter=counter)
         assert [w & 0xFFFFFFFF for w in got.tolist()] == list(words)
+
+
+@pytest.mark.parametrize("p", [2, 4, 8])
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.int32, (64, 256)), (torch.int32, (7, 250)), (torch.int32, (1, 1)),
+    (torch.int8, (64, 256 * 11)), (torch.int8, (5, 44)),
+])
+def test_ring_exchange_kernel_matches_plain(dev, p, dtype, shape):
+    """K4 over p shards of one card, three exchanges back to back (the
+    epochs), every shard's output against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(p + shape[1])
+    x = torch.randint(-100, 100, (shape[0], p * shape[1]), generator=g,
+                      device=dev, dtype=torch.int64).to(dtype)
+    name = ici._LAUNCH_NAMES[dtype]
+    before = fused.LAUNCHES[name]
+
+    def body(x_l):
+        return torch.stack([ici.ring_exchange(x_l + i, axis="ring", p=p)
+                            for i in range(3)])[None]
+
+    got = mesh.shard_map(body, mesh.Mesh.line([dev] * p, "ring"),
+                         in_specs=(mesh.P(None, "ring"),),
+                         out_specs=mesh.P("ring"))(x)
+    assert fused.LAUNCHES[name] == before + 3  # one launch for all shards
+    chunks = list(x.chunk(p, dim=1))
+    for i in range(3):
+        want = ici._ring_exchange_plain([c + i for c in chunks])
+        for d in range(p):
+            assert torch.equal(got[d, i], want[d])
+
+
+@pytest.mark.parametrize("family", ici.FAMILIES)
+def test_sharded_family_on_one_card(dev, family):
+    """Each family on a 2 x 2 mesh of one card: the kernel path equals the
+    library gather and the single-device runner, and calls no gather."""
+    devices = [dev] * 4
+    assert ici.family_parity(family, n=32, S=8, proc_shards=2, rounds=6,
+                             devices=devices)
+    g = torch.Generator(device=dev).manual_seed(3)
+    state0, mix, run = ici._family_runner(family, 32, 8, 6, g, dev)
+    mesh.reset_collective()
+    got = run(state0, mix, mesh.make_mesh(4, 2, devices), "ici", None)
+    assert mesh.COLLECTIVE["calls"] == 0
+    assert ici._trees_equal(got, ici.single_device_run(family, state0, mix, 6))

@@ -37,7 +37,12 @@ def test_port_files_exist():
     for want in ("round_tpu_torch/engine/fast.py", "round_tpu_torch/ops/fused.py",
                  "round_tpu_torch/bench.py", "round_tpu_torch/apps/ladder.py",
                  "round_tpu_torch/spec/check.py",
-                 "round_tpu_torch/tools/bisect.py", "chip_smoke.py"):
+                 "round_tpu_torch/tools/bisect.py",
+                 "round_tpu_torch/parallel/mesh.py",
+                 "round_tpu_torch/parallel/ici.py",
+                 "round_tpu_torch/models/tpc.py",
+                 "round_tpu_torch/models/erb.py",
+                 "round_tpu_torch/models/lattice.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -54,7 +59,9 @@ def test_importing_the_port_loads_no_jax():
         "import round_tpu_torch.engine.fast, round_tpu_torch.bench, "
         "round_tpu_torch.engine.executor, round_tpu_torch.interop, "
         "round_tpu_torch.apps.ladder, round_tpu_torch.spec, "
-        "round_tpu_torch.tools.bisect, sys; "
+        "round_tpu_torch.tools.bisect, round_tpu_torch.parallel.mesh, "
+        "round_tpu_torch.parallel.ici, round_tpu_torch.models.tpc, "
+        "round_tpu_torch.models.erb, round_tpu_torch.models.lattice, sys; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'round_tpu')); assert not bad, bad"
     )
