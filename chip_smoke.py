@@ -10,10 +10,12 @@ driving the paths that run them.  The kernels, in both link streams where
 they have two (hash, and hw: the Philox stream that takes the place of the
 TPU's hardware PRNG):
 
-  hist_exchange(_hw)   K2, csrc/hist_exchange.cu (one round's exchange)
-  otr_loop(_hw)        K1, csrc/hist_loop.cu, OTR instance (the whole run)
+  hist_exchange(_hw)   K2, csrc/hist_exchange.cu (one round's exchange,
+                       counted on the tensor cores: csrc/count_mma.cuh)
+  otr_loop(_hw)        K1, csrc/hist_loop.cu, OTR instance (the whole run,
+                       counted on the tensor cores)
   floodmin_loop(_hw)   K1, csrc/hist_loop.cu, FloodMin instance
-  benor_loop(_hw)      K1, csrc/hist_loop.cu, Ben-Or instance
+  benor_loop(_hw)      K1, csrc/hist_loop.cu, Ben-Or instance (tensor cores)
   lv_loop              K3, csrc/lv_loop.cu (the whole LastVoting run)
   ring_exchange(_i8)   K4, csrc/ring_exchange.cu (the sharded engines'
                        all-gather: int32 codes, int8 bit-planes)
@@ -23,11 +25,18 @@ TPU's hardware PRNG):
 Phases, each printed as one line:
 
   env / build      the card, torch and CUDA versions; nvcc of every source
-  K2-vs-plain      n=1024 and n=1000, every rowmask/side combination, the
-                   public hist_exchange on the card against the CPU
-  K1-vs-plain      OTR at n=1024 and n=1000, the public otr_loop vs CPU
+  sass             the draw loop of each tensor-core kernel (K1 OTR and
+                   Ben-Or, K2, each stream) in the SASS just built:
+                   instructions per drawn link, per pipe, mma products,
+                   spill loads (round_tpu_torch/tools/sass_links.py)
+  K2-vs-plain      n=1024, n=1000 and n=1008, every rowmask/side
+                   combination, the public hist_exchange on the card
+                   against the CPU
+  K1-vs-plain      OTR at n=1024, n=1000 and n=1008, the public otr_loop vs
+                   CPU
   K1-FloodMin-vs-plain, K1-BenOr-vs-plain, K3-vs-plain
-                   n=1024 x 64 and n=1000 scenarios of the four-family mix
+                   n=1024 x 64, n=1000 and n=1008 (K3: n=1024 and n=1000)
+                   scenarios of the four-family mix
                    with the p8 grid 0..256 (blackout rows included),
                    FloodMin at V=16 and V=1000, Ben-Or over 12 rounds,
                    LastVoting over 20 rounds with the partition healing
@@ -35,8 +44,9 @@ Phases, each printed as one line:
                    and lv_loop on the card against the CPU
   P-vs-plain       P1 and P2 at the bisect shape against their plain
                    versions; P2 also against Random123's known answers
-  hw-vs-plain      K2 and the three K1 instances in hw mode, n=1024 x 64
-                   and n=1000 x 7, the p8 grid, against their plain hw
+  hw-vs-plain      K2 and the three K1 instances in hw mode, n=1024 x 64,
+                   n=1000 x 7 and n=1008 x 7, the p8 grid, against their
+                   plain hw
                    versions; the public hw wrappers on the card against
                    the CPU; run_hist(hw) against run_otr_loop(hw)
   flagship-hash    OTR, n=1024 x 10,000 scenarios x 50 rounds, hash links,
@@ -54,7 +64,14 @@ Phases, each printed as one line:
                    each in its own process, with the launches it reports
   K*-time, P*-time each kernel's time at its path's shape (K3 also at
                    n=1024 x 10,000 x 40 rounds), its plain version's time,
-                   its bound and what bounds it
+                   its bound and what bounds it (rows that draw links also
+                   the bound of a walk that compares each link on its
+                   own); K1 at the flagship shape timed again after its
+                   plain versions, with nvidia-smi's SM clock, power,
+                   temperature and throttle reasons read during each
+  K1-totals        K1 on the flagship's partition family alone (p8 = 0,
+                   five sided rounds): two sides counted by per-side
+                   totals against nine, counted by the product
   K4-vs-plain      the all-gather over p = 2, 4, 8 shards on cuda:0, int32
                    and int8, aligned and odd widths, feature dims, 50 calls
                    back to back, p = 1, a 2 x 2 mesh
@@ -78,7 +95,8 @@ sharded phases alone; with ``--only peers`` just K4-vs-plain and ring-peers
 
 Then the card's name and power limit as nvidia-smi reports them, a
 {"kernels": [...]} line (per kernel: launches on its path, max_abs_err
-against its plain version, ms, plain_ms, bound_ms, bound_by, library_ms)
+against its plain version, ms, plain_ms, bound_ms, bound_by, library_ms;
+for the tensor-core kernels also sass_per_link)
 and last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 N}}.  Any failure raises and the script exits non-zero without the last
 line.  It needs the round_tpu_torch package beside it and a CUDA card; it
@@ -101,6 +119,10 @@ N, S_FLAG, ROUNDS, V, P_DROP = 1024, 10_000, 50, 16, 0.25
 S_PLAIN_HW = 512         # scenarios of the flagship K1-hw plain comparison
 S_FUSED = 1_000          # run_hist (K2, one launch per round)
 S_CHECK = 64             # kernel-vs-plain comparisons
+# K1 and K2 against their plain versions: the flagship width, an n that is
+# not a multiple of 16 (a receiver row starts inside a Philox call) and one
+# that is not a multiple of 64 (a padded sender block)
+CHECK_SHAPES = ((N, S_CHECK), (1000, 7), (1008, 7))
 PARITY_K, PARITY_ROUNDS = 8, 10
 SEED = 0
 P8_GRID = (0, 1, 13, 64, 128, 255, 256)
@@ -135,28 +157,47 @@ SHARD_S, SHARD_ROUNDS, SHARDS = 2_000, 10, 4
 
 # Published peaks of one H100 SXM at its 700 W limit: HBM bandwidth from
 # NVIDIA's data sheet; integer issue rates from the Hopper white paper over
-# 132 SMs at the 1.98 GHz boost clock.  Shifts, LOP3, IADD3 and ISETP issue
-# on the ALU pipe (64 INT32 lanes per SM per clock); IMAD and IMUL issue on
-# the FMA pipe (64 lanes per SM per clock, half the FP32 rate), which runs
-# alongside the ALU pipe.  The bound is the busier pipe.
+# 132 SMs at the 1.98 GHz boost clock.  LOP3, PRMT and funnel shifts issue
+# on the ALU pipe, multiplies (IMAD) on the FMA pipe, each 64 lanes per SM
+# per clock, and the two run alongside; an add, or a right shift by a
+# constant (IMAD.HI by a power of two), can issue on either.
 HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 132 * 64 * 1.98e9
-IMAD_OPS_PER_S = 132 * 64 * 1.98e9
-# Per hashed link (csrc/hash.cuh::rt_link_keep), on the ALU pipe: the xor
-# with the round salt, fmix32's three shift/xor pairs (the last xor and the
-# & 0xFF fold into one LOP3) and the >= p8 compare; on the FMA pipe: the
-# index multiply-add and fmix32's two multiplies.  The count increments are
-# left out, so the bound is a floor.
-HASH_OPS = (8, 3)  # (ALU, FMA) per link
-# Per Philox4x32-10 call (csrc/hash.cuh::rt_philox4x32_10, as cuobjdump
-# shows it in the hw loops): 19 three-way xors (LOP3) on the ALU pipe; 20
-# multiplies on the FMA pipe (18 IMAD.WIDE.U32, and IMAD.HI.U32 + IMAD for
-# the first round, whose other product is 0), each counted once.  The key
-# schedule (18 adds) is one per (scenario, round) and is left out.  Per hw
-# link, besides 1/16 of a call: the byte's shift, its & 0xFF and the >=
-# compare on the ALU pipe.
-PHILOX_OPS = (19, 20)
-HW_OPS = (3 + PHILOX_OPS[0] / 16, PHILOX_OPS[1] / 16)
+INT_OPS_PER_S = 132 * 64 * 1.98e9  # per pipe
+# The least work a link stream needs, as (ALU pipe only, FMA pipe only,
+# either pipe) operations per link; the bound puts the either-pipe work
+# where it evens the two pipes out.  Per hashed link, with every fold the
+# kernels' own code shows (csrc/count_mma.cuh::RtKeepStream::keep16):
+#   ALU: fmix32's first two xors, the round salt folded into the first
+#        through the per-round constant s1r ^ (s1r >> 16) (2); its last
+#        shift and xor made on four packed draws, rt_pack_last's three PRMT,
+#        funnel shift and xor (5/4); the keep compare, two LOP3 a word of
+#        four draws with the LUT picked per round by threshold < 128 (2/4);
+#   FMA: fmix32's two multiplies (2);
+#   either: the link index (an add of the per-link stride), fmix32's first
+#        two shifts, the compare's subtract (1 + 2 + 1/4).
+# Packing the draws' words for the products and the count (on the tensor
+# cores) are left out, so the bound is a floor.
+HASH_OPS = (2 + 5 / 4 + 2 / 4, 2, 1 + 2 + 1 / 4)
+# Per Philox4x32-10 call (csrc/hash.cuh::rt_philox4x32_10; counter (c, 0,
+# 0, 0)): 19 three-way xors (LOP3) on the ALU pipe; 18 multiplies (one wide
+# product in round 0, whose other factor is 0, one in round 1, whose other
+# product is the key's, the same all round, two in each of rounds 2-9); the
+# counter's add on either pipe.  The key schedule is one per (scenario,
+# round) and is left out.  Per hw link: 1/16 of a call and a quarter of the
+# keep compare (two LOP3 and a subtract a word).
+PHILOX_OPS = (19, 18, 1)
+HW_OPS = ((PHILOX_OPS[0] + 4 * 2) / 16, PHILOX_OPS[1] / 16,
+          (PHILOX_OPS[2] + 4) / 16)
+# The bounds of a walk that compares each link on its own, reported
+# beside (walk_bound_ms).  Hash: the salt xor, three shift/xor pairs and
+# the compare on the ALU pipe, the index multiply-add and two multiplies
+# on the FMA pipe; hw: a byte's shift, mask and compare beside 1/16 of a
+# call of 19 LOP3 and 20 multiplies.
+HASH_OPS_WALK = (8, 3, 0)
+HW_OPS_WALK = (3 + 19 / 16, 20 / 16, 0)
+# the nvidia-smi readings kept beside the K1 times
+SMI_FIELDS = ("clocks.sm", "power.draw", "temperature.gpu",
+              "clocks_throttle_reasons.active")
 
 
 def say(phase: str, **fields) -> None:
@@ -187,15 +228,64 @@ def event_ms(fn, reps: int = 1):
 
 def bound_ms(nbytes: float, links: float, ops=HASH_OPS):
     """(ms, "bytes" or "operations", pipe): the least time of the work, the
-    larger of the byte time and the busier integer pipe's time, for `links`
-    units of work of `ops` = (ALU, FMA) operations each."""
+    larger of the byte time and the integer pipes' time for `links` units of
+    work of `ops` = (ALU, FMA, either) operations each, the either-pipe
+    work split to even the pipes out (pipe "ALU+FMA" where both fill)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_alu = links * ops[0] / ALU_OPS_PER_S * 1e3
-    t_imad = links * ops[1] / IMAD_OPS_PER_S * 1e3
-    t_ops, pipe = (t_alu, "ALU") if t_alu >= t_imad else (t_imad, "FMA")
+    alu, fma, either = ops
+    per_pipe = max(alu, fma, (alu + fma + either) / 2)
+    pipe = ("ALU" if per_pipe == alu else "FMA" if per_pipe == fma
+            else "ALU+FMA")
+    t_ops = links * per_pipe / INT_OPS_PER_S * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes", "HBM"
     return t_ops, "operations", pipe
+
+
+def sampled(fn, every_ms: int = 20):
+    """(fn(), readings): what nvidia-smi read of card 0 every `every_ms` ms
+    while fn ran, from a sampler started before it and stopped after the
+    card is idle: the lowest and highest SM clock (MHz), the highest power
+    (W) and temperature (C) and the throttle reasons seen ({} where
+    nvidia-smi gave no reading)."""
+    import torch
+
+    cmd = ["nvidia-smi", "--format=csv,noheader,nounits", "-i", "0"]
+    fields = SMI_FIELDS
+    if subprocess.run(cmd + ["--query-gpu=" + ",".join(fields)],
+                      capture_output=True).returncode != 0:
+        fields = fields[:3]  # an nvidia-smi that names them otherwise
+    proc = subprocess.Popen(
+        cmd + ["--query-gpu=" + ",".join(fields), "-lms", str(every_ms)],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.3)  # its first readings: the card before fn
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(2 * every_ms / 1e3)
+    finally:
+        proc.terminate()
+        text = proc.communicate(timeout=30)[0]
+    rows = [r.split(", ") for r in text.splitlines()
+            if r.count(", ") == len(fields) - 1]
+    if not rows:
+        return out, {}
+
+    def col(q):
+        vals = []
+        for r in rows:
+            try:
+                vals.append(float(r[q]))
+            except ValueError:
+                pass
+        return vals or [float("nan")]
+
+    got = {"samples": len(rows), "sm_mhz_min": min(col(0)),
+           "sm_mhz_max": max(col(0)), "power_w_max": max(col(1)),
+           "temp_c_max": max(col(2))}
+    if len(fields) == 4:
+        got["throttle"] = "|".join(sorted({r[3] for r in rows}))
+    return out, got
 
 
 def _on_cpu(args):
@@ -659,6 +749,7 @@ def main() -> None:
     from round_tpu_torch.models.floodmin import FloodMinState
     from round_tpu_torch.models.otr import OTR, OtrState
     from round_tpu_torch.ops import _native, fused
+    from round_tpu_torch.tools import sass_links
     from round_tpu_torch.utils.benchstat import decided_summary, p50_from_hist
     from round_tpu_torch.utils.tree import tree_map
 
@@ -689,6 +780,19 @@ def main() -> None:
                 say("ptxas", kernel=name, info=line.strip())
     say("build", dir=build_dir.relative_to(ROOT), nvcc_s=round(compile_s, 2),
         total_s=round(time.perf_counter() - t0, 2))
+    # the draw loops of the tensor-core count in the SASS just built
+    sass = {}
+    for name in ("hist_loop", "hist_exchange"):
+        for row in sass_links.report(build_dir / f"lib{name}.so"):
+            sass[row["kernel"]] = row
+            say("sass", kernel=row["kernel"],
+                loop_instructions=row["instructions"],
+                per_link=round(row["per_link"], 3),
+                alu_per_link=round(row["alu_per_link"], 3),
+                fma_per_link=round(row["fma_per_link"], 3),
+                imma=row["imma"], spill_loads=row["spill_loads"])
+    missing = sorted(set(sass_links.KERNELS.values()) - set(sass))
+    require(not missing, f"no draw loop with mma products in {missing}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = torch.arange(V, dtype=torch.int32, device=dev)
@@ -711,7 +815,7 @@ def main() -> None:
 
     # -- 3. K2 against its plain version (tolerance 0: integer counts) -------
     k2_err = 0.0
-    for n, S in ((N, S_CHECK), (1000, 7)):
+    for n, S in CHECK_SHAPES:
         vals = torch.randint(0, V, (S, n), generator=gen, device=dev,
                              dtype=torch.int32)
         active = torch.rand((S, n), generator=gen, device=dev) < 0.9
@@ -748,13 +852,14 @@ def main() -> None:
                     [fused.hist_exchange(*wargs, mode="hash").cpu()],
                     [fused.hist_exchange(*_on_cpu(wargs), mode="hash")]))
     say("K2-vs-plain", n=N, S=S_CHECK, V=V, p8="0,1,13,64,128,255,256",
-        cases="rowmask x side, plus n=1000, plus the public wrapper vs CPU",
+        cases="rowmask x side, plus n=1000 and n=1008, plus the public "
+              "wrapper vs CPU",
         tolerance=0, max_abs_err=k2_err, equal=True)
 
     # -- 4. K1 against its plain version (tolerance 0: integer state) --------
     algo = fused.OtrLoop(num_values=V, after_decision=2)
     k1_err = 0.0
-    for n, S in ((N, S_CHECK), (1000, 7)):
+    for n, S in CHECK_SHAPES:
         mix = fast.standard_mix(gen, S, n, p_drop=P_DROP, device=dev)
         blackout = torch.arange(S, device=dev) % 9 == 5
         mix = mix.replace(p8=torch.where(blackout, 256, mix.p8).to(
@@ -778,8 +883,8 @@ def main() -> None:
             [t.cpu() for t in fused.otr_loop(*wargs, **kw)],
             fused.otr_loop(*_on_cpu(wargs), **kw)))
     say("K1-vs-plain", n=N, S=S_CHECK, rounds=PARITY_ROUNDS, V=V,
-        rows="standard_mix + blackout p8=256, plus n=1000, plus the public "
-             "wrapper vs CPU", outputs=6,
+        rows="standard_mix + blackout p8=256, plus n=1000 and n=1008, plus "
+             "the public wrapper vs CPU", outputs=6,
         tolerance=0, max_abs_err=k1_err, equal=True)
 
     # -- 4b. the new K1 instances and K3 against their plain versions -------
@@ -802,7 +907,7 @@ def main() -> None:
             ("V=16", fused.FloodMinLoop(num_values=16, f=2), 6, 16),
             ("V=1000", fused.FloodMinLoop(num_values=1000, f=2), 6, 1000),
             ("", fused.BenOrLoop(), 12, 2)):
-        for n, S in ((N, S_CHECK), (1000, 7)):
+        for n, S in CHECK_SHAPES:
             mix, x0 = loop_inputs(n, S, xv)
             args = (x0, *fast._mix_args(mix))
             errs[lalgo.kernel] = max(errs[lalgo.kernel], compare(
@@ -826,12 +931,14 @@ def main() -> None:
             f"{run.__name__} on the card vs the CPU",
             [getattr(got[0], f) for f in fields] + list(got[1:]),
             [getattr(want[0], f) for f in fields] + list(want[1:])))
-    say("K1-FloodMin-vs-plain", n=f"{N},1000", S=f"{S_CHECK},7", rounds=6,
+    say("K1-FloodMin-vs-plain", n=f"{N},1000,1008", S=f"{S_CHECK},7,7",
+        rounds=6,
         V="16,1000", p8=",".join(map(str, P8_GRID)),
         cases="standard_mix + p8 grid, plus run_floodmin_loop vs CPU",
         outputs=5, tolerance=0, max_abs_err=errs["floodmin_loop"],
         equal=True)
-    say("K1-BenOr-vs-plain", n=f"{N},1000", S=f"{S_CHECK},7", rounds=12,
+    say("K1-BenOr-vs-plain", n=f"{N},1000,1008", S=f"{S_CHECK},7,7",
+        rounds=12,
         p8=",".join(map(str, P8_GRID)),
         cases="standard_mix + p8 grid, plus run_benor_loop vs CPU",
         outputs=7, tolerance=0, max_abs_err=errs["benor_loop"], equal=True)
@@ -877,7 +984,7 @@ def main() -> None:
                  PARITY_ROUNDS, V),
                 (fused.FloodMinLoop(num_values=16, f=2), 6, 16),
                 (fused.BenOrLoop(), 12, 2))
-    for n, S in ((N, S_CHECK), (1000, 7)):
+    for n, S in CHECK_SHAPES:
         vals = torch.randint(0, V, (S, n), generator=gen, device=dev,
                              dtype=torch.int32)
         active = torch.rand((S, n), generator=gen, device=dev) < 0.9
@@ -934,7 +1041,7 @@ def main() -> None:
     compare("run_hist(hw) vs run_otr_loop(hw)",
             [getattr(st_h, f) for f in fields] + [done_h, dr_h],
             [getattr(st_l, f) for f in fields] + [done_l, dr_l])
-    say("hw-vs-plain", n=f"{N},1000", S=f"{S_CHECK},7",
+    say("hw-vs-plain", n=f"{N},1000,1008", S=f"{S_CHECK},7,7",
         p8=",".join(map(str, P8_GRID)),
         cases="K2 rowmask x side; K1 OTR, FloodMin V=16, Ben-Or; the public "
               "hist_exchange and otr_loop vs CPU; run_hist(hw) vs "
@@ -1082,46 +1189,92 @@ def main() -> None:
                 f"the bisect tool launched no {kernel} kernel")
 
     # -- 7. kernel times, bounds, plain and library times --------------------
-    # K1 at the flagship shape (the flagship mix of seed SEED)
+    # K1 at the flagship shape (the flagship mix of seed SEED), in both
+    # streams, timed before their plain versions run and again after them,
+    # with the card's clock, power and temperature read while each ran
     x0 = init.expand(S_FLAG, N).contiguous()
     args = (x0, mix.crashed, mix.side, mix.crash_round, mix.heal_round,
             mix.rotate_down, mix.p8, mix.salt0, mix.salt1)
-    k1_ms, out = event_ms(
-        lambda: fused._hist_loop_cuda(algo, *args, ROUNDS, "hash"), reps=3)
-    cnt, hist = decided_summary(out[1] != 0, out[5], ROUNDS)
+
+    def k1_timed(mode):
+        return sampled(lambda: event_ms(
+            lambda: fused._hist_loop_cuda(algo, *args, ROUNDS, mode),
+            reps=10))
+
+    (k1_ms, out), k1_smi = k1_timed("hash")
+    (k1hw_ms, out_hw), k1hw_smi = k1_timed("hw")
     k1_links = loop_links(mix, out[5], ROUNDS, linger=1)
     k1_bytes = 4 * S_FLAG * N * (3 + 6) + 4 * 6 * S_FLAG
     k1_bound, k1_by, k1_pipe = bound_ms(k1_bytes, k1_links)
-    t0 = time.perf_counter()
-    plain = fused._hist_loop_plain(algo, *args, ROUNDS, "hash")
-    torch.cuda.synchronize()
-    k1_plain_ms = (time.perf_counter() - t0) * 1e3
+    k1_bound_walk = bound_ms(k1_bytes, k1_links, HASH_OPS_WALK)[0]
+    (k1_plain_ms, plain), plain_smi = sampled(lambda: plain_ms(
+        lambda: fused._hist_loop_plain(algo, *args, ROUNDS, "hash")), 500)
     compare("K1 at the flagship shape", out, plain)
-    say("K1-time", ms=round(k1_ms, 3), plain_ms=round(k1_plain_ms, 1),
-        bound_ms=round(k1_bound, 3), bound_by=k1_by, pipe=k1_pipe,
-        bytes_ms=round(k1_bytes / HBM_BYTES_PER_S * 1e3, 4),
-        hashed_links=f"{k1_links:.4g}",
-        frac_lanes_decided=round(float(cnt) / (S_FLAG * N), 4),
-        decided_round_p50=p50_from_hist(hist.cpu()))
-
-    # K1-hw on the same inputs; its plain version on the first S_PLAIN_HW
-    # scenarios (each scenario's run depends on its own row alone)
-    k1hw_ms, out = event_ms(
-        lambda: fused._hist_loop_cuda(algo, *args, ROUNDS, "hw"), reps=3)
-    cnt, hist = decided_summary(out[1] != 0, out[5], ROUNDS)
-    k1hw_links = loop_links(mix, out[5], ROUNDS, linger=1)
+    # K1-hw's plain version on the first S_PLAIN_HW scenarios (each
+    # scenario's run depends on its own row alone)
+    k1hw_links = loop_links(mix, out_hw[5], ROUNDS, linger=1)
     k1hw_bound, k1hw_by, k1hw_pipe = bound_ms(k1_bytes, k1hw_links, HW_OPS)
+    k1hw_bound_walk = bound_ms(k1_bytes, k1hw_links, HW_OPS_WALK)[0]
     cut = slice(0, S_PLAIN_HW)
     k1hw_plain_ms, plain = plain_ms(lambda: fused._hist_loop_plain(
         algo, *(a[cut] for a in args), ROUNDS, "hw"))
     compare(f"K1-hw at the flagship shape (first {S_PLAIN_HW} scenarios)",
-            [o[cut] for o in out], plain)
-    say("K1-hw-time", ms=round(k1hw_ms, 3),
-        plain_ms=round(k1hw_plain_ms, 1), plain_scenarios=S_PLAIN_HW,
-        bound_ms=round(k1hw_bound, 3), bound_by=k1hw_by, pipe=k1hw_pipe,
-        drawn_links=f"{k1hw_links:.4g}",
-        frac_lanes_decided=round(float(cnt) / (S_FLAG * N), 4),
-        decided_round_p50=p50_from_hist(hist.cpu()))
+            [o[cut] for o in out_hw], plain)
+    (k1_ms_after, _), k1_smi_after = k1_timed("hash")
+    (k1hw_ms_after, _), k1hw_smi_after = k1_timed("hw")
+
+    def smi_json(d):
+        return json.dumps(d, separators=(",", ":"))
+
+    for line, ms, after, smi_b, smi_a, p_ms, bnd, by, pipe, walk, links, \
+            o in (("K1-time", k1_ms, k1_ms_after, k1_smi, k1_smi_after,
+                   k1_plain_ms, k1_bound, k1_by, k1_pipe, k1_bound_walk,
+                   k1_links, out),
+                  ("K1-hw-time", k1hw_ms, k1hw_ms_after, k1hw_smi,
+                   k1hw_smi_after, k1hw_plain_ms, k1hw_bound, k1hw_by,
+                   k1hw_pipe, k1hw_bound_walk, k1hw_links, out_hw)):
+        cnt, hist = decided_summary(o[1] != 0, o[5], ROUNDS)
+        say(line, ms=round(ms, 3), ms_after_plain=round(after, 3),
+            plain_ms=round(p_ms, 1),
+            **({"plain_scenarios": S_PLAIN_HW} if o is out_hw else {}),
+            bound_ms=round(bnd, 3), bound_by=by, pipe=pipe,
+            walk_bound_ms=round(walk, 3),
+            bytes_ms=round(k1_bytes / HBM_BYTES_PER_S * 1e3, 4),
+            drawn_links=f"{links:.4g}",
+            frac_lanes_decided=round(float(cnt) / (S_FLAG * N), 4),
+            decided_round_p50=p50_from_hist(hist.cpu()),
+            smi=smi_json(smi_b), smi_after_plain=smi_json(smi_a))
+    say("K1-plain-smi", smi=smi_json(plain_smi))
+
+    # K1's two counts of a round that keeps every link, on the flagship's
+    # partition family alone (S_FLAG / 4 scenarios, its five sided rounds,
+    # p8 = 0): two sides count by per-side totals; nine, more than the
+    # kernels give slots (rt_kMaxSides = 8), by the product with the side
+    # mask.  No lane decides in either, so only the count differs.
+    s_part, r_part = S_FLAG // 4, 5
+    pgen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    part_ms = {}
+    for sides in (2, 9):
+        z = torch.zeros(s_part, dtype=torch.int32, device=dev)
+        pmix = fast.FaultMix(
+            crashed=torch.zeros((s_part, N), dtype=torch.bool, device=dev),
+            crash_round=z,
+            side=torch.randint(0, sides, (s_part, N), generator=pgen,
+                               device=dev, dtype=torch.int32),
+            heal_round=z + r_part, rotate_down=z, p8=z,
+            salt0=fast._salts(pgen, s_part, 0, dev),
+            salt1=fast._salts(pgen, s_part, 1, dev))
+        pargs = (init.expand(s_part, N).contiguous(), *fast._mix_args(pmix))
+        ms, pout = event_ms(lambda: fused._hist_loop_cuda(
+            algo, *pargs, r_part, "hw"), reps=5)
+        compare(f"K1 on the partition family, {sides} sides", pout,
+                fused._hist_loop_plain(algo, *pargs, r_part, "hw"))
+        require(not bool((pout[5] >= 0).any()),
+                f"a lane decided in a sided round ({sides} sides)")
+        part_ms[sides] = ms
+    say("K1-totals", scenarios=s_part, rounds=r_part,
+        totals_ms=round(part_ms[2], 4), product_ms=round(part_ms[9], 4),
+        kept_links=f"{s_part * r_part * N * (N - 1):.4g}")
 
     # K2 at round 0 of the per-round path (S_FUSED scenarios, every lane
     # active): one launch's work
@@ -1140,13 +1293,15 @@ def main() -> None:
                       * (N - 1)).sum())
     k2_bytes = 4 * S_FUSED * N * 3 + 4 * 3 * S_FUSED + 4 * S_FUSED * V * N
     k2_rows = {}
-    for mode, ops in (("hash", HASH_OPS), ("hw", HW_OPS)):
+    for mode, ops, walk in (("hash", HASH_OPS, HASH_OPS_WALK),
+                            ("hw", HW_OPS, HW_OPS_WALK)):
         k2m_ms, got = event_ms(
             lambda: fused._hist_exchange_cuda(*k2_args, mode), reps=5)
         k2m_plain_ms, want = plain_ms(
             lambda: fused._hist_exchange_plain(*k2_args, mode))
         compare(f"K2 ({mode}) at the per-round shape", [got], [want])
         bnd, by, pipe = bound_ms(k2_bytes, k2_links, ops)
+        walk_ms = bound_ms(k2_bytes, k2_links, walk)[0]
         # yardstick only (the port never calls it): one torch.bmm of the
         # one-hot senders and the materialised keep mask
         keep = torch.empty((S_FUSED, N, N), dtype=torch.float32, device=dev)
@@ -1162,6 +1317,7 @@ def main() -> None:
         say("K2-time" if mode == "hash" else "K2-hw-time",
             ms=round(k2m_ms, 3), plain_ms=round(k2m_plain_ms, 1),
             bound_ms=round(bnd, 4), bound_by=by, pipe=pipe,
+            walk_bound_ms=round(walk_ms, 4),
             bytes_ms=round(k2_bytes / HBM_BYTES_PER_S * 1e3, 4),
             library_ms=round(lib_m_ms, 3), drawn_links=f"{k2_links:.4g}")
         k2_rows[mode] = (k2m_ms, k2m_plain_ms, bnd, by, lib_m_ms)
@@ -1204,7 +1360,8 @@ def main() -> None:
     args = (x0, *fast._mix_args(mix))
     bo_bytes = 4 * S * n * (3 + 7) + 4 * 6 * S
     bo_rows = {}
-    for mode, ops in (("hash", HASH_OPS), ("hw", HW_OPS)):
+    for mode, ops, walk in (("hash", HASH_OPS, HASH_OPS_WALK),
+                            ("hw", HW_OPS, HW_OPS_WALK)):
         ms, out = event_ms(lambda: fused._hist_loop_cuda(
             algo_bo, *args, rounds, mode), reps=5)
         p_ms, plain = plain_ms(
@@ -1212,12 +1369,14 @@ def main() -> None:
         compare(f"benor_loop ({mode}) at the rung's shape", out, plain)
         links = loop_links(mix, out[-1], rounds, linger=0)
         bnd, by, pipe = bound_ms(bo_bytes, links, ops)
+        walk_ms = bound_ms(bo_bytes, links, walk)[0]
         name = fused._launch_name("benor_loop", mode)
         say("K1-BenOr-time" if mode == "hash" else "K1-BenOr-hw-time",
             n=n, S=S, rounds=rounds,
             launches=rung_launches["benor"].get(name, 0), ms=round(ms, 4),
             plain_ms=round(p_ms, 2), bound_ms=round(bnd, 5), bound_by=by,
-            pipe=pipe, drawn_links=f"{links:.4g}",
+            pipe=pipe, walk_bound_ms=round(walk_ms, 5),
+            drawn_links=f"{links:.4g}",
             frac_lanes_decided=round(float((out[3] != 0).float().mean()),
                                      4))
         bo_rows[mode] = (ms, p_ms, bnd, by)
@@ -1243,7 +1402,8 @@ def main() -> None:
         say("K3-time", n=n, S=S, rounds=rounds, mix=kind,
             launches=rung_launches["lv"].get("lv_loop", 0), ms=round(ms, 4),
             plain_ms=round(p_ms, 2), bound_ms=round(bnd, 5), bound_by=by,
-            pipe=pipe, bytes_ms=round(nbytes / HBM_BYTES_PER_S * 1e3, 5),
+            pipe=pipe, walk_bound_ms=round(
+                bound_ms(nbytes, links, HASH_OPS_WALK)[0], 5), bytes_ms=round(nbytes / HBM_BYTES_PER_S * 1e3, 5),
             hashed_links=f"{links:.4g}",
             frac_lanes_decided=round(float((out[5] != 0).float().mean()), 4))
         lv_rows.append((ms, p_ms, bnd, by))
@@ -1339,6 +1499,9 @@ def main() -> None:
          "bound_by": p2_by, "library_ms": None},
     ]
     kernels += ring_kernels
+    for row in kernels:
+        if row["name"] in sass:
+            row["sass_per_link"] = sass[row["name"]]["per_link"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,63 +17,71 @@
 //   not on colmask or p8); then the policy's update, the freeze of done
 //   lanes, exit and decided_round (fused.py:670-675).
 //
-// The policies differ only in what a receiver keeps of its mailbox:
-//   OtrPolicy      a [V] count column per thread in shared memory (the
-//                  smallest most-often-received value needs the histogram);
-//   FloodMinPolicy one running minimum in a register: FloodMin reads only
-//                  min{v : counts[v] > 0} and not the size, so V=1000 (a
-//                  2 MB histogram per block) costs nothing;
-//   BenOrPolicy    four counters in registers (payload x + 2*can in
-//                  subround 0, vote + 1 in subround 1).
-// Payloads outside [0, V) are counted in the size and otherwise ignored, as
-// the TPU one-hot ignores them (fused.py:467).
-//
 // Each instance comes in two link streams, a kernel template switch:
 // hash mode (keep(idx) = fmix32 draw >= p8, bit-exact with round_tpu) and
 // hw mode (round_tpu's hardware PRNG draw, fused.py:333-346, as the
-// Philox4x32-10 stream of hash.cuh: keep(idx) = byte idx & 3 of element
-// idx >> 2 >= min(p8, 255)).  Senders are compacted in atomicAdd order, so
-// a receiver's links need not come in ascending order; RtHwStream calls
-// Philox again whenever the counter idx >> 4 changes and reuses its four
-// words otherwise (within a warp the compaction keeps lane order, so most
-// runs of 16 links share one call).
+// Philox4x32-10 stream of hash.cuh: keep(idx) = byte idx & 3 of word
+// (idx >> 2) & 3 of counter idx >> 4 >= min(p8, 255)).
 //
-// Bound on the card: the per-link hash where p8 > 0.  Every link of every
-// round of every 0 < p8 < 256 scenario needs one murmur3 finalizer and the
-// threshold compare: 8 operations on the ALU pipe and 3 multiplies on the
-// FMA pipe, which runs alongside it, so the ALU pipe sets the floor.  In
-// hw mode a link needs its byte's shift, mask and compare (3 ALU-pipe
-// operations) and 1/16 of a Philox call (19 LOP3 on the ALU pipe, 20
-// multiplies on the FMA pipe), about 4.2 ALU-pipe operations: half the
-// hash mode's floor, though the hw loop, with its per-link counter test
-// and word select, ran 44% slower than the hash loop at the flagship shape
-// on an H100.  A p8 == 0 run draws nothing and reads O(S*n) inputs and
-// writes O(S*n) outputs: it is bound by bytes.  Design (the simple version): one block
-// per scenario; each thread owns receivers j, j + blockDim, ...; the state
-// vectors live in shared memory for the whole run and only the final state
-// is written out.  Each round the block compacts this round's senders
-// (index and payload) into a shared list, then every thread walks that
-// list for each of its receivers that is still active, hashing each link
-// in registers.  Done lanes are frozen, so they are not counted for, and
-// the round loop ends once every lane of the scenario is done.  The mask
-// never exists in memory.  Tensor cores, TMA and persistence are left for
-// later work.
+// Bound on the card: the draws where 0 < p8 < 256.  Every link of such a
+// scenario's rounds needs its draw: in hash mode one murmur3 finalizer (at
+// least 9 integer operations with the round salt folded into its first xor
+// and its last step made on four packed draws at once, split over the ALU
+// and FMA pipes, which run alongside), in hw mode 1/16 of a Philox call (19
+// LOP3 on the ALU pipe, 18 multiplies on the FMA pipe), and a quarter of a
+// SWAR keep compare (3 operations a word of four draws at least; the
+// kernels make 4).  A p8 == 0 run draws nothing and reads O(S*n) inputs and
+// writes O(S*n) outputs: it is bound by bytes.  With the count on the
+// tensor cores the draw loop issues about 4.2 (hw) and 9.9 (hash) SASS
+// instructions a link (python -m round_tpu_torch.tools.sass_links),
+// against about 35 and 27 for a walk that counts each link on the CUDA
+// cores.
+//
+// Design.  One block per scenario; the state vectors live in shared memory
+// for the whole run and only the final state is written out; the round
+// loop ends once every lane of the scenario is done.  OTR and Ben-Or count
+// on the tensor cores (count_mma.cuh), as round_tpu counts with one matrix
+// product (_count_dot, fused.py:113):
+//   - each round the block writes the sender one-hot as bytes (row v: the
+//     senders whose payload is v; for OTR, whose size counts every sender,
+//     row V holds the senders whose payload is outside [0, V), the ones
+//     row of fused.py:577 less the rows it duplicates, and is in use only
+//     in rounds that have such a sender), with a flag per 64 senders that
+//     holds any sender; it compacts the receivers still active into a list
+//     and notes each sender's own-link verdict;
+//   - a warp takes 32 listed receivers (two 16-row tiles) at a time; for
+//     every 64-sender block with a sender, each lane draws the 16 links of
+//     each of its four receivers straight into keep bytes (one Philox call
+//     in hw mode, two where n % 16 != 0), masks the other side's senders in
+//     sided rounds of a split scenario, and issues mma.sync m16n8k32 u8
+//     products against the one-hot bytes it loaded once for both tiles;
+//   - a round that keeps every link (p8 <= 0) needs no product: the counts
+//     are the row totals of the senders on the receiver's side (up to
+//     kMaxSides sides, else the product with the side mask, about 5x the
+//     time on the flagship's partition family: chip_smoke.py K1-totals);
+//   - the block count is count_mma.cuh's rt_count, which K2 calls too;
+//   - the lanes of a receiver take its own link out of its row, add the
+//     self-delivery, merge their value columns with two shuffles (OTR: the
+//     most-often-received value and the size; Ben-Or: its four counters)
+//     and one of them runs the policy's update.
+// The n x n mask never exists in memory.  Where the one-hot does not fit
+// in shared memory beside the state (large n and V) it lives in device
+// memory the wrapper allocates; the code is the same.  FloodMin keeps a
+// running minimum that no product gives and its rung draws nothing: it
+// keeps the receiver walk over a compacted sender list (one thread a
+// receiver, one link at a time), behind the policy's kMma = false.
 #include <cuda_runtime.h>
 
+#include "count_mma.cuh"
 #include "hash.cuh"
 
-// The block's dynamic shared memory.  The policy state and OTR's counters
-// are reached through int offsets into it rather than through pointers kept
-// in structs, so every access is plainly a shared-memory one.
-extern __shared__ int smem[];
+// The block's dynamic shared memory.  The policy state is reached through
+// int offsets into it rather than through pointers kept in structs, so
+// every access is plainly a shared-memory one.
+extern __shared__ __align__(16) int smem[];
 
 namespace {
 
-constexpr int kThreads = 512;
-// Blocks per SM the register budget must allow (at most 42 registers a
-// thread): OTR's shared counters hold it to 3 blocks at n=1024, V=16, and
-// without the bound the OTR instance took 60 registers, room for 2.
-constexpr int kMinBlocks = 3;
 constexpr int kMaxOut = 7;
 
 struct LoopParams {
@@ -87,6 +95,7 @@ struct LoopParams {
   const int* salt0;
   const int* salt1;
   int* out[kMaxOut];  // the policy's state slots, then done, decided_round
+  uint8_t* onehot;    // [S][onehot_bytes] when the one-hot is not in smem
   int n;
   int V;
   int rounds;
@@ -102,11 +111,6 @@ struct RoundInfo {
   int param;
   uint32_t salt0;
   uint32_t salt1;  // unmixed (the coin premixes it with r)
-  int tid;
-  int cnt;  // offset of the [V][kThreads] counters (OtrPolicy only)
-  __device__ int& count(int v) const {
-    return smem[cnt + v * kThreads + tid];
-  }
 };
 
 // K state vectors of n ints each, slot q at smem[off + q * n].
@@ -124,8 +128,19 @@ struct OtrPolicy {
   static constexpr int kState = 4;
   static constexpr int kDecided = 1;
   static constexpr int kPhase = 1;
-  static constexpr bool kSharedCounts = true;
-  struct Acc {};
+  static constexpr bool kMma = true;
+  // the size also counts senders whose payload is outside [0, V): they
+  // get row V of the one-hot, present only in rounds that have them
+  static constexpr bool kOnes = true;
+  static constexpr int kTiles = 2;  // value tiles a pass (V <= 16: one)
+  // 16 warps an SM, at most 128 registers a thread: at 80 (three blocks)
+  // the draw loop spilled
+  static constexpr int kThreads = 256;
+  static constexpr int kMinBlocks = 2;
+  struct Acc {
+    int c, v;  // the most-often-received value v and its count c
+    int size;  // the mailbox size: every column
+  };
 
   __device__ static void init(const State<kState>& st, int i, int x0,
                               int param) {
@@ -137,24 +152,32 @@ struct OtrPolicy {
   __device__ static int payload(const State<kState>& st, int i, int) {
     return st(0, i);
   }
-  __device__ static void reset(Acc&, const RoundInfo& ri) {
-    for (int v = 0; v < ri.V; ++v) ri.count(v) = 0;
+  __device__ static void reset(Acc& a, const RoundInfo& ri) {
+    a.c = -1;
+    a.v = ri.V;
+    a.size = 0;
   }
-  __device__ static void add(Acc&, const RoundInfo& ri, int c) {
-    if ((unsigned)c < (unsigned)ri.V) ri.count(c) += 1;
-  }
-  __device__ static bool update(const State<kState>& st, int j, const Acc&,
-                                const RoundInfo& ri, int size) {
-    // smallest value among the most-often-received (strict > keeps the
-    // first maximum while v ascends)
-    int bestc = -1, bestv = ri.V;
-    for (int v = 0; v < ri.V; ++v) {
-      const int c = ri.count(v);
-      if (c > bestc) {
-        bestc = c;
-        bestv = v;
-      }
+  // count c of column v; the smallest value among the most-often-received
+  __device__ static void add_count(Acc& a, const RoundInfo& ri, int v,
+                                   int c) {
+    if (v < ri.V && (c > a.c || (c == a.c && v < a.v))) {
+      a.c = c;
+      a.v = v;
     }
+    if (v <= ri.V) a.size += c;
+  }
+  __device__ static void merge(Acc& a, int lane_xor) {
+    const int c = __shfl_xor_sync(~0u, a.c, lane_xor);
+    const int v = __shfl_xor_sync(~0u, a.v, lane_xor);
+    a.size += __shfl_xor_sync(~0u, a.size, lane_xor);
+    if (c > a.c || (c == a.c && v < a.v)) {
+      a.c = c;
+      a.v = v;
+    }
+  }
+  __device__ static bool update(const State<kState>& st, int j, const Acc& a,
+                                const RoundInfo& ri, int size) {
+    const int bestc = a.c, bestv = a.v;
     const int thr = (2 * ri.n) / 3;
     const bool quorum = size > thr;
     const bool superq = quorum && bestc > thr;
@@ -174,7 +197,10 @@ struct FloodMinPolicy {
   static constexpr int kState = 3;
   static constexpr int kDecided = 1;
   static constexpr int kPhase = 1;
-  static constexpr bool kSharedCounts = false;
+  static constexpr bool kMma = false;  // a running minimum, no histogram
+  // at most 42 registers a thread, three blocks an SM at n=1024
+  static constexpr int kThreads = 512;
+  static constexpr int kMinBlocks = 3;
   struct Acc {
     int m;  // min{v in [0, V) delivered}, V when none
   };
@@ -210,7 +236,11 @@ struct BenOrPolicy {
   static constexpr int kState = 5;
   static constexpr int kDecided = 3;
   static constexpr int kPhase = 2;
-  static constexpr bool kSharedCounts = false;
+  static constexpr bool kMma = true;
+  static constexpr bool kOnes = false;  // the update reads no size: no row V
+  static constexpr int kTiles = 1;      // four codes, one value tile
+  static constexpr int kThreads = 256;
+  static constexpr int kMinBlocks = 2;
   struct Acc {
     int c0, c1, c2, c3;
   };
@@ -228,11 +258,17 @@ struct BenOrPolicy {
   __device__ static void reset(Acc& a, const RoundInfo&) {
     a.c0 = a.c1 = a.c2 = a.c3 = 0;
   }
-  __device__ static void add(Acc& a, const RoundInfo&, int c) {
-    a.c0 += c == 0;
-    a.c1 += c == 1;
-    a.c2 += c == 2;
-    a.c3 += c == 3;
+  __device__ static void add_count(Acc& a, const RoundInfo&, int v, int c) {
+    a.c0 += v == 0 ? c : 0;
+    a.c1 += v == 1 ? c : 0;
+    a.c2 += v == 2 ? c : 0;
+    a.c3 += v == 3 ? c : 0;
+  }
+  __device__ static void merge(Acc& a, int lane_xor) {
+    a.c0 += __shfl_xor_sync(~0u, a.c0, lane_xor);
+    a.c1 += __shfl_xor_sync(~0u, a.c1, lane_xor);
+    a.c2 += __shfl_xor_sync(~0u, a.c2, lane_xor);
+    a.c3 += __shfl_xor_sync(~0u, a.c3, lane_xor);
   }
   __device__ static bool update(const State<kState>& st, int j,
                                 const Acc& a,
@@ -268,15 +304,57 @@ struct BenOrPolicy {
   }
 };
 
+// -- shared memory -----------------------------------------------------------
+
+// The tensor-core instances: ints [side (kpad) | K state | decided_round |
+// receiver list | row totals (kMaxSides x rows) | sender-block flags (kpad
+// / 64)], bytes [crashed | done | own-link verdict | side slot] (n each),
+// then the one-hot bytes [rows][pitch] unless they live in device memory.
+// It never takes more shared memory than a receiver walk with a [V][512]
+// count array would (40n + 2048V bytes for OTR, 44n for Ben-Or), the
+// wrappers' limit for these instances.
+template <class A>
+struct MmaLayout {
+  int n, kpad, nkb, pitch, rows;
+  __host__ __device__ MmaLayout(int n_, int V) : n(n_) {
+    kpad = rt_kpad(n);
+    nkb = kpad / 64;
+    pitch = rt_oh_pitch(kpad);
+    rows = (V + (A::kOnes ? 1 : 0) + 7) / 8 * 8;
+  }
+  __host__ __device__ size_t ints() const {
+    const size_t k = (size_t)kpad + (size_t)(2 + A::kState) * n +
+                     (size_t)rt_kMaxSides * rows + nkb + n;  // n: the bytes
+    return (k + 3) / 4 * 4;  // the one-hot starts 16-byte aligned
+  }
+  __host__ __device__ size_t onehot_bytes() const {
+    return (size_t)rows * pitch;
+  }
+};
+
+template <class A>
+size_t smem_bytes(int n, int V, bool onehot_in_smem) {
+  if constexpr (A::kMma) {
+    const MmaLayout<A> L(n, V);
+    return sizeof(int) * L.ints() + (onehot_in_smem ? L.onehot_bytes() : 0);
+  } else {
+    return sizeof(int) * (size_t)(6 + A::kState) * n;
+  }
+}
+
+template <class A>
+size_t onehot_bytes(int n, int V) {
+  if constexpr (A::kMma) return MmaLayout<A>(n, V).onehot_bytes();
+  return 0;
+}
+
+// -- the receiver walk (FloodMin) ---------------------------------------------
+
 // Receiver j's mailbox of one round: walk the compacted senders, keep the
 // links that survive, accumulate their payloads.  Returns the mailbox size
 // without the self-delivery.  The partition test, the draw and its stream
 // (kHw) are template switches, so each loop carries only the tests it
-// needs.  As
-// one loop the compiler kept both tests, and the round salt's multiply, in
-// every link's path, and the OTR instance ran 35% slower than the
-// single-purpose kernel it replaced (54.5 ms against 40.3 at the flagship
-// shape on an H100); split, it runs faster than that kernel.
+// needs.
 template <class A, bool kSided, bool kHashed, bool kHw>
 __device__ __forceinline__ int mailbox(typename A::Acc& acc,
                                        const RoundInfo& ri, const int* cid,
@@ -303,9 +381,9 @@ __device__ __forceinline__ int mailbox(typename A::Acc& acc,
 }
 
 template <class A, bool kHw>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    hist_loop_kernel(LoopParams p) {
+__device__ __forceinline__ void walk_loop(const LoopParams& p) {
   constexpr int K = A::kState;
+  constexpr int kThreads = A::kThreads;
   const int n = p.n;
   int* cid = smem;      // [n] this round's senders (any order)
   int* cpay = cid + n;  // [n] their payloads (state before the update)
@@ -336,8 +414,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   ri.param = p.param;
   ri.salt0 = (uint32_t)p.salt0[s];
   ri.salt1 = (uint32_t)p.salt1[s];
-  ri.tid = tid;
-  ri.cnt = (6 + K) * n;  // [V][kThreads], present when A::kSharedCounts
   const int period = rot > 1 ? rot : 1;
   const bool blackout = p8 >= 256;
 
@@ -399,10 +475,236 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-template <class A>
-size_t smem_bytes(int n, int V) {
-  return sizeof(int) * ((size_t)(6 + A::kState) * n +
-                        (A::kSharedCounts ? (size_t)V * kThreads : 0));
+// -- the tensor-core count (OTR, Ben-Or) --------------------------------------
+
+template <class A, bool kHw>
+__device__ __forceinline__ void mma_loop(const LoopParams& p) {
+  constexpr int K = A::kState;
+  constexpr int T = A::kTiles;
+  constexpr int kThreads = A::kThreads;
+  constexpr int kWarps = kThreads / 32;
+  const int n = p.n;
+  const int V = p.V;
+  const MmaLayout<A> L(n, V);
+  int* sd = smem;                     // [kpad] partition side
+  const State<K> st{L.kpad, n};       // K x [n] policy state
+  int* drd = sd + L.kpad + K * n;     // [n] decided_round
+  int* rlist = drd + n;               // [n] this round's active receivers
+  int* tot = rlist + n;               // [kMaxSides][rows] senders per row
+  int* blk = tot + rt_kMaxSides * L.rows;  // [nkb] the block has a sender
+  uint8_t* crs = reinterpret_cast<uint8_t*>(blk + L.nkb);  // [n] crash set
+  uint8_t* dn = crs + n;              // [n] done (exited)
+  uint8_t* dg = dn + n;               // [n] the sender hears itself by link
+  uint8_t* ss = dg + n;               // [n] the lane's side slot
+  uint8_t* oh = p.onehot != nullptr
+                    ? p.onehot + (size_t)blockIdx.x * L.onehot_bytes()
+                    : reinterpret_cast<uint8_t*>(smem + L.ints());
+  __shared__ int nrecv;
+  __shared__ int other;  // a sender's payload is outside [0, V)
+
+  const int s = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t base = (size_t)s * n;
+  const int side0 = p.side[base];
+  int same = 1;
+  for (int i = tid; i < L.kpad; i += kThreads) {
+    if (i < n) {
+      A::init(st, i, p.x0[base + i], p.param);
+      crs[i] = p.crashed[base + i] != 0;
+      dn[i] = 0;
+      drd[i] = -1;
+      sd[i] = p.side[base + i];
+      same &= sd[i] == side0;
+    } else {
+      sd[i] = side0;
+    }
+  }
+  // a scenario whose lanes share one side has no partition to test; one
+  // with at most kMaxSides sides has slots for per-side totals
+  const bool split = !__syncthreads_and(same);
+  __shared__ int side_slot[256];
+  const bool slotted =
+      split && rt_side_slots(sd, side_slot, ss, n, tid, kThreads);
+  const int cr = p.crash_round[s];
+  const int hr = p.heal_round[s];
+  const int rot = p.rotate_down[s];
+  const int p8 = p.p8[s];
+  RoundInfo ri;
+  ri.n = n;
+  ri.V = V;
+  ri.param = p.param;
+  ri.salt0 = (uint32_t)p.salt0[s];
+  ri.salt1 = (uint32_t)p.salt1[s];
+  const int period = rot > 1 ? rot : 1;
+  const bool blackout = p8 >= 256;
+  const int ohq = (int)(L.onehot_bytes() / 16);
+
+  for (int r = 0; r < p.rounds; ++r) {
+    const int k = r % A::kPhase;
+    const int victim = (r / period) % n;
+    const bool sided = r < hr && split;
+    const RtKeepStream ls(ri.salt0, rt_salt1r(r, (int)ri.salt1), p8, kHw);
+    // every link kept: a receiver's counts are the totals of the senders
+    // on its side, less its own link
+    const bool totals = !ls.draw && (!sided || slotted);
+    ri.r = r;
+    ri.k = k;
+    // the previous round's readers are past the closing barrier
+    if (!totals) {
+      uint4* oz = reinterpret_cast<uint4*>(oh);
+      for (int q = tid; q < ohq; q += kThreads)
+        oz[q] = make_uint4(0, 0, 0, 0);
+      for (int q = tid; q < L.nkb; q += kThreads) blk[q] = 0;
+    }
+    for (int q = tid; q < rt_kMaxSides * L.rows; q += kThreads) tot[q] = 0;
+    if (tid == 0) {
+      nrecv = 0;
+      other = 0;
+    }
+    __syncthreads();
+    // the one-hot of this round's senders, their own links' verdicts, and
+    // the active receivers
+    int any_active = 0;
+    for (int i0 = 0; i0 < n; i0 += kThreads) {
+      const int i = i0 + tid;
+      bool active = false;
+      if (i < n) {
+        active = !dn[i];
+        const bool alive = !(crs[i] && r >= cr);
+        const bool rotated = rot > 0 && i == victim;
+        const bool sender = active && alive && !rotated && !blackout;
+        if (sender) {
+          const int c = A::payload(st, i, k);
+          // row c, or row V for a payload outside [0, V) (kOnes)
+          const int row = (unsigned)c < (unsigned)V ? c : A::kOnes ? V : -1;
+          if (row == V) other = 1;
+          if (row >= 0 && totals)
+            atomicAdd(&tot[(sided ? ss[i] : 0) * L.rows + row], 1);
+          if (row >= 0 && !totals) {
+            oh[(size_t)row * L.pitch + i] = 1;
+            blk[i >> 6] = 1;
+          }
+        }
+        if (active)
+          dg[i] = sender &&
+                  ls.keep1<kHw>((uint32_t)i * (uint32_t)n + (uint32_t)i);
+      }
+      const unsigned act = __ballot_sync(~0u, active);
+      int at = 0;
+      if (lane == 0 && act) at = atomicAdd(&nrecv, __popc(act));
+      at = __shfl_sync(~0u, at, 0);
+      if (active) rlist[at + __popc(act & ((1u << lane) - 1u))] = i;
+      any_active |= active;
+    }
+    // every lane done: the state is frozen for the remaining rounds
+    if (!__syncthreads_or(any_active)) break;
+    const int R = nrecv;
+    const int tiles = (V + other + 7) / 8;  // the one-hot rows in use
+
+    // a warp's job: listed receivers 32q .. 32q+31, as two 16-row tiles
+    // (m), each a pair of rows g (h = 0) and g + 8 (h = 1)
+    for (int q = warp; q * 32 < R; q += kWarps) {
+      int jr[2][2], jc[2][2];
+      typename A::Acc acc[2][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = q * 32 + m * 16 + h * 8 + g;
+          jr[m][h] = at < R ? rlist[at] : -1;
+          jc[m][h] = rlist[at < R ? at : R - 1];
+          A::reset(acc[m][h], ri);
+        }
+      const bool two = q * 32 + 16 < R;  // the second tile has a receiver
+      for (int v0 = 0; v0 < tiles; v0 += T) {
+        int c[2][T][4] = {};
+        if (totals) {
+          const int* trow[2][2];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              trow[m][h] = tot + (sided ? ss[jc[m][h]] : 0) * L.rows + v0 * 8;
+          rt_fill_totals<T>(c, trow, tiles - v0, t);
+        } else {
+          uint32_t row[2][2];
+          int sj[2][2];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              row[m][h] = (uint32_t)jc[m][h] * (uint32_t)n;
+              sj[m][h] = sided ? sd[jc[m][h]] : 0;
+            }
+          rt_count<T, kHw>(c, ls, n, sided, row, sj, two,
+                           oh + (size_t)v0 * 8 * L.pitch, L.pitch, tiles - v0,
+                           blk, L.nkb, sd, g, t);
+        }
+        // this lane's value columns: (v0 + nt) * 8 + 2t + e, rows g, g + 8.
+        // The receiver hears itself (its payload before the update, which
+        // only this job writes) and not over its own link.
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = jc[m][h];
+            const int pay = A::payload(st, j, k);
+            const bool inr = (unsigned)pay < (unsigned)V;
+            const int own = dg[j];
+#pragma unroll
+            for (int nt = 0; nt < T; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int v = (v0 + nt) * 8 + 2 * t + e;
+                // j's own link sits in its payload's row, or OTR's row V
+                const int cnt =
+                    rt_less_own(c[m][nt][2 * h + e], v, own,
+                                inr ? pay : A::kOnes ? V : -1) +
+                    (inr && v == pay ? 1 : 0);
+                if (v0 + nt < tiles) A::add_count(acc[m][h], ri, v, cnt);
+              }
+          }
+      }
+      // merge the four lanes of each receiver; lane t updates pair t
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          A::merge(acc[m][h], 1);
+          A::merge(acc[m][h], 2);
+          const int j = jr[m][h];
+          if (t == 2 * m + h && j >= 0) {
+            // the size counts the self-delivery (in its payload's column
+            // when that is in [0, V))
+            int size = 0;
+            if constexpr (A::kOnes)
+              size = acc[m][h].size +
+                     ((unsigned)A::payload(st, j, k) < (unsigned)V ? 0 : 1);
+            if (A::update(st, j, acc[m][h], ri, size)) dn[j] = 1;
+            if (st(A::kDecided, j) && drd[j] < 0) drd[j] = r;
+          }
+        }
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < n; i += kThreads) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) p.out[q][base + i] = st(q, i);
+    p.out[K][base + i] = dn[i];
+    p.out[K + 1][base + i] = drd[i];
+  }
+}
+
+template <class A, bool kHw>
+__global__ void __launch_bounds__(A::kThreads, A::kMinBlocks)
+    hist_loop_kernel(LoopParams p) {
+  if constexpr (A::kMma)
+    mma_loop<A, kHw>(p);
+  else
+    walk_loop<A, kHw>(p);
 }
 
 template <class A, bool kHw>
@@ -411,13 +713,13 @@ int launch_stream(const LoopParams& p, int S, size_t smem, void* stream) {
       hist_loop_kernel<A, kHw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  hist_loop_kernel<A, kHw><<<S, kThreads, smem, (cudaStream_t)stream>>>(p);
+  hist_loop_kernel<A, kHw><<<S, A::kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <class A>
-int launch(const int* const* ins, int* const* outs, int S, int n, int V,
-           int rounds, int param, int hw, void* stream) {
+int launch(const int* const* ins, int* const* outs, uint8_t* onehot, int S,
+           int n, int V, int rounds, int param, int hw, void* stream) {
   if (S <= 0 || n <= 0) return (int)cudaSuccess;
   LoopParams p;
   p.x0 = ins[0];
@@ -431,36 +733,47 @@ int launch(const int* const* ins, int* const* outs, int S, int n, int V,
   p.salt1 = ins[8];
   for (int q = 0; q < kMaxOut; ++q)
     p.out[q] = q < A::kState + 2 ? outs[q] : nullptr;
+  p.onehot = onehot;
   p.n = n;
   p.V = V;
   p.rounds = rounds;
   p.param = param;
-  const size_t smem = smem_bytes<A>(n, V);
+  const size_t smem = smem_bytes<A>(n, V, onehot == nullptr);
   return hw ? launch_stream<A, true>(p, S, smem, stream)
             : launch_stream<A, false>(p, S, smem, stream);
 }
 
 }  // namespace
 
-// C entry points, one pair per instance.  Inputs in hist_loop's order:
+// C entry points, one triple per instance.  Inputs in hist_loop's order:
 // x0, crashed, side ([S, n] int32), crash_round, heal_round, rotate_down,
 // p8, salt0, salt1 ([S] int32).  Outputs: the policy's state slots, done,
-// decided_round ([S, n] int32).  hw != 0 draws the links from the hw-mode
-// Philox stream, else from the hash.  Each launch runs on `stream` and
-// returns cudaGetLastError().
+// decided_round ([S, n] int32).  `onehot` is null, or S * onehot_bytes
+// bytes of device memory that hold the tensor-core instances' one-hot
+// where it does not fit in shared memory (smem_bytes(n, V, 1) too large);
+// smem_bytes(n, V, onehot == null) is what the launch asks for.  hw != 0
+// draws the links from the hw-mode Philox stream, else from the hash.  Each
+// launch runs on `stream` and returns cudaGetLastError().
 extern "C" {
 
 #define RT_LOOP_ENTRY(NAME, POLICY)                                          \
-  size_t NAME##_smem_bytes(int n, int V) { return smem_bytes<POLICY>(n, V); } \
+  size_t NAME##_smem_bytes(int n, int V, int onehot_in_smem) {              \
+    return smem_bytes<POLICY>(n, V, onehot_in_smem != 0);                   \
+  }                                                                          \
+  size_t NAME##_onehot_bytes(int n, int V) {                                \
+    return onehot_bytes<POLICY>(n, V);                                      \
+  }                                                                          \
   int NAME##_launch(const int* x0, const int* crashed, const int* side,     \
                     const int* crash_round, const int* heal_round,          \
                     const int* rotate_down, const int* p8, const int* salt0, \
-                    const int* salt1, int* const* outs, int S, int n, int V, \
-                    int rounds, int param, int hw, void* stream) {          \
+                    const int* salt1, int* const* outs, uint8_t* onehot,    \
+                    int S, int n, int V, int rounds, int param, int hw,     \
+                    void* stream) {                                          \
     const int* ins[9] = {x0,         crashed,     side, crash_round, \
                          heal_round, rotate_down, p8,   salt0,       \
                          salt1};                                             \
-    return launch<POLICY>(ins, outs, S, n, V, rounds, param, hw, stream);   \
+    return launch<POLICY>(ins, outs, onehot, S, n, V, rounds, param, hw,    \
+                          stream);                                           \
   }
 
 RT_LOOP_ENTRY(otr_loop, OtrPolicy)

@@ -37,8 +37,9 @@ _U = ctypes.c_uint
 _LOOP = {
     f"{algo}_loop_{fn}": sig
     for algo in ("otr", "floodmin", "benor")
-    for fn, sig in (("launch", ([_P] * 9 + [_PP] + [_I] * 6 + [_P], _I)),
-                    ("smem_bytes", ([_I, _I], ctypes.c_size_t)))
+    for fn, sig in (("launch", ([_P] * 9 + [_PP, _P] + [_I] * 6 + [_P], _I)),
+                    ("smem_bytes", ([_I, _I, _I], ctypes.c_size_t)),
+                    ("onehot_bytes", ([_I, _I], ctypes.c_size_t)))
 }
 # C signatures: library -> {function: (argtypes, restype)}
 _SIGNATURES = {

@@ -59,8 +59,10 @@ patterns and are widened with ``_u32``.
 
 Knobs that exist only for TPU lowering (``sb``, ``interpret``, ``variant``)
 are not carried over.  ``dot`` stays in the signatures and is validated;
-the kernels count in int32 whichever value is passed (both round_tpu dtypes
-are exact and give identical bits).
+K2 and K1's OTR and Ben-Or instances count with int8 tensor-core products
+(mma.sync m16n8k32, u8 x u8 -> s32, csrc/count_mma.cuh) whichever value is
+passed: like both round_tpu dtypes, the product is exact and gives the
+same bits.
 """
 
 from __future__ import annotations
@@ -404,8 +406,8 @@ def hist_exchange(
     take its plain version.  As in round_tpu, senders of scenarios with
     p8 >= 256 are silenced (a total blackout) and the self-delivery
     diagonal is added here, outside the kernel, from ``active`` (and
-    ``rowmask``) alone.  ``dot`` is validated; the count is int32 either
-    way."""
+    ``rowmask``) alone.  ``dot`` is validated; the count is an exact int8
+    tensor-core product either way."""
     _check_mode(mode)
     _check_dot(dot)
     vals = torch.as_tensor(vals).to(torch.int32)
@@ -446,9 +448,10 @@ class LoopAlgo:
       decided_slot      -> index in the state tuple of the bool decided flag.
 
     On the card each instance has its own policy in csrc/hist_loop.cu,
-    named by ``kernel`` (its C entry points are ``<kernel>_launch`` and
-    ``<kernel>_smem_bytes``; ``kernel_param`` is the policy's one integer
-    parameter); ``n_state`` is the length of the state tuple.
+    named by ``kernel`` (its C entry points are ``<kernel>_launch``,
+    ``<kernel>_smem_bytes`` and ``<kernel>_onehot_bytes``;
+    ``kernel_param`` is the policy's one integer parameter); ``n_state`` is
+    the length of the state tuple.
     """
 
     num_values: int
@@ -697,11 +700,18 @@ def _hist_loop_cuda(algo: LoopAlgo, x0, crashed, side, crash_round,
     S, n = x0.shape
     V = algo.num_values
     so = _native.lib("hist_loop")
-    smem = getattr(so, f"{algo.kernel}_smem_bytes")(n, V)
+    smem_bytes = getattr(so, f"{algo.kernel}_smem_bytes")
+    # the tensor-core instances keep the round's sender one-hot in shared
+    # memory where it fits, else in device memory beside the state
+    in_smem = smem_bytes(n, V, 1) <= _MAX_SMEM
+    smem = smem_bytes(n, V, int(in_smem))
     if smem > _MAX_SMEM:
         raise ValueError(
             f"{algo.kernel}: num_values={V} at n={n} needs {smem} bytes of "
             f"shared memory per block (max {_MAX_SMEM})")
+    onehot = None if in_smem else torch.empty(
+        (S * getattr(so, f"{algo.kernel}_onehot_bytes")(n, V),),
+        dtype=torch.uint8, device=x0.device)
     ins = _kernel_inputs(x0.device, S, n, (x0, crashed, side),
                          (crash_round, heal_round, rotate_down, p8, salt0,
                           salt1))
@@ -711,6 +721,7 @@ def _hist_loop_cuda(algo: LoopAlgo, x0, crashed, side, crash_round,
         stream = torch.cuda.current_stream(x0.device).cuda_stream
         err = getattr(so, f"{algo.kernel}_launch")(
             *[a.data_ptr() for a in ins], _native.pointer_array(outs),
+            None if onehot is None else onehot.data_ptr(),
             S, n, V, rounds, algo.kernel_param, int(mode == "hw"), stream)
     LAUNCHES[_launch_name(algo.kernel, mode)] += 1
     _native.check(err, f"{algo.kernel} launch")
@@ -739,8 +750,9 @@ def hist_loop(
     state tuple as [S, n] int32 (bool slots as 0/1), done [S, n] bool,
     decided_round [S, n] int32.  CUDA tensors launch the algo's K1
     instance (csrc/hist_loop.cu: OtrLoop, FloodMinLoop, BenOrLoop); CPU
-    tensors take the plain template.  ``dot`` is validated; the count is
-    int32 either way."""
+    tensors take the plain template.  ``dot`` is validated; OTR and Ben-Or
+    count with an exact int8 tensor-core product either way, FloodMin
+    keeps a running minimum."""
     _check_mode(mode)
     _check_dot(dot)
     args = (x0, crashed, side, crash_round, heal_round, rotate_down, p8,

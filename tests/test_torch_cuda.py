@@ -3,8 +3,10 @@
 Marked `cuda`: each test skips (it does not fail) where torch finds no CUDA
 card, deciding inside the test.  On the card, chip_smoke.py is the full
 check at n=1024; these are the quick per-kernel checks of K2, the three K1
-instances and K3 (hash mode), K2 and K1 in hw mode, the probes P1 and P2,
-and K4 over shards of one card:
+instances and K3 (hash mode), K2 and K1 in hw mode, the tensor-core count
+of K1 and K2 at n = 1008, in sided rounds, with receivers finishing early
+and with the one-hot in device memory, the probes P1 and P2, and K4 over
+shards of one card:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -236,3 +238,112 @@ def test_sharded_family_on_one_card(dev, family):
     got = run(state0, mix, mesh.make_mesh(4, 2, devices), "ici", None)
     assert mesh.COLLECTIVE["calls"] == 0
     assert ici._trees_equal(got, ici.single_device_run(family, state0, mix, 6))
+
+
+def _sided_inputs(dev, n, S, V, seed):
+    """Every row split three ways for the whole run, the p8 grid over the
+    rows, some crashes: every round is sided, most draw."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    args = list(_loop_inputs(dev, n, S, V, seed, heal_round=99))
+    args[2] = torch.randint(0, 3, (S, n), generator=g, device=dev,
+                            dtype=torch.int32)                   # side
+    args[4] = torch.full((S,), 99, dtype=torch.int32, device=dev)  # heal
+    args[6] = torch.tensor([0, 1, 13, 64, 128, 255, 256], dtype=torch.int32,
+                           device=dev).repeat(S // 7 + 1)[:S]    # p8
+    return tuple(args)
+
+
+@pytest.mark.parametrize("mode", ["hash", "hw"])
+@pytest.mark.parametrize("n", [1008, 64])
+def test_hist_exchange_kernel_n1008_and_sided(dev, n, mode):
+    """K2 at n = 1008 (n % 64 != 0: a padded last sender block; n % 16 == 0)
+    and with three sides, against its plain version."""
+    S, V = 14, 16
+    g = torch.Generator(device=dev).manual_seed(n + 2)
+    vals = torch.randint(-1, V + 1, (S, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    senders = torch.rand((S, n), generator=g, device=dev) < 0.8
+    rowmask = torch.rand((S, n), generator=g, device=dev) < 0.9
+    side = torch.randint(0, 3, (S, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    s0, s1 = fast._salts(g, S, 0, dev), fast._salts(g, S, 1, dev)
+    p8 = torch.tensor([0, 1, 13, 64, 128, 255, 256] * 2, dtype=torch.int32,
+                      device=dev)
+    senders = senders & (p8 < 256)[:, None]
+    for rm, sd in ((None, None), (rowmask, side), (None, side)):
+        got = fused._hist_exchange_cuda(vals, senders, rm, sd, s0, s1, p8, V,
+                                        mode)
+        torch.cuda.synchronize()
+        want = fused._hist_exchange_plain(vals, senders, rm, sd, s0, s1, p8,
+                                          V, mode)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("algo,rounds", [
+    (fused.OtrLoop(num_values=16, after_decision=2), 8),
+    (fused.BenOrLoop(), 12),
+])
+@pytest.mark.parametrize("mode", ["hash", "hw"])
+def test_loop_kernel_n1008(dev, mode, algo, rounds):
+    """K1's tensor-core instances at n = 1008, every family over the p8
+    grid, in both streams."""
+    args = _loop_inputs(dev, 1008, 21, algo.num_values, rounds + 3)
+    got = fused._hist_loop_cuda(algo, *args, rounds, mode)
+    torch.cuda.synchronize()
+    want = fused._hist_loop_plain(algo, *args, rounds, mode)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("algo,rounds", [
+    (fused.OtrLoop(num_values=8, after_decision=2), 7),
+    (fused.BenOrLoop(), 10),
+])
+@pytest.mark.parametrize("n", [1000, 1008])
+def test_hw_loop_kernel_sided_rounds(dev, n, algo, rounds):
+    """Sided hw rounds: three sides for the whole run, the p8 grid."""
+    args = _sided_inputs(dev, n, 14, algo.num_values, n + 5)
+    got = fused._hist_loop_cuda(algo, *args, rounds, "hw")
+    torch.cuda.synchronize()
+    want = fused._hist_loop_plain(algo, *args, rounds, "hw")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["hash", "hw"])
+def test_otr_loop_kernel_groups_finish_early(dev, mode):
+    """Scenarios whose receivers all finish in the first rounds, beside
+    ones that keep running and ones that lose a few lanes early: the
+    receiver list shrinks, tiles empty out, the loop exits per block."""
+    n, S, V, rounds = 1024, 12, 8, 12
+    g = torch.Generator(device=dev).manual_seed(11)
+    mix = fast.standard_mix(g, S, n, device=dev)
+    p8 = torch.tensor([0, 0, 0, 1, 200, 255] * 2, dtype=torch.int32,
+                      device=dev)
+    mix = mix.replace(p8=p8, heal_round=torch.zeros_like(mix.heal_round),
+                      rotate_down=torch.zeros_like(mix.rotate_down))
+    x0 = torch.randint(0, V, (n,), generator=g, device=dev,
+                       dtype=torch.int32).expand(S, n).contiguous()
+    x0[6:] = 3  # unanimous: every lane decides in round 0
+    args = (x0, *fast._mix_args(mix))
+    algo = fused.OtrLoop(num_values=V, after_decision=1)
+    got = fused._hist_loop_cuda(algo, *args, rounds, mode)
+    torch.cuda.synchronize()
+    want = fused._hist_loop_plain(algo, *args, rounds, mode)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    done, dround = got[4], got[5]
+    assert bool((done[6:9] != 0).all()) and bool((dround[6:9] == 0).all())
+
+
+def test_otr_loop_kernel_onehot_in_device_memory(dev):
+    """Where the one-hot does not fit in shared memory (n = 2048, V = 100)
+    it lives in device memory beside the state; the kernel is the same."""
+    algo = fused.OtrLoop(num_values=100, after_decision=2)
+    args = _loop_inputs(dev, 2048, 4, 100, 17)
+    for mode in ("hw", "hash"):
+        got = fused._hist_loop_cuda(algo, *args, 4, mode)
+        torch.cuda.synchronize()
+        want = fused._hist_loop_plain(algo, *args, 4, mode)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
