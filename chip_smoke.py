@@ -68,13 +68,22 @@ Phases, each printed as one line:
                    the bound of a walk that compares each link on its
                    own); K1 at the flagship shape timed again after its
                    plain versions, with nvidia-smi's SM clock, power,
-                   temperature and throttle reasons read during each
+                   temperature and throttle reasons read during each;
+                   P1 and P2 (like K4) queued behind a sleep kernel (the
+                   card's time) and back to back (the host's issue time),
+                   torch.mul beside P1 timed both ways
+  host-breakdown   the host's steps of one P1 call and of one one-card K4
+                   exchange, each timed over 10,000 calls, on the lean
+                   launch route and on the route before it
   K1-totals        K1 on the flagship's partition family alone (p8 = 0,
                    five sided rounds): two sides counted by per-side
                    totals against nine, counted by the product
+  K4-sass          the SASS of K4's local kernel: bulk copies, and no
+                   flag wait, system-scope access or %globaltimer read
   K4-vs-plain      the all-gather over p = 2, 4, 8 shards on cuda:0, int32
-                   and int8, aligned and odd widths, feature dims, 50 calls
-                   back to back, p = 1, a 2 x 2 mesh
+                   and int8, aligned and odd widths, chunks one element
+                   off a 16-byte boundary, feature dims, 50 calls back to
+                   back, p = 1, a 2 x 2 mesh; launches per path
   sharded-families hist, benor, tpc, erb and lattice at n=64 on a 2 x 2 mesh
                    of cuda:0: the hand-written exchange against the library
                    gather, pipelined and straight, and each against its
@@ -85,7 +94,9 @@ Phases, each printed as one line:
                    mesh of cuda:0 through K4, against the library gather
                    and the single-device hash run (launches counted)
   K4-time          K4's time at the sharded flagship's and the lattice
-                   family's shapes, with its plain, library and bound times
+                   family's shapes, queued (card) and back to back (issue),
+                   the kernel and path it took, with its plain, library
+                   and bound times
   ring-peers       the same checks and time over distinct cards, where more
                    than one is visible; otherwise it says it skipped
 
@@ -96,7 +107,9 @@ sharded phases alone; with ``--only peers`` just K4-vs-plain and ring-peers
 Then the card's name and power limit as nvidia-smi reports them, a
 {"kernels": [...]} line (per kernel: launches on its path, max_abs_err
 against its plain version, ms, plain_ms, bound_ms, bound_by, library_ms;
-for the tensor-core kernels also sass_per_link)
+for the tensor-core kernels also sass_per_link; for P1, P2 and K4 also
+issue_ms, the time from one call to the next issued back to back, and
+for K4 the kernel and path it took)
 and last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 N}}.  Any failure raises and the script exits non-zero without the last
 line.  It needs the round_tpu_torch package beside it and a CUDA card; it
@@ -105,8 +118,10 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -154,6 +169,8 @@ FAM_N, FAM_S, FAM_ROUNDS = 64, 16, 6
 # the card, so their event time is the card's, not the host's issue time
 SLEEP_CYCLES = 60_000_000
 SHARD_S, SHARD_ROUNDS, SHARDS = 2_000, 10, 4
+# calls of each route timed step by step in the host-breakdown phase
+BREAKDOWN_CALLS = 10_000
 
 # Published peaks of one H100 SXM at its 700 W limit: HBM bandwidth from
 # NVIDIA's data sheet; integer issue rates from the Hopper white paper over
@@ -368,11 +385,14 @@ def _ring_devices(torch, p, cards=1):
     return [torch.device("cuda", (i * cards) // p) for i in range(p)]
 
 
-def ring_case(torch, what, chunks, calls=1):
+def ring_case(torch, what, chunks, calls=1, offset=False):
     """K4 on one chunk per shard (each on its shard's device) against the
-    plain version: every shard's output of every call, bit for bit.  With
+    plain version: every shard's output of every call, bit for bit, and
+    one launch per exchange and card on the path the topology picks.  With
     calls > 1 the shards exchange `calls` times back to back, on fresh
-    inputs (chunk * (i + 1) + i)."""
+    inputs (chunk * (i + 1) + i).  With `offset` each chunk lies one
+    element past a 16-byte boundary, so no bulk copy may take it."""
+    from round_tpu_torch.ops import fused
     from round_tpu_torch.parallel import ici, mesh as M
 
     p = len(chunks)
@@ -380,13 +400,25 @@ def ring_case(torch, what, chunks, calls=1):
     ring = M.Mesh.line(grid, "ring")
 
     def body(x_l):
-        return torch.stack([
-            ici.ring_exchange(x_l * (i + 1) + i, axis="ring", p=p)
-            for i in range(calls)])[None]
+        outs = []
+        for i in range(calls):
+            x = x_l * (i + 1) + i
+            if offset:
+                flat = torch.empty(x.numel() + 1, dtype=x.dtype,
+                                   device=x.device)[1:]
+                x = flat.view_as(x).copy_(x)
+            outs.append(ici.ring_exchange(x, axis="ring", p=p))
+        return torch.stack(outs)[None]
 
+    cards = len(set(grid))
+    path = "ring_exchange_local" if cards == 1 else "ring_exchange_peers"
+    before = fused.LAUNCHES[path]
     x = torch.cat([c.to(grid[0]) for c in chunks], dim=1)
     got = M.shard_map(body, ring, in_specs=(M.P(None, "ring"),),
                       out_specs=M.P("ring"))(x)          # [p, calls, S_l, ..]
+    require(fused.LAUNCHES[path] - before == calls * cards,
+            f"{what}: {fused.LAUNCHES[path] - before} {path} launches for "
+            f"{calls} exchanges over {cards} card(s)")
     err = 0.0
     for i in range(calls):
         want = ici._ring_exchange_plain([c * (i + 1) + i for c in chunks])
@@ -395,31 +427,36 @@ def ring_case(torch, what, chunks, calls=1):
     return err
 
 
+def ring_items(torch, chunks, streams=None):
+    """K4's launch items for one exchange of `chunks`, as ring_exchange
+    builds them: per rank its chunk, a fresh output and the event of its
+    stream (`streams`: one per rank, default the current one)."""
+    items = []
+    for rank, x in enumerate(chunks):
+        with torch.cuda.device(x.device):
+            stream = (torch.cuda.current_stream(x.device) if streams is None
+                      else streams[rank])
+            out = torch.empty((x.shape[0], len(chunks) * x.shape[1]),
+                              dtype=x.dtype, device=x.device)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+            items.append({"x": x, "out": out, "ready": ready,
+                          "stream": stream, "raw": stream.cuda_stream})
+    return items
+
+
 def time_ring(torch, chunks, reps=50):
-    """(ms, issue_ms, outputs): K4 launched `reps` times through its
+    """(ms, issue_ms, outputs, plan): K4 launched `reps` times through its
     launcher, without the shards' threads, timed by CUDA events on the
     first device's stream.  `ms` is the card's time for one exchange (the
     launches queued behind a sleep kernel); `issue_ms` is the time from one
     exchange to the next when the host issues them back to back."""
     from round_tpu_torch.parallel import ici
 
-    p = len(chunks)
-    state = ici._RingState(p)
-    items = []
-    for rank, x in enumerate(chunks):
-        with torch.cuda.device(x.device):
-            state.flags[rank] = torch.zeros((p, ici.MAX_BLOCKS),
-                                            dtype=torch.int32, device=x.device)
-            state.status[rank] = torch.zeros((1,), dtype=torch.int32,
-                                             device=x.device)
-            out = torch.empty((x.shape[0], p * x.shape[1]), dtype=x.dtype,
-                              device=x.device)
-            stream = torch.cuda.current_stream(x.device)
-            ready = torch.cuda.Event()
-            ready.record(stream)
-            items.append({"x": x, "out": out, "ready": ready,
-                          "stream": stream})
+    state = ici._RingState(len(chunks))
+    items = ring_items(torch, chunks)
     ici._launch_all(state, items)  # warm-up
+    plan = state.plan
     first = items[0]["stream"]
 
     def run(queued):
@@ -438,8 +475,9 @@ def time_ring(torch, chunks, reps=50):
 
     issue_ms, ms = run(False), run(True)
     for status in state.status:
-        require(int(status.item()) == 0, "K4 gave up waiting for a peer")
-    return ms, issue_ms, [it["out"] for it in items]
+        require(status is None or int(status.item()) == 0,
+                "K4 gave up waiting for a peer")
+    return ms, issue_ms, [it["out"] for it in items], plan
 
 
 def queued_ms(torch, fn, reps):
@@ -458,29 +496,34 @@ def queued_ms(torch, fn, reps):
 
 
 def ring_rows(torch, name, chunks, launches, err, reps=50, link_rate=None):
-    """One K4 entry of the kernels line: its time, plain, library and bound
-    times on `chunks` (one per shard)."""
+    """One K4 entry of the kernels line: its time on the card and issued
+    back to back, the path it took, its plain, library and bound times on
+    `chunks` (one per shard)."""
     from round_tpu_torch.parallel import ici
 
     p = len(chunks)
-    ms, issue_ms, outs = time_ring(torch, chunks, reps)
+    ms, issue_ms, outs, plan = time_ring(torch, chunks, reps)
     p_ms, want = plain_ms(lambda: ici._ring_exchange_plain(chunks))
     compare(f"{name} at its path's shape", outs, want)
     if link_rate is None:
         # yardstick only: the library's gather of the chunks into p outputs
-        lib_ms = queued_ms(
-            torch, lambda: [torch.cat(chunks, dim=1) for _ in range(p)], reps)
+        lib = lambda: [torch.cat(chunks, dim=1) for _ in range(p)]  # noqa
+        lib_ms = queued_ms(torch, lib, reps)
+        lib_issue_ms, _ = event_ms(lib, reps)
         # p chunks read, p * p chunk slots written, over the card's memory
         chunk = chunks[0].numel() * chunks[0].element_size()
         bnd = (p + p * p) * chunk / HBM_BYTES_PER_S * 1e3
     else:
-        lib_ms, bnd = link_rate
+        (lib_ms, lib_issue_ms), bnd = link_rate
     return {"name": name, "route": "cuda",
             "source": "round_tpu_torch/csrc/ring_exchange.cu",
             "replaces": "round_tpu/parallel/ici.py:74",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "issue_ms": issue_ms, "plain_ms": p_ms, "bound_ms": bnd,
-            "bound_by": "bytes", "library_ms": lib_ms}
+            "bound_by": "bytes", "library_ms": lib_ms,
+            "library_issue_ms": lib_issue_ms,
+            "kernel": f"ring_gather_{plan.kernel}", "path": plan.path,
+            "plan": plan._asdict()}
 
 
 def k4_vs_plain(torch, gen, cards=1):
@@ -499,11 +542,14 @@ def k4_vs_plain(torch, gen, cards=1):
     for p in shards:
         devs = _ring_devices(torch, p, cards)
         for dtype, shapes in ((torch.int32, ((64, 256), (7, 250), (1, 1))),
-                              (torch.int8, ((64, 256 * 11), (5, 44)))):
+                              (torch.int8, ((64, 256 * 11), (5, 44),
+                                            (8, 352)))):
             for shape in shapes:
                 chunks = [draw(shape, dtype, d) // 4 for d in devs]
-                errs[dtype] = max(errs[dtype], ring_case(
-                    torch, f"K4 p={p} {dtype} {shape}", chunks))
+                for offset in (False, True):
+                    errs[dtype] = max(errs[dtype], ring_case(
+                        torch, f"K4 p={p} {dtype} {shape} offset={offset}",
+                        chunks, offset=offset))
         # epochs: 50 exchanges back to back on fresh inputs
         chunks = [draw((7, 250), torch.int32, d) // 64 for d in devs]
         errs[torch.int32] = max(errs[torch.int32], ring_case(
@@ -532,10 +578,12 @@ def k4_vs_plain(torch, gen, cards=1):
     errs[torch.int32] = max(errs[torch.int32], compare(
         "K4 on a 2 x 2 mesh", [got], [torch.cat([x, x], dim=1)]))
     say("K4-vs-plain", shards=",".join(map(str, shards)), cards=cards,
-        int32="(64,256),(7,250),(1,1)", int8="(64,2816),(5,44)",
-        cases="each shard's out vs torch.cat; [5,4,11] int8 through "
-              "make_ring_gather; 50 calls back to back; p=1 identity, no "
-              "launch; 2x2 mesh rows", tolerance=0,
+        int32="(64,256),(7,250),(1,1)", int8="(64,2816),(5,44),(8,352)",
+        cases="each shard's out vs torch.cat, chunks 16-byte aligned and "
+              "one element past; [5,4,11] int8 through make_ring_gather; "
+              "50 calls back to back; p=1 identity, no launch; 2x2 mesh "
+              "rows; one launch per exchange and card on the topology's "
+              "path", tolerance=0,
         max_abs_err=max(errs.values()), equal=True)
     return errs
 
@@ -543,8 +591,6 @@ def k4_vs_plain(torch, gen, cards=1):
 def nvlink_rate():
     """Bytes per second one card sends over its NVLinks, summed over the
     links `nvidia-smi nvlink -s` lists for GPU 0; None when it lists none."""
-    import re
-
     cp = subprocess.run(["nvidia-smi", "nvlink", "-s", "-i", "0"],
                         capture_output=True, text=True)
     rates = [float(m) for m in re.findall(r"Link \d+: ([0-9.]+) GB/s",
@@ -567,27 +613,300 @@ def ring_peers(torch, gen):
     rate = nvlink_rate()
     chunk = chunks[0].numel() * chunks[0].element_size()
     bnd = (cards - 1) * chunk / rate * 1e3 if rate else None
-    try:
-        outs = [torch.empty((cards * SHARD_S, N // SHARDS),
-                            dtype=torch.int32, device=d) for d in devs]
-        lib_ms = queued_ms(
-            torch, lambda: torch.cuda.nccl.all_gather(chunks, outs), 20)
-        for d in devs:
-            torch.cuda.synchronize(d)
-        compare("nccl all_gather yardstick", outs,
-                [torch.cat([c.to(o.device) for c in chunks]) for o in outs])
-    except Exception as exc:  # noqa: BLE001 - a yardstick, reported
-        lib_ms = None
-        say("ring-peers-nccl", unavailable=repr(exc)[:200])
+    outs = [torch.empty((cards * SHARD_S, N // SHARDS), dtype=torch.int32,
+                        device=d) for d in devs]
+
+    def nccl():  # yardstick only: the library's all-gather over the cards
+        torch.cuda.nccl.all_gather(chunks, outs)
+
+    lib_ms = queued_ms(torch, nccl, 20)
+    lib_issue_ms, _ = event_ms(nccl, 20)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    compare("nccl all_gather yardstick", outs,
+            [torch.cat([c.to(o.device) for c in chunks]) for o in outs])
     row = ring_rows(torch, "ring_exchange_peers", chunks, 0,
-                    errs[torch.int32], reps=20, link_rate=(lib_ms, bnd))
+                    errs[torch.int32], reps=20,
+                    link_rate=((lib_ms, lib_issue_ms), bnd))
     say("ring-peers", cards=cards, shape=f"[{SHARD_S},{N // SHARDS}] int32",
-        ms=round(row["ms"], 4), issue_ms=round(row["issue_ms"], 4),
-        plain_ms=round(row["plain_ms"], 3), nccl_all_gather_ms=None if lib_ms is None else round(lib_ms, 4),
+        kernel=row["kernel"], path=row["path"], ms=round(row["ms"], 5),
+        issue_ms=round(row["issue_ms"], 5),
+        plain_ms=round(row["plain_ms"], 3),
+        nccl_all_gather_ms=round(lib_ms, 5),
+        nccl_issue_ms=round(lib_issue_ms, 5),
         bound_ms=None if bnd is None else round(bnd, 5),
         nvlink_bytes_per_s=rate, bound_by="bytes over NVLink",
         max_abs_err=row["max_abs_err"])
     return row
+
+
+class _Ticks:
+    """Nanoseconds per named host step, summed over calls: tick(name)
+    charges the time since the last tick (or start()) to `name`."""
+
+    def __init__(self):
+        self.ns = {}
+        self.t = 0
+
+    def start(self):
+        self.t = time.perf_counter_ns()
+
+    def __call__(self, name):
+        t = time.perf_counter_ns()
+        self.ns[name] = self.ns.get(name, 0) + t - self.t
+        self.t = t
+
+    def per_call_us(self, calls):
+        return {k: round(v / calls / 1e3, 3) for k, v in self.ns.items()}
+
+
+def host_breakdown(torch, x, calls=BREAKDOWN_CALLS):
+    """The host's steps of one P1 call (on x), of one P2 call at the
+    bisect shape and of one one-card K4 exchange (the sharded flagship's four [2,000, 256] int32 chunks, a
+    stream each, as shard_map gives them), each step timed with
+    perf_counter_ns over `calls` calls, on the lean route the wrappers take
+    and on the route they took before (the device context, the Stream
+    object, the library's lock, the flags' pointers), which the script
+    rebuilds here around the same kernels.  Also each wrapper's whole
+    time per call, and the cost of a tick alone."""
+    from round_tpu_torch.ops import _native, fused
+    from round_tpu_torch.parallel import ici
+
+    counts = {"probe_double": 0, "philox_bits": 0, "ring_exchange": 0}
+
+    def p1_lean(t):
+        t.start()
+        if x.dtype != torch.float32 or not x.is_cuda:
+            raise ValueError("probe_double")
+        t("checks")
+        launch = (fused._PROBE or fused._bind_probe())[0]
+        t("bound entry")
+        xc = x.contiguous()
+        t("contiguous")
+        out = torch.empty_like(xc)
+        t("empty_like")
+        index = xc.get_device()
+        args = (xc.data_ptr(), out.data_ptr(), xc.numel(), index)
+        t("pointers")
+        raw = _native.raw_stream(index)
+        t("raw stream")
+        err = launch(*args, raw)
+        t("launch")
+        counts["probe_double"] += 1
+        if err:
+            _native.check(err, "probe_double launch")
+        t("count and check")
+
+    def p1_before(t):
+        t.start()
+        if x.dtype != torch.float32 or x.device.type == "cpu" \
+                or not x.is_cuda:
+            raise ValueError("probe_double")
+        t("checks")
+        so = _native.lib("probe")
+        t("library lock")
+        xc = x.contiguous()
+        t("contiguous")
+        out = torch.empty_like(xc)
+        t("empty_like")
+        with torch.cuda.device(xc.device):
+            t("device context")
+            stream = torch.cuda.current_stream(xc.device).cuda_stream
+            t("Stream object")
+            err = so.probe_double_launch(xc.data_ptr(), out.data_ptr(),
+                                         xc.numel(), xc.device.index, stream)
+            t("launch")
+        t("device context")
+        counts["probe_double"] += 1
+        _native.check(err, "probe_double launch")
+        t("count and check")
+
+    seed = torch.tensor([1, 2], dtype=torch.int32, device=x.device)
+
+    def p2_lean(t):
+        t.start()
+        sd = seed if isinstance(seed, torch.Tensor) else torch.as_tensor(seed)
+        if sd.shape != (2,):
+            raise ValueError("philox_bits")
+        shape = tuple(PROBE_SHAPE)
+        counter = tuple(map(int, (0, 0, 0, 0)))
+        if not sd.is_cuda:
+            raise ValueError("philox_bits")
+        t("checks and shape")
+        launch = (fused._PROBE or fused._bind_probe())[1]
+        t("bound entry")
+        key = (sd if sd.dtype == torch.int32 and sd.is_contiguous()
+               else sd.to(torch.int32).contiguous())
+        t("key")
+        out = key.new_empty(shape)
+        t("new_empty")
+        index = key.get_device()
+        args = (key.data_ptr(), out.data_ptr(), out.numel(),
+                *[c & 0xFFFFFFFF for c in counter], index)
+        t("pointers")
+        raw = _native.raw_stream(index)
+        t("raw stream")
+        err = launch(*args, raw)
+        t("launch")
+        counts["philox_bits"] += 1
+        if err:
+            _native.check(err, "philox_bits launch")
+        t("count and check")
+
+    dev = x.device
+    p = SHARDS
+    chunks = [torch.randint(0, V + 1, (SHARD_S, N // SHARDS), device=dev,
+                            dtype=torch.int32) for _ in range(p)]
+    streams = [torch.cuda.Stream(dev) for _ in range(p)]
+    items = ring_items(torch, chunks, streams)
+    state = ici._RingState(p)
+    lock = ici._LOCK
+    local_launch = (ici._RING or ici._bind_ring())[0]
+
+    def k4_lean(t):
+        t.start()
+        n = len(items)
+        x0 = items[0]["x"]
+        rows, cols = x0.shape
+        row_bytes = cols * x0.element_size()
+        out_ptrs = [it["out"].data_ptr() for it in items]
+        x_ptrs = [it["x"].data_ptr() for it in items]
+        outs = (ctypes.c_void_p * n)(*out_ptrs)
+        xs = (ctypes.c_void_p * n)(*x_ptrs)
+        t("pointer arrays")
+        align = ici._alignment(out_ptrs + x_ptrs)
+        index = x0.get_device()
+        if not all(it["x"].get_device() == index for it in items):
+            raise ValueError("the breakdown's chunks lie on one device")
+        t("alignment and one device")
+        plan = state.plan = ici._ring_plan(rows, row_bytes, n,
+                                           ici._sms(index), align=align)
+        t("plan")
+        stream, raw = items[0]["stream"], items[0]["raw"]
+        for it in items[1:]:
+            if it["raw"] != raw:
+                stream.wait_event(it["ready"])
+        t("stream waits")
+        err = local_launch(outs, xs, n, rows, row_bytes,
+                           int(plan.path == "bulk"), plan.unit, plan.lanes,
+                           plan.band_rows, plan.blocks, index, raw)
+        t("launch")
+        with lock:
+            counts["ring_exchange"] += 2  # by dtype and by path
+        if err:
+            _native.check(err, "ring_exchange launch")
+        t("count and check")
+        done = torch.cuda.Event()
+        done.record(stream)
+        t("done event")
+
+    def k4_before(t):
+        t.start()
+        _native.lib("ring_exchange")
+        t("library lock")
+        n = len(items)
+        x0 = items[0]["x"]
+        rows, cols = x0.shape
+        runs = ici._device_runs(items)
+        devices = [items[run[0]]["x"].device for run in runs]
+        t("device runs")
+        with lock:
+            min(ici._SMS.get(d.index, 0) for d in devices)
+        t("residency under the lock")
+        state.epoch += 1
+        outs = _native.pointer_array([it["out"] for it in items])
+        xs = _native.pointer_array([it["x"] for it in items])
+        flags = (ctypes.c_void_p * n)(*([0] * n))
+        t("pointer arrays")
+        plan = ici._ring_plan(rows, cols * x0.element_size(), n,
+                              ici._sms(x0.get_device()),
+                              align=ici._alignment(list(outs) + list(xs)))
+        stream = items[0]["stream"]
+        for it in items:
+            stream.wait_event(it["ready"])
+        t("stream waits")
+        with torch.cuda.device(devices[0]):
+            t("device context")
+            err = local_launch(outs, xs, n, rows, cols * x0.element_size(),
+                               int(plan.path == "bulk"), plan.unit,
+                               plan.lanes, plan.band_rows, plan.blocks,
+                               devices[0].index, stream.cuda_stream)
+            t("launch")
+        t("device context")
+        with lock:
+            counts["ring_exchange"] += 1
+        _native.check(err, "ring_exchange launch")
+        t("count and check")
+        done = torch.cuda.Event()
+        done.record(stream)
+        t("done event")
+        return flags
+
+    out = {}
+    for name, route in (("p1_lean", p1_lean), ("p1_before", p1_before),
+                        ("p2_lean", p2_lean), ("k4_lean", k4_lean),
+                        ("k4_before", k4_before)):
+        ticks = _Ticks()
+        route(ticks)  # warm-up
+        ticks = _Ticks()
+        for _ in range(calls):
+            route(ticks)
+        torch.cuda.synchronize()
+        steps = ticks.per_call_us(calls)
+        out[name] = {"sum_us": round(sum(steps.values()), 3), **steps}
+    ticks = _Ticks()
+    for _ in range(calls):
+        ticks.start()
+        ticks("tick")
+    out["tick_us"] = ticks.per_call_us(calls)["tick"]
+    for name, fn in (("probe_double", lambda: fused.probe_double(x)),
+                     ("philox_bits",
+                      lambda: fused.philox_bits(seed, PROBE_SHAPE)),
+                     ("torch_mul", lambda: torch.mul(x, 2.0)),
+                     ("ring_launch_all",
+                      lambda: ici._launch_all(state, items))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        out[f"{name}_wrapper_us"] = round(
+            (time.perf_counter_ns() - t0) / calls / 1e3, 3)
+        torch.cuda.synchronize()
+    compare("K4 after the host breakdown", [it["out"] for it in items],
+            ici._ring_exchange_plain(chunks))
+    say("host-breakdown", calls=calls,
+        k4=f"[{SHARD_S},{N // SHARDS}] int32 x {SHARDS} on cuda:0, a stream "
+           "each; the route before rebuilt around the same local kernel",
+        us=json.dumps(out).replace(" ", ""))
+    return out
+
+
+def k4_sass():
+    """The SASS of K4's two kernels just built: the local kernel moves its
+    bands with bulk copies (UBLKCP) and holds no flag wait, no system-scope
+    access or fence and no %globaltimer read; the peers kernel, which the
+    same patterns must find, holds all three."""
+    from round_tpu_torch.ops import _native
+    from round_tpu_torch.tools import sass_links
+
+    funcs = sass_links.functions(_native.build_dir() / "libring_exchange.so")
+    marks = {"bulk": r"UBLKCP", "system": r"\.SYS\b",
+             "globaltimer": r"GLOBALTIMER", "sleep": r"NANOSLEEP"}
+    found = {}
+    for kernel in ("ring_gather_local", "ring_gather_peers"):
+        name = next((f for f in funcs if kernel in f), None)
+        require(name is not None, f"no {kernel} in the SASS")
+        found[kernel] = {k: len(re.findall(v, funcs[name]))
+                         for k, v in marks.items()}
+    local, peers = found["ring_gather_local"], found["ring_gather_peers"]
+    say("K4-sass", local=json.dumps(local).replace(" ", ""),
+        peers=json.dumps(peers).replace(" ", ""))
+    require(local["bulk"] > 0 and local["system"] == 0
+            and local["globaltimer"] == 0 and local["sleep"] == 0,
+            f"ring_gather_local's SASS: {local}")
+    require(peers["system"] > 0 and peers["globaltimer"] > 0,
+            f"ring_gather_peers' SASS does not show its flags: {peers}")
 
 
 def sharded_phases(torch, gen):
@@ -599,6 +918,7 @@ def sharded_phases(torch, gen):
     from round_tpu_torch.parallel import ici, mesh as M
 
     dev = torch.device("cuda:0")
+    k4_sass()
     errs = k4_vs_plain(torch, gen)
 
     # -- the five families on a 2 x 2 mesh of cuda:0 -------------------------
@@ -637,6 +957,11 @@ def sharded_phases(torch, gen):
     for name in ("ring_exchange", "ring_exchange_i8"):
         require(fam_launches.get(name, 0) > 0,
                 f"the sharded families launched no {name} kernel")
+    require(fam_launches.get("ring_exchange_local", 0)
+            == fam_launches["ring_exchange"] + fam_launches["ring_exchange_i8"]
+            and "ring_exchange_peers" not in fam_launches,
+            "the sharded families' exchanges on one card did not all take "
+            "the local kernel")
 
     # -- the whole-run loop over 4 scenario shards ---------------------------
     loop_mesh = M.Mesh.line([dev] * SHARDS, M.SCENARIO_AXIS)
@@ -677,7 +1002,9 @@ def sharded_phases(torch, gen):
     got, ici_s = timed(lambda: M.run_hist_proc_sharded(
         rnd, st0, mix, SHARD_ROUNDS, mesh, exchange="ici"))
     k4_launches = fused.LAUNCHES["ring_exchange"]
-    require(k4_launches == SHARD_ROUNDS and M.COLLECTIVE["calls"] == 0,
+    require(k4_launches == SHARD_ROUNDS
+            and fused.LAUNCHES["ring_exchange_local"] == SHARD_ROUNDS
+            and M.COLLECTIVE["calls"] == 0,
             f"the sharded flagship launched K4 {k4_launches} times in "
             f"{SHARD_ROUNDS} rounds and called the library gather "
             f"{M.COLLECTIVE['calls']} times")
@@ -720,10 +1047,12 @@ def sharded_phases(torch, gen):
                                  f"[{FAM_S // 2},{(FAM_N // 2) * 11}] int8 "
                                  "p=2")):
         say("K4-time", kernel=row["name"], shape=shape,
-            launches=row["launches"], ms=round(row["ms"], 5),
-            issue_ms=round(row["issue_ms"], 5),
+            launches=row["launches"], path=f"{row['kernel']}/{row['path']}",
+            plan=json.dumps(row["plan"]).replace(" ", ""),
+            ms=round(row["ms"], 5), issue_ms=round(row["issue_ms"], 5),
             plain_ms=round(row["plain_ms"], 4),
             library_ms=round(row["library_ms"], 5),
+            library_issue_ms=round(row["library_issue_ms"], 5),
             library="torch.cat of the chunks, once per shard",
             bound_ms=f"{row['bound_ms']:.3g}", bound_by=row["bound_by"])
     ring_peers(torch, gen)
@@ -1409,27 +1738,37 @@ def main() -> None:
         lv_rows.append((ms, p_ms, bnd, by))
     lv_ms, lv_plain_ms, lv_bound, lv_by = lv_rows[-1]
 
-    # P1 and P2 at the bisect shape.  P1's plain version is x * 2.0, the
-    # same call as the library's torch.mul; no PyTorch call draws a keyed
-    # Philox stream, so P2 has no library time.
+    # P1 and P2 at the bisect shape, timed as K4 is: queued behind a sleep
+    # kernel (the card's time) and back to back (the host's issue time).
+    # P1's plain version is x * 2.0, the same call as the library's
+    # torch.mul, timed both ways too; no PyTorch call draws a keyed Philox
+    # stream, so P2 has no library time.
     x = torch.randn(PROBE_SHAPE, generator=gen, device=dev)
-    p1_ms, got = event_ms(lambda: fused.probe_double(x), reps=100)
+    p1_ms = queued_ms(torch, lambda: fused.probe_double(x), 100)
+    p1_issue_ms, got = event_ms(lambda: fused.probe_double(x), reps=100)
     p1_plain_ms, want = plain_ms(lambda: x * 2.0)
     require(torch.equal(got, want), "probe_double differs from x * 2")
-    p1_lib_ms, _ = event_ms(lambda: torch.mul(x, 2.0), reps=100)
+    p1_lib_ms = queued_ms(torch, lambda: torch.mul(x, 2.0), 100)
+    p1_lib_issue_ms, _ = event_ms(lambda: torch.mul(x, 2.0), reps=100)
     p1_bound, p1_by, _pipe = bound_ms(2 * 4 * x.numel(), 0)
-    say("P1-time", ms=round(p1_ms, 5), plain_ms=round(p1_plain_ms, 4),
-        library_ms=round(p1_lib_ms, 5), bound_ms=f"{p1_bound:.3g}",
+    say("P1-time", ms=round(p1_ms, 5), issue_ms=round(p1_issue_ms, 5),
+        plain_ms=round(p1_plain_ms, 4), library_ms=round(p1_lib_ms, 5),
+        library_issue_ms=round(p1_lib_issue_ms, 5),
+        library="torch.mul(x, 2.0)", bound_ms=f"{p1_bound:.3g}",
         bound_by=p1_by)
     m = PROBE_SHAPE[0] * PROBE_SHAPE[1]
-    p2_ms, got = event_ms(lambda: fused.philox_bits(seed, PROBE_SHAPE),
-                          reps=100)
+    p2_ms = queued_ms(torch, lambda: fused.philox_bits(seed, PROBE_SHAPE),
+                      100)
+    p2_issue_ms, got = event_ms(lambda: fused.philox_bits(seed, PROBE_SHAPE),
+                                reps=100)
     p2_plain_ms, want = plain_ms(
         lambda: fused._philox_bits_plain(seed, m, (0, 0, 0, 0)))
     compare("philox_bits at the bisect shape", [got.reshape(-1)], [want])
     p2_bound, p2_by, p2_pipe = bound_ms(8 + 4 * m, m / 4, PHILOX_OPS)
-    say("P2-time", ms=round(p2_ms, 5), plain_ms=round(p2_plain_ms, 4),
-        bound_ms=f"{p2_bound:.3g}", bound_by=p2_by, pipe=p2_pipe)
+    say("P2-time", ms=round(p2_ms, 5), issue_ms=round(p2_issue_ms, 5),
+        plain_ms=round(p2_plain_ms, 4), bound_ms=f"{p2_bound:.3g}",
+        bound_by=p2_by, pipe=p2_pipe)
+    host_breakdown(torch, x)
 
     # -- 8. K4 and the sharded paths ------------------------------------------
     ring_kernels = sharded_phases(torch, gen)
@@ -1489,14 +1828,15 @@ def main() -> None:
          "source": "round_tpu_torch/csrc/probe.cu",
          "replaces": "tools/tpu_bisect.py:31",
          "launches": bisect_launches["probe_double"], "max_abs_err": p1_err,
-         "ms": p1_ms, "plain_ms": p1_plain_ms, "bound_ms": p1_bound,
-         "bound_by": p1_by, "library_ms": p1_lib_ms},
+         "ms": p1_ms, "issue_ms": p1_issue_ms, "plain_ms": p1_plain_ms,
+         "bound_ms": p1_bound, "bound_by": p1_by, "library_ms": p1_lib_ms,
+         "library_issue_ms": p1_lib_issue_ms},
         {"name": "philox_bits", "route": "cuda",
          "source": "round_tpu_torch/csrc/probe.cu",
          "replaces": "tools/tpu_bisect.py:45",
          "launches": bisect_launches["philox_bits"], "max_abs_err": p2_err,
-         "ms": p2_ms, "plain_ms": p2_plain_ms, "bound_ms": p2_bound,
-         "bound_by": p2_by, "library_ms": None},
+         "ms": p2_ms, "issue_ms": p2_issue_ms, "plain_ms": p2_plain_ms,
+         "bound_ms": p2_bound, "bound_by": p2_by, "library_ms": None},
     ]
     kernels += ring_kernels
     for row in kernels:

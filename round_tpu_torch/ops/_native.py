@@ -6,6 +6,15 @@ into its own shared library, loaded with ``ctypes``.  The build runs at
 first use, all sources in parallel, into ``round_tpu_torch/_build/<key>/``
 where ``<key>`` hashes the sources and the flags, so an edited source
 rebuilds and an unchanged one loads.  Nothing here runs at import time.
+
+Two ways to reach a launch.  ``lib(name)`` returns the loaded library,
+behind a lock; K1-K3's wrappers take it, with a ``torch.cuda.device``
+context and the stream's ``cuda_stream``.  The lean route, for P1, P2 and
+K4: a wrapper binds the entry points it calls once (``bind``) and keeps
+them in a module global, passes the device index, and takes the current
+stream of that device from ``raw_stream``, with no ``Stream`` object, no
+device context and no lock; the C entry point makes the device current
+only when it is not.
 """
 
 from __future__ import annotations
@@ -53,12 +62,13 @@ _SIGNATURES = {
         "lv_loop_smem_bytes": ([_I], ctypes.c_size_t),
     },
     "probe": {
-        "probe_double_launch": ([_P, _P, _L, _P], _I),
-        "philox_bits_launch": ([_P, _P, _L] + [_U] * 4 + [_P], _I),
+        "probe_double_launch": ([_P, _P, _L, _I, _P], _I),
+        "philox_bits_launch": ([_P, _P, _L] + [_U] * 4 + [_I, _P], _I),
     },
     "ring_exchange": {
-        "ring_exchange_launch": ([_PP] * 3 + [_P] + [_I] * 7 + [_U, _L, _P],
-                                 _I),
+        "ring_gather_local_launch": ([_PP] * 2 + [_I] * 9 + [_P], _I),
+        "ring_gather_peers_launch": ([_PP] * 3 + [_P] + [_I] * 9
+                                     + [_U, _L, _I, _P], _I),
         "ring_exchange_max_blocks": ([_I], _I),
         "ring_enable_peer": ([_I, _I], _I),
     },
@@ -66,6 +76,7 @@ _SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_RAW_STREAM = None  # torch._C._cuda_getCurrentRawStream, at first use
 
 
 def _nvcc() -> str:
@@ -143,6 +154,25 @@ def lib(name: str) -> ctypes.CDLL:
                 getattr(so, fn).restype = restype
             _LIBS[name] = so
         return _LIBS[name]
+
+
+def bind(name: str, *functions: str) -> Tuple:
+    """The entry points `functions` of kernel `name`, built and loaded
+    first if needed, for a wrapper to keep in a module global."""
+    so = lib(name)
+    return tuple(getattr(so, fn) for fn in functions)
+
+
+def raw_stream(index: int) -> int:
+    """The current stream of CUDA device `index`, as the raw ``cudaStream_t``
+    a C entry point takes.  The binding exists only in CUDA builds of
+    PyTorch, so it is looked up at the first call, never at import."""
+    global _RAW_STREAM
+    if _RAW_STREAM is None:
+        import torch
+
+        _RAW_STREAM = torch._C._cuda_getCurrentRawStream
+    return _RAW_STREAM(index)
 
 
 def pointer_array(tensors) -> ctypes.Array:

@@ -73,6 +73,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from round_tpu_torch.ops import _native
 from round_tpu_torch.ops.mailbox import first_true
 
 _GOLD = 0x9E3779B9
@@ -96,9 +97,14 @@ LAUNCHES: Dict[str, int] = {
     "floodmin_loop": 0, "floodmin_loop_hw": 0,
     "benor_loop": 0, "benor_loop_hw": 0,
     "lv_loop": 0, "probe_double": 0, "philox_bits": 0,
-    # K4 (parallel/ici.py::ring_exchange): int32 codes, int8 bit-planes
+    # K4 (parallel/ici.py::ring_exchange): int32 codes, int8 bit-planes;
+    # and the same launches by path: one card, or distinct cards
     "ring_exchange": 0, "ring_exchange_i8": 0,
+    "ring_exchange_local": 0, "ring_exchange_peers": 0,
 }
+
+# P1's and P2's bound entry points (probe_double_launch, philox_bits_launch)
+_PROBE = None
 
 
 def reset_launches() -> None:
@@ -200,18 +206,18 @@ def _philox_bits_plain(seed: torch.Tensor, m: int, counter) -> torch.Tensor:
     return _i32(_philox_words(seed[0], seed[1], m, seed.device, counter))
 
 
-def _philox_bits_cuda(seed: torch.Tensor, m: int, counter) -> torch.Tensor:
-    from round_tpu_torch.ops import _native
-
-    so = _native.lib("probe")
-    key = seed.to(torch.int32).contiguous()
-    out = torch.empty((m,), dtype=torch.int32, device=seed.device)
-    with torch.cuda.device(seed.device):
-        stream = torch.cuda.current_stream(seed.device).cuda_stream
-        err = so.philox_bits_launch(key.data_ptr(), out.data_ptr(), m,
-                                    *[c & _M32 for c in counter], stream)
+def _philox_bits_cuda(seed: torch.Tensor, shape, counter) -> torch.Tensor:
+    launch = (_PROBE or _bind_probe())[1]
+    key = (seed if seed.dtype == torch.int32 and seed.is_contiguous()
+           else seed.to(torch.int32).contiguous())
+    out = key.new_empty(shape)
+    index = key.get_device()
+    err = launch(key.data_ptr(), out.data_ptr(), out.numel(),
+                 *[c & _M32 for c in counter], index,
+                 _native.raw_stream(index))
     LAUNCHES["philox_bits"] += 1
-    _native.check(err, "philox_bits launch")
+    if err:
+        _native.check(err, "philox_bits launch")
     return out
 
 
@@ -224,47 +230,54 @@ def philox_bits(seed: torch.Tensor, shape, counter=(0, 0, 0, 0)):
     e (row-major) is word e & 3 of Philox4x32-10(counter (c0 + (e >> 2),
     c1, c2, c3), key (seed[0], seed[1])).  The default counter base 0 is
     the stream the hw link draws read; another base serves the
-    known-answer vectors.  A CUDA seed launches csrc/probe.cu, a CPU seed
-    runs the plain version."""
-    seed = torch.as_tensor(seed)
-    if tuple(seed.shape) != (2,):
+    known-answer vectors.  A CUDA seed launches csrc/probe.cu through the
+    lean route (``_native``), a CPU seed runs the plain version."""
+    if not isinstance(seed, torch.Tensor):
+        seed = torch.as_tensor(seed)
+    if seed.shape != (2,):
         raise ValueError(f"philox_bits: seed of shape {tuple(seed.shape)}; "
                          "expected (2,)")
     shape = tuple(shape)
-    m = math.prod(shape)
-    counter = tuple(int(c) for c in counter)
+    counter = tuple(map(int, counter))
     if seed.is_cuda:
-        out = _philox_bits_cuda(seed, m, counter)
-    elif seed.device.type == "cpu":
-        out = _philox_bits_plain(seed, m, counter)
-    else:
-        raise ValueError(f"philox_bits: unsupported device {seed.device}")
-    return out.reshape(shape)
+        return _philox_bits_cuda(seed, shape, counter)
+    if seed.device.type == "cpu":
+        return _philox_bits_plain(seed, math.prod(shape),
+                                  counter).reshape(shape)
+    raise ValueError(f"philox_bits: unsupported device {seed.device}")
 
 
 def probe_double(x: torch.Tensor) -> torch.Tensor:
     """P1: ``2 * x`` for a float32 tensor, the port of
     tools/tpu_bisect.py::stage_pallas_min (the smallest kernel that proves
     the toolchain builds and launches).  A CUDA tensor launches
-    csrc/probe.cu; a CPU tensor takes the plain version."""
+    csrc/probe.cu through the lean route (``_native``): nothing but the
+    checks, the output, the launch and its count happens per call.  A CPU
+    tensor takes the plain version."""
     if x.dtype != torch.float32:
         raise ValueError(f"probe_double: dtype {x.dtype}; expected float32")
-    if x.device.type == "cpu":
-        return x * 2.0
     if not x.is_cuda:
+        if x.device.type == "cpu":
+            return x * 2.0
         raise ValueError(f"probe_double: unsupported device {x.device}")
-    from round_tpu_torch.ops import _native
-
-    so = _native.lib("probe")
+    launch = (_PROBE or _bind_probe())[0]
     x = x.contiguous()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = so.probe_double_launch(x.data_ptr(), out.data_ptr(), x.numel(),
-                                     stream)
+    index = x.get_device()
+    err = launch(x.data_ptr(), out.data_ptr(), x.numel(), index,
+                 _native.raw_stream(index))
     LAUNCHES["probe_double"] += 1
-    _native.check(err, "probe_double launch")
+    if err:
+        _native.check(err, "probe_double launch")
     return out
+
+
+def _bind_probe():
+    """P1's and P2's entry points, bound once (the lean route)."""
+    global _PROBE
+    _PROBE = _native.bind("probe", "probe_double_launch",
+                          "philox_bits_launch")
+    return _PROBE
 
 
 def _check_dot(dot: str) -> None:

@@ -11,15 +11,22 @@ active mask and bit-planes) through the K4 kernel, ``ring_exchange``:
 
   * round_tpu's kernel forwards chunks around a torus ring in p−1 dependent
     steps, because a TPU has only neighbour links.  The cards of one host
-    reach every peer in one hop, so here each shard PUSHES its own chunk
-    straight into slot ``me`` of every peer's output (p−1 remote writes plus
-    the local one): the same bytes as the ring (``ring_bytes_per_round``)
+    reach every peer in one hop, so here each shard's chunk goes straight
+    into slot ``me`` of every shard's output (p−1 remote writes plus the
+    local one): the same bytes as the ring (``ring_bytes_per_round``)
     without the chain.  The name stays so a reader finds the counterpart.
-  * arrival is signalled inside the kernel, as the TPU kernel's semaphores
-    do: flags written with release and polled with acquire at system scope,
-    stamped with an epoch that only grows (csrc/ring_exchange.cu).
-  * shards that share a card go in ONE launch (a block row per shard);
-    distinct cards get one launch each, after peer access is enabled.
+  * the kernel is picked by topology (``_launch_all``).  A ring whose
+    shards all lie on one device takes ``ring_gather_local``, one launch
+    for all shards, with no flags: each chunk is read once and written p
+    times, through TMA bulk copies where rows and pointers are 16-byte
+    aligned, else through registers (``_ring_plan`` says which, and cuts
+    the chunks into bands).  Shards on distinct cards take
+    ``ring_gather_peers``, one launch per card after peer access is
+    enabled, and signal arrival inside the kernel, as the TPU kernel's
+    semaphores do: flags written with release and polled with acquire at
+    system scope, stamped with an epoch that only grows
+    (csrc/ring_exchange.cu).  Launches count under the dtype's name and
+    under ``ring_exchange_local`` or ``ring_exchange_peers``.
 
 On CUDA shards ``exchange="ici"`` launches the kernel or raises; the plain
 version (``_ring_exchange_plain``: ``torch.cat``) runs only where the
@@ -33,41 +40,111 @@ TPU; the card's bound for K4 is computed by chip_smoke.py).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import json
 import threading
-from typing import Callable, List
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 import torch.utils._pytree as pytree
 
+from round_tpu_torch.ops import _native
 from round_tpu_torch.ops.fused import LAUNCHES
 from round_tpu_torch.parallel import mesh as meshmod
 
-#: block rows (gridDim.x) one shard's copy may use; bounds the flag array
+#: blocks (gridDim.x) one shard may use on the peers path; bounds the flags
 MAX_BLOCKS = 64
 #: most shards one exchange takes (the launch passes pointers by value)
 MAX_SHARDS = 64
-#: a launch may take this share of the blocks a card keeps resident, so
-#: that the rings of a (scenario × proc) mesh that share a card fit beside
-#: each other while each spins on its peers' flags
+#: a peers launch may take this share of the blocks a card keeps resident,
+#: so that the rings of a (scenario × proc) mesh that share a card fit
+#: beside each other while each spins on its peers' flags
 _RESIDENT_SHARE = 4
 #: nanoseconds a block waits for a peer's flag before it gives up
 _TIMEOUT_NS = 20_000_000_000
+#: bytes a band aims at, and the most one band buffer of the bulk path
+#: holds (csrc/ring_exchange.cu kMaxBandBytes; two buffers a block)
+_BAND_BYTES = 8192
+_MAX_BAND_BYTES = 16384
+#: blocks of a local launch for each SM of the card
+_BLOCKS_PER_SM = 4
+#: threads of a block: the register walk, and the bulk path's one warp
+_THREADS, _BULK_THREADS = 256, 32
 _LAUNCH_NAMES = {torch.int32: "ring_exchange", torch.int8: "ring_exchange_i8"}
 _LOCK = threading.Lock()
 _PEER_ENABLED = set()
-_RESIDENT = {}  # device index -> blocks of K4 the card keeps resident
+_RESIDENT = {}  # device index -> blocks of the peers kernel kept resident
+_SMS = {}  # device index -> streaming multiprocessors
+# K4's bound entry points (local and peers launches, the residency query,
+# peer access), once built
+_RING = None
 
 
 class _RingState:
-    """What one ring keeps between calls: per rank the arrival flags
-    ([p, MAX_BLOCKS] int32 on that rank's device, written by every peer)
-    and a status word the kernel sets when it gave up; and the epoch."""
+    """What one ring keeps between calls: on the peers path, per rank the
+    arrival flags ([p, MAX_BLOCKS] int32 on that rank's device, written by
+    every peer) and a status word the kernel sets when it gave up, and the
+    epoch (a ring on one device needs none of it); and the plan of its
+    last exchange."""
 
     def __init__(self, p: int):
         self.flags: List = [None] * p
         self.status: List = [None] * p
         self.epoch = 0
+        self.plan = None
+
+
+class RingPlan(NamedTuple):
+    """How K4 cuts one exchange (csrc/ring_exchange.cu)."""
+
+    kernel: str     # "local" (every shard on one device) or "peers"
+    path: str       # "bulk" (TMA bulk copies) or "register"
+    unit: int       # bytes one access moves: 16, 4 or 1 (bulk: 16)
+    lanes: int      # register path: lanes to a row, a power of two
+    band_rows: int  # rows of a band
+    bands: int      # bands of one shard's chunk
+    blocks: int     # local: blocks of the launch; peers: blocks a shard
+    threads: int    # threads of a block
+
+
+@functools.lru_cache(maxsize=256)
+def _ring_plan(rows: int, row_bytes: int, p: int, sms: int, *,
+               align: int = 16, peer_blocks: Optional[int] = None
+               ) -> RingPlan:
+    """The plan of one exchange of p chunks of [rows, row_bytes] bytes on a
+    card of `sms` SMs.  `align`: the largest power of two, up to 16, that
+    divides the address of every chunk and output.  `peer_blocks`: None
+    when every shard lies on one device (the local kernel), else the most
+    blocks a shard may keep resident (the peers kernel).
+
+    Units are the widest of 16, 4 and 1 bytes that divides the row and
+    `align` (the slot offset me * row_bytes and the pitch p * row_bytes
+    follow the row).  The local kernel takes the bulk path where that is
+    16 and a row fits a band buffer.  A band holds about _BAND_BYTES, and
+    fewer rows where that gives every SM _BLOCKS_PER_SM bands."""
+    if rows < 1 or row_bytes < 1 or not 1 <= p <= MAX_SHARDS:
+        raise ValueError(f"ring plan: rows={rows}, row_bytes={row_bytes}, "
+                         f"p={p}")
+    if rows * p * row_bytes >= 2**31:
+        raise ValueError(f"ring_exchange: {p} outputs of {rows} x "
+                         f"{p * row_bytes} bytes pass the kernel's 32-bit "
+                         "offsets")
+    unit = next(u for u in (16, 4, 1) if row_bytes % u == 0 and align >= u)
+    local = peer_blocks is None
+    bulk = local and unit == 16 and row_bytes <= _MAX_BAND_BYTES
+    per_band = max(1, _BAND_BYTES // row_bytes)
+    spread = (-(-rows * p // (sms * _BLOCKS_PER_SM)) if local
+              else -(-rows // peer_blocks))
+    band_rows = max(1, min(per_band, rows, spread))
+    bands = -(-rows // band_rows)
+    blocks = (min(p * bands, sms * _BLOCKS_PER_SM) if local
+              else max(1, min(peer_blocks, bands)))
+    per_row = row_bytes // unit
+    lanes = 1 if bulk else min(_THREADS, 1 << (per_row - 1).bit_length())
+    return RingPlan("local" if local else "peers",
+                    "bulk" if bulk else "register", unit, lanes, band_rows,
+                    bands, blocks, _BULK_THREADS if bulk else _THREADS)
 
 
 def _ring_exchange_plain(chunks) -> List[torch.Tensor]:
@@ -95,64 +172,126 @@ def _device_runs(items):
     return runs
 
 
-def _prepare_devices(so, devices) -> int:
-    """Enable peer access among `devices` (once per pair) and return the
-    fewest blocks of K4 any of them keeps resident (queried once per
-    card)."""
-    from round_tpu_torch.ops import _native
+def _bind_ring():
+    global _RING
+    _RING = _native.bind("ring_exchange", "ring_gather_local_launch",
+                         "ring_gather_peers_launch",
+                         "ring_exchange_max_blocks", "ring_enable_peer")
+    return _RING
 
+
+def _sms(index: int) -> int:
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
+
+
+def _alignment(pointers) -> int:
+    """The largest power of two, up to 16, dividing every pointer."""
+    bits = 16
+    for ptr in pointers:
+        bits |= ptr
+    return bits & -bits
+
+
+def _prepare_devices(state: _RingState, items, runs) -> int:
+    """For the peers kernel: enable peer access among the ring's devices
+    (once per pair), allocate each rank's flags and status word (once per
+    ring) and return the fewest blocks of the kernel any of the devices
+    keeps resident (queried once per card)."""
+    _, _, max_blocks, enable_peer = _RING or _bind_ring()
+    devices = [items[run[0]]["x"].device for run in runs]
     for d in devices:
         if d.index not in _RESIDENT:
-            _RESIDENT[d.index] = so.ring_exchange_max_blocks(d.index)
+            _RESIDENT[d.index] = max_blocks(d.index)
         if _RESIDENT[d.index] <= 0:
             raise RuntimeError(f"ring_exchange: the occupancy query failed "
                                f"on {d}")
     for a in devices:
         for b in devices:
             if a != b and (a.index, b.index) not in _PEER_ENABLED:
-                _native.check(so.ring_enable_peer(a.index, b.index),
+                _native.check(enable_peer(a.index, b.index),
                               f"peer access from {a} to {b}")
                 _PEER_ENABLED.add((a.index, b.index))
+    if state.flags[0] is None:
+        p = len(items)
+        for rank, it in enumerate(items):
+            dev = it["x"].device
+            state.flags[rank] = torch.zeros((p, MAX_BLOCKS),
+                                            dtype=torch.int32, device=dev)
+            state.status[rank] = torch.zeros((1,), dtype=torch.int32,
+                                             device=dev)
+        # the zeros are written on this thread's streams, the launches run
+        # on the shards' streams: let the zeros land first, once
+        for d in devices:
+            torch.cuda.synchronize(d)
     return min(_RESIDENT[d.index] for d in devices)
 
 
 def _launch_all(state: _RingState, items) -> List:
-    """Launch K4 for every shard of one exchange: one launch per device,
-    each on the stream of that device's first shard, after the streams of
-    ALL shards reached this call (their chunk is computed, their output is
-    allocated).  Returns, per rank, the event that follows its device's
-    launch."""
-    from round_tpu_torch.ops import _native
-
-    so = _native.lib("ring_exchange")
+    """Launch K4 for every shard of one exchange, after the streams of ALL
+    shards reached this call (their chunk is computed, their output is
+    allocated): one local launch when every shard lies on one device, else
+    one peers launch per device.  Each launch runs on the stream of its
+    device's first shard.  Returns, per rank, the event that follows its
+    device's launch, or None where the rank's stream is the launch's."""
+    local_launch, peers_launch, _, _ = _RING or _bind_ring()
     p = len(items)
     x0 = items[0]["x"]
-    S_l, cols = x0.shape
-    itemsize = x0.element_size()
-    runs = _device_runs(items)
-    devices = [items[run[0]]["x"].device for run in runs]
-    with _LOCK:
-        resident = _prepare_devices(so, devices)
-    work = S_l * cols * itemsize  # bytes of one chunk
-    most = max(len(run) for run in runs)
-    nb = max(1, min(MAX_BLOCKS, resident // (_RESIDENT_SHARE * most),
-                    -(-work // (16 * 256 * 4))))
-    state.epoch += 1
-    outs = _native.pointer_array([it["out"] for it in items])
-    xs = _native.pointer_array([it["x"] for it in items])
-    flags = _native.pointer_array(state.flags)
+    rows, cols = x0.shape
+    row_bytes = cols * x0.element_size()
+    out_ptrs = [it["out"].data_ptr() for it in items]
+    x_ptrs = [it["x"].data_ptr() for it in items]
+    outs = (ctypes.c_void_p * p)(*out_ptrs)
+    xs = (ctypes.c_void_p * p)(*x_ptrs)
+    align = _alignment(out_ptrs + x_ptrs)
     events = [None] * p
-    for run, device in zip(runs, devices):
-        stream = items[run[0]]["stream"]
-        for it in items:
-            stream.wait_event(it["ready"])
-        with torch.cuda.device(device):
-            err = so.ring_exchange_launch(
-                outs, xs, flags, state.status[run[0]].data_ptr(), S_l, cols,
-                itemsize, p, run[0], len(run), nb, state.epoch, _TIMEOUT_NS,
-                stream.cuda_stream)
+    index = x0.get_device()
+    if all(it["x"].get_device() == index for it in items):
+        plan = state.plan = _ring_plan(rows, row_bytes, p, _sms(index),
+                                       align=align)
+        stream = items[0]["stream"]
+        raw = items[0]["raw"]
+        for it in items[1:]:
+            if it["raw"] != raw:
+                stream.wait_event(it["ready"])
+        err = local_launch(outs, xs, p, rows, row_bytes,
+                           int(plan.path == "bulk"), plan.unit, plan.lanes,
+                           plan.band_rows, plan.blocks, index, raw)
         with _LOCK:
             LAUNCHES[_LAUNCH_NAMES[x0.dtype]] += 1
+            LAUNCHES["ring_exchange_local"] += 1
+        if err:
+            _native.check(err, "ring_exchange launch")
+        if any(it["raw"] != raw for it in items):
+            done = torch.cuda.Event()
+            done.record(stream)
+            events = [None if it["raw"] == raw else done for it in items]
+        return events
+    runs = _device_runs(items)
+    with _LOCK:
+        resident = _prepare_devices(state, items, runs)
+    most = max(len(run) for run in runs)
+    plan = state.plan = _ring_plan(
+        rows, row_bytes, p, _sms(index), align=align,
+        peer_blocks=max(1, min(MAX_BLOCKS,
+                               resident // (_RESIDENT_SHARE * most))))
+    state.epoch += 1
+    flags = _native.pointer_array(state.flags)
+    for run in runs:
+        first = items[run[0]]
+        stream = first["stream"]
+        for it in items:
+            stream.wait_event(it["ready"])
+        err = peers_launch(
+            outs, xs, flags, state.status[run[0]].data_ptr(), p, rows,
+            row_bytes, plan.unit, plan.lanes, plan.band_rows, plan.blocks,
+            run[0], len(run), state.epoch, _TIMEOUT_NS,
+            first["x"].get_device(), first["raw"])
+        with _LOCK:
+            LAUNCHES[_LAUNCH_NAMES[x0.dtype]] += 1
+            LAUNCHES["ring_exchange_peers"] += 1
         _native.check(err, "ring_exchange launch")
         done = torch.cuda.Event()
         done.record(stream)
@@ -183,11 +322,10 @@ def ring_exchange(x: torch.Tensor, *, axis: str, p: int) -> torch.Tensor:
     coordinates (round_tpu/parallel/ici.py::ring_exchange).
 
     CUDA shards launch K4 (csrc/ring_exchange.cu).  It is not round_tpu's
-    ring: every shard writes its chunk straight into its slot of every
-    peer's output, since a card reaches each peer in one hop, and waits in
-    the kernel until every peer's chunk has arrived.  The output is valid
-    on the calling thread's current stream.  CPU shards take the plain
-    version."""
+    ring: every chunk goes straight into its slot of every shard's output,
+    since a card reaches each peer in one hop; on distinct cards the kernel
+    waits until every peer's chunk has arrived.  The output is valid on the
+    calling thread's current stream.  CPU shards take the plain version."""
     if x.dim() != 2 or x.numel() == 0 or x.dtype not in _LAUNCH_NAMES:
         raise ValueError(f"ring_exchange: x of shape {tuple(x.shape)} and "
                          f"dtype {x.dtype}; expected a non-empty [S_l, cols] "
@@ -208,17 +346,13 @@ def ring_exchange(x: torch.Tensor, *, axis: str, p: int) -> torch.Tensor:
             if group.ring is None:
                 group.ring = _RingState(p)
     state = group.ring
-    if state.flags[me] is None:
-        state.flags[me] = torch.zeros((p, MAX_BLOCKS), dtype=torch.int32,
-                                      device=x.device)
-        state.status[me] = torch.zeros((1,), dtype=torch.int32,
-                                       device=x.device)
     stream = torch.cuda.current_stream(x.device)
     out = torch.empty((x.shape[0], p * x.shape[1]), dtype=x.dtype,
                       device=x.device)
     ready = torch.cuda.Event()
     ready.record(stream)
-    item = {"x": x, "out": out, "ready": ready, "stream": stream}
+    item = {"x": x, "out": out, "ready": ready, "stream": stream,
+            "raw": stream.cuda_stream}
 
     def leader(items):
         shapes = {(tuple(it["x"].shape), it["x"].dtype) for it in items}
@@ -230,7 +364,8 @@ def ring_exchange(x: torch.Tensor, *, axis: str, p: int) -> torch.Tensor:
     _, events = group.rendezvous(me, item, leader)
     # x stays alive until here; its memory is reused on this stream only
     # after the launch that read it
-    stream.wait_event(events[me])
+    if events[me] is not None:
+        stream.wait_event(events[me])
     return out
 
 

@@ -90,13 +90,22 @@ def draw_loop(sass: str) -> Optional[Dict]:
     return best
 
 
-def report(library: Path) -> List[Dict]:
-    """One entry per tensor-core kernel of a built library."""
+def functions(library: Path) -> Dict[str, str]:
+    """The SASS of every kernel of a built library, by its (mangled)
+    function name."""
     sass = subprocess.run([cuobjdump(), "-sass", str(library)],
                           capture_output=True, text=True, check=True).stdout
-    rows = []
+    out = {}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = func.split("\n", 1)[0].strip()
+        name, body = (func.split("\n", 1) + [""])[:2]
+        out[name.strip()] = body
+    return out
+
+
+def report(library: Path) -> List[Dict]:
+    """One entry per tensor-core kernel of a built library."""
+    rows = []
+    for name, func in functions(library).items():
         kernel = next((v for k, v in KERNELS.items() if k in name), None)
         loop = draw_loop(func) if kernel else None
         if loop is not None:

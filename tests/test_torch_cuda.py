@@ -5,8 +5,10 @@ card, deciding inside the test.  On the card, chip_smoke.py is the full
 check at n=1024; these are the quick per-kernel checks of K2, the three K1
 instances and K3 (hash mode), K2 and K1 in hw mode, the tensor-core count
 of K1 and K2 at n = 1008, in sided rounds, with receivers finishing early
-and with the one-hot in device memory, the probes P1 and P2, and K4 over
-shards of one card:
+and with the one-hot in device memory, the probes P1 and P2 (sizes that
+are not a multiple of 4, views off a 16-byte boundary), and K4 over
+shards of one card (its local kernel on both paths, the launches per
+path):
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -172,6 +174,22 @@ def test_probe_double_kernel_matches_plain(dev):
     assert torch.equal(got.cpu(), fused.probe_double(x.cpu()))
 
 
+@pytest.mark.parametrize("m", [1, 3, 5, 127, 4097, 128 * 128 + 2])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_probe_double_odd_sizes_and_offset_views(dev, m, offset):
+    """P1's scalar tail (m % 4 != 0) and its scalar path (a view that
+    starts 4 or 12 bytes past a 16-byte boundary)."""
+    base = torch.randn((m + offset,), generator=torch.Generator(device=dev)
+                       .manual_seed(m), device=dev)
+    x = base[offset:]
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = fused.LAUNCHES["probe_double"]
+    got = fused.probe_double(x)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["probe_double"] == before + 1
+    assert torch.equal(got, x * 2.0)
+
+
 KAT = [  # Random123's Philox4x32-10 known-answer vectors
     ((0, 0, 0, 0), (0, 0),
      (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
@@ -214,15 +232,101 @@ def test_ring_exchange_kernel_matches_plain(dev, p, dtype, shape):
         return torch.stack([ici.ring_exchange(x_l + i, axis="ring", p=p)
                             for i in range(3)])[None]
 
+    local = fused.LAUNCHES["ring_exchange_local"]
     got = mesh.shard_map(body, mesh.Mesh.line([dev] * p, "ring"),
                          in_specs=(mesh.P(None, "ring"),),
                          out_specs=mesh.P("ring"))(x)
     assert fused.LAUNCHES[name] == before + 3  # one launch for all shards
+    assert fused.LAUNCHES["ring_exchange_local"] == local + 3
     chunks = list(x.chunk(p, dim=1))
     for i in range(3):
         want = ici._ring_exchange_plain([c + i for c in chunks])
         for d in range(p):
             assert torch.equal(got[d, i], want[d])
+
+
+def _ring_on_card(dev, p, x, body):
+    return mesh.shard_map(body, mesh.Mesh.line([dev] * p, "ring"),
+                          in_specs=(mesh.P(None, "ring"),),
+                          out_specs=mesh.P("ring"))(x)
+
+
+@pytest.mark.parametrize("p", [2, 4, 8])
+@pytest.mark.parametrize("dtype,shape,path", [
+    (torch.int32, (2000, 256), "bulk"),   # the sharded flagship's chunk
+    (torch.int8, (8, 352), "bulk"),       # the lattice family's planes
+    (torch.int32, (37, 256), "bulk"),     # rows not a multiple of a band
+    (torch.int8, (5, 44), "register"),    # 44-byte rows
+    (torch.int32, (7, 250), "register"),
+    (torch.int8, (3, 7), "register"),
+])
+@pytest.mark.parametrize("offset", [False, True])
+def test_ring_local_paths_match_plain(dev, p, dtype, shape, path, offset):
+    """The local kernel on its bulk and register paths, and on chunks one
+    element past a 16-byte boundary (the register path), against the plain
+    version; the plan it took."""
+    g = torch.Generator(device=dev).manual_seed(p * 1000 + shape[1])
+    x = torch.randint(-100, 100, (shape[0], p * shape[1]), generator=g,
+                      device=dev, dtype=torch.int64).to(dtype)
+    plans = []
+
+    def body(x_l):
+        x_l = x_l.contiguous()
+        if offset:
+            flat = torch.empty(x_l.numel() + 1, dtype=dtype, device=dev)[1:]
+            x_l = flat.view_as(x_l).copy_(x_l)
+        out = ici.ring_exchange(x_l, axis="ring", p=p)
+        plans.append(mesh.axis_group("ring")[1].ring.plan)
+        return out[None]
+
+    got = _ring_on_card(dev, p, x, body)
+    want = ici._ring_exchange_plain(list(x.chunk(p, dim=1)))
+    for d in range(p):
+        assert torch.equal(got[d], want[d])
+    assert plans[0].kernel == "local"
+    assert plans[0].path == ("register" if offset else path)
+
+
+def test_ring_local_100_exchanges_count_per_path(dev):
+    """100 exchanges back to back over 4 shards of one card: 100 local
+    launches, none on the peers path, every output right."""
+    p, calls = 4, 100
+    g = torch.Generator(device=dev).manual_seed(100)
+    x = torch.randint(-2**20, 2**20, (64, p * 256), generator=g, device=dev,
+                      dtype=torch.int32)
+    before = dict(fused.LAUNCHES)
+
+    def body(x_l):
+        return torch.stack([ici.ring_exchange(x_l + i, axis="ring", p=p)
+                            for i in range(calls)])[None]
+
+    got = _ring_on_card(dev, p, x, body)
+    assert fused.LAUNCHES["ring_exchange_local"] \
+        == before["ring_exchange_local"] + calls
+    assert fused.LAUNCHES["ring_exchange"] == before["ring_exchange"] + calls
+    assert fused.LAUNCHES["ring_exchange_peers"] \
+        == before["ring_exchange_peers"]
+    chunks = list(x.chunk(p, dim=1))
+    for i in range(calls):
+        want = torch.cat([c + i for c in chunks], dim=1)
+        for d in range(p):
+            assert torch.equal(got[d, i], want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8])
+def test_ring_exchange_on_a_2x2_mesh(dev, dtype):
+    """Each ring of a 2 x 2 mesh of one card stays in its scenario row."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randint(-100, 100, (2 * 6, 2 * 48), generator=g, device=dev,
+                      dtype=torch.int64).to(dtype)
+    m = mesh.make_mesh(4, proc_shards=2, devices=[dev] * 4)
+    before = fused.LAUNCHES["ring_exchange_local"]
+    got = mesh.shard_map(
+        lambda x_l: ici.ring_exchange(x_l, axis=mesh.PROC_AXIS, p=2), m,
+        in_specs=(mesh.P(mesh.SCENARIO_AXIS, mesh.PROC_AXIS),),
+        out_specs=mesh.P(mesh.SCENARIO_AXIS, mesh.PROC_AXIS))(x)
+    assert torch.equal(got, torch.cat([x, x], dim=1))
+    assert fused.LAUNCHES["ring_exchange_local"] == before + 2  # two rings
 
 
 @pytest.mark.parametrize("family", ici.FAMILIES)
