@@ -14,9 +14,11 @@ TPU's hardware PRNG):
                        counted on the tensor cores: csrc/count_mma.cuh)
   otr_loop(_hw)        K1, csrc/hist_loop.cu, OTR instance (the whole run,
                        counted on the tensor cores)
-  floodmin_loop(_hw)   K1, csrc/hist_loop.cu, FloodMin instance
+  floodmin_loop(_hw)   K1, csrc/hist_loop.cu, FloodMin instance (per-side
+                       minima, or chunks of 16 drawn links per lane)
   benor_loop(_hw)      K1, csrc/hist_loop.cu, Ben-Or instance (tensor cores)
-  lv_loop              K3, csrc/lv_loop.cu (the whole LastVoting run)
+  lv_loop              K3, csrc/lv_loop.cu (the whole LastVoting run, a
+                       warp per scenario)
   ring_exchange(_i8)   K4, csrc/ring_exchange.cu (the sharded engines'
                        all-gather: int32 codes, int8 bit-planes)
   probe_double         P1, csrc/probe.cu (the bisect tool's o = 2 x)
@@ -38,7 +40,9 @@ Phases, each printed as one line:
                    n=1024 x 64, n=1000 and n=1008 (K3: n=1024 and n=1000)
                    scenarios of the four-family mix
                    with the p8 grid 0..256 (blackout rows included),
-                   FloodMin at V=16 and V=1000, Ben-Or over 12 rounds,
+                   FloodMin at V=16 and V=1000 (and with 8 and 12 sides,
+                   per-side minima and the chunked walk, both streams),
+                   Ben-Or over 12 rounds,
                    LastVoting over 20 rounds with the partition healing
                    mid-run; the public run_floodmin_loop, run_benor_loop
                    and lv_loop on the card against the CPU
@@ -63,18 +67,23 @@ Phases, each printed as one line:
   bisect           python -m round_tpu_torch.tools.bisect: every stage ok,
                    each in its own process, with the launches it reports
   K*-time, P*-time each kernel's time at its path's shape (K3 also at
-                   n=1024 x 10,000 x 40 rounds), its plain version's time,
+                   n=1024 x 10,000 x 40 rounds; FloodMin also at the
+                   flagship's widths, n=1024 x 10,000, V=16, the four-family
+                   mix: K1-FloodMin-wide-time), its plain version's time,
                    its bound and what bounds it (rows that draw links also
                    the bound of a walk that compares each link on its
                    own); K1 at the flagship shape timed again after its
                    plain versions, with nvidia-smi's SM clock, power,
                    temperature and throttle reasons read during each;
-                   P1 and P2 (like K4) queued behind a sleep kernel (the
-                   card's time) and back to back (the host's issue time),
-                   torch.mul beside P1 timed both ways
-  host-breakdown   the host's steps of one P1 call and of one one-card K4
-                   exchange, each timed over 10,000 calls, on the lean
-                   launch route and on the route before it
+                   P1, P2, K2, K3 and FloodMin (like K4) queued behind a
+                   sleep kernel (the card's time) and back to back (the
+                   host's issue time; K2, K3 and FloodMin also the host's
+                   wall time a call, host_ms), torch.mul beside P1 timed
+                   both ways
+  host-breakdown   the host's steps of one P1 call, one P2 call, one
+                   one-card K4 exchange and one K3 call at the lv rung's
+                   shape, each timed over 10,000 calls, on the lean launch
+                   route and on the route before it
   K1-totals        K1 on the flagship's partition family alone (p8 = 0,
                    five sided rounds): two sides counted by per-side
                    totals against nine, counted by the product
@@ -107,9 +116,10 @@ sharded phases alone; with ``--only peers`` just K4-vs-plain and ring-peers
 Then the card's name and power limit as nvidia-smi reports them, a
 {"kernels": [...]} line (per kernel: launches on its path, max_abs_err
 against its plain version, ms, plain_ms, bound_ms, bound_by, library_ms;
-for the tensor-core kernels also sass_per_link; for P1, P2 and K4 also
-issue_ms, the time from one call to the next issued back to back, and
-for K4 the kernel and path it took)
+for the tensor-core kernels also sass_per_link; for P1, P2, K2, K3, K4
+and FloodMin also issue_ms, the time from one call to the next issued
+back to back; for K4 the kernel and path it took; for FloodMin its wide
+row and for K3 its rung's row)
 and last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 N}}.  Any failure raises and the script exits non-zero without the last
 line.  It needs the round_tpu_torch package beside it and a CUDA card; it
@@ -316,6 +326,13 @@ def hashed(mix):
     return ((mix.p8 > 0) & (mix.p8 < 256)).to(torch.float64)
 
 
+def loop_bytes(S: int, n: int, outputs: int) -> int:
+    """Bytes a K1 or K3 run must move: x0 and side (int32) and the crash set
+    (bool) read, `outputs` int32 [S, n] outputs written, six [S] int32
+    scalars read."""
+    return S * n * (4 * 2 + 1 + 4 * outputs) + 4 * 6 * S
+
+
 def loop_links(mix, dround, rounds: int, linger: int) -> float:
     """Links (i -> j, i != j) whose hash a K1 run needed: for every round and
     every scenario with 0 < p8 < 256, each sender times each receiver still
@@ -495,6 +512,21 @@ def queued_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def card_times(torch, fn, reps):
+    """(ms, issue_ms, host_ms, last result) of fn(): its time on the card
+    (`reps` calls queued behind a sleep kernel), the time from one call to
+    the next issued back to back (CUDA events), and the host's wall time
+    per call without a synchronise (the launch route's cost)."""
+    ms = queued_ms(torch, fn, reps)
+    issue_ms, out = event_ms(fn, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms, issue_ms, host_ms, out
+
+
 def ring_rows(torch, name, chunks, launches, err, reps=50, link_rate=None):
     """One K4 entry of the kernels line: its time on the card and issued
     back to back, the path it took, its plain, library and bound times on
@@ -662,8 +694,9 @@ class _Ticks:
 
 def host_breakdown(torch, x, calls=BREAKDOWN_CALLS):
     """The host's steps of one P1 call (on x), of one P2 call at the
-    bisect shape and of one one-card K4 exchange (the sharded flagship's four [2,000, 256] int32 chunks, a
-    stream each, as shard_map gives them), each step timed with
+    bisect shape, of one one-card K4 exchange (the sharded flagship's four
+    [2,000, 256] int32 chunks, a stream each, as shard_map gives them) and
+    of one K3 call at the lv rung's shape, each step timed with
     perf_counter_ns over `calls` calls, on the lean route the wrappers take
     and on the route they took before (the device context, the Stream
     object, the library's lock, the flags' pointers), which the script
@@ -672,14 +705,15 @@ def host_breakdown(torch, x, calls=BREAKDOWN_CALLS):
     from round_tpu_torch.ops import _native, fused
     from round_tpu_torch.parallel import ici
 
-    counts = {"probe_double": 0, "philox_bits": 0, "ring_exchange": 0}
+    counts = {"probe_double": 0, "philox_bits": 0, "ring_exchange": 0,
+              "lv_loop": 0}
 
     def p1_lean(t):
         t.start()
         if x.dtype != torch.float32 or not x.is_cuda:
             raise ValueError("probe_double")
         t("checks")
-        launch = (fused._PROBE or fused._bind_probe())[0]
+        launch = fused._entries(*fused._PROBE_ENTRIES)[0]
         t("bound entry")
         xc = x.contiguous()
         t("contiguous")
@@ -733,7 +767,7 @@ def host_breakdown(torch, x, calls=BREAKDOWN_CALLS):
         if not sd.is_cuda:
             raise ValueError("philox_bits")
         t("checks and shape")
-        launch = (fused._PROBE or fused._bind_probe())[1]
+        launch = fused._entries(*fused._PROBE_ENTRIES)[1]
         t("bound entry")
         key = (sd if sd.dtype == torch.int32 and sd.is_contiguous()
                else sd.to(torch.int32).contiguous())
@@ -842,10 +876,96 @@ def host_breakdown(torch, x, calls=BREAKDOWN_CALLS):
         t("done event")
         return flags
 
+    # K3 at the lv rung's shape (crash mix, n=256 x 256, 16 rounds): the
+    # lean route _lv_loop_cuda takes, and the route before rebuilt around
+    # the same kernel (the library's lock, its shared-memory query on every
+    # call, each input converted to int32, the bool crash set too, a device
+    # context and a Stream object, nine output allocations and their
+    # pointer array; the C side's per-launch cudaFuncSetAttribute of that
+    # route is not rebuilt)
+    from round_tpu_torch.apps import ladder
+    from round_tpu_torch.engine import fast
+
+    lgen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    ln, ls, lrounds = 256, 256, 16
+    lmix = ladder._crash_mix(lgen, ls, ln, ln // 32, dev)
+    lx0 = torch.randint(0, 64, (ln,), generator=lgen, device=dev,
+                        dtype=torch.int32).expand(ls, ln).contiguous()
+    largs = (lx0, *fast._mix_args(lmix))
+    lbuf = torch.empty((9, ls, ln), dtype=torch.int32, device=dev)
+
+    def k3_lean(t):
+        t.start()
+        S, n = largs[0].shape
+        if not fused.lv_key_fits(n, lrounds):
+            raise ValueError("lv_loop key")
+        t("checks")
+        launch, smem_bytes = fused._entries(
+            "lv_loop", "lv_loop_launch", "lv_loop_smem_bytes")
+        t("bound entries")
+        if fused._smem(smem_bytes, n) > fused._MAX_SMEM:
+            raise ValueError("lv_loop smem")
+        t("smem (cached)")
+        x0, side, *scalars = fused._kernel_inputs(
+            largs[0].device, S, n, (largs[0], largs[2]), largs[3:])
+        crashed = fused._crash_bytes(largs[1], x0.device, S, n)
+        t("inputs")
+        out = x0.new_empty((9, S, n), dtype=torch.int32)
+        t("new_empty")
+        index = x0.get_device()
+        ptrs = [x0.data_ptr(), crashed.data_ptr(), side.data_ptr(),
+                *[a.data_ptr() for a in scalars]]
+        t("pointers")
+        raw = _native.raw_stream(index)
+        t("raw stream")
+        err = launch(*ptrs, out.data_ptr(), S, n, lrounds, index, raw)
+        t("launch")
+        counts["lv_loop"] += 1
+        if err:
+            _native.check(err, "lv_loop launch")
+        t("count and check")
+        out.unbind(0)
+        t("unbind")
+
+    def k3_before(t):
+        t.start()
+        so = _native.lib("lv_loop")
+        t("library lock")
+        S, n = largs[0].shape
+        smem = so.lv_loop_smem_bytes(n)
+        if smem > fused._MAX_SMEM:
+            raise ValueError("lv_loop smem")
+        t("smem query")
+        ins = []
+        for a, shape in zip(largs, [(S, n)] * 3 + [(S,)] * 6):
+            if a.device != largs[0].device or tuple(a.shape) != shape:
+                raise ValueError("lv_loop input")
+            ins.append(a.to(torch.int32).contiguous())
+        t("inputs")
+        outs = [torch.empty((S, n), dtype=torch.int32, device=dev)
+                for _ in range(9)]
+        _native.pointer_array(outs)
+        t("nine outputs")
+        with torch.cuda.device(largs[0].device):
+            t("device context")
+            stream = torch.cuda.current_stream(largs[0].device).cuda_stream
+            t("Stream object")
+            # the kernel reads the crash set as bytes: the bool input
+            ptrs = [a.data_ptr() for a in ins]
+            ptrs[1] = largs[1].data_ptr()
+            err = so.lv_loop_launch(*ptrs, lbuf.data_ptr(), S, n, lrounds,
+                                    largs[0].device.index, stream)
+            t("launch")
+        t("device context")
+        counts["lv_loop"] += 1
+        _native.check(err, "lv_loop launch")
+        t("count and check")
+
     out = {}
     for name, route in (("p1_lean", p1_lean), ("p1_before", p1_before),
                         ("p2_lean", p2_lean), ("k4_lean", k4_lean),
-                        ("k4_before", k4_before)):
+                        ("k4_before", k4_before), ("k3_lean", k3_lean),
+                        ("k3_before", k3_before)):
         ticks = _Ticks()
         route(ticks)  # warm-up
         ticks = _Ticks()
@@ -863,6 +983,8 @@ def host_breakdown(torch, x, calls=BREAKDOWN_CALLS):
                      ("philox_bits",
                       lambda: fused.philox_bits(seed, PROBE_SHAPE)),
                      ("torch_mul", lambda: torch.mul(x, 2.0)),
+                     ("lv_loop", lambda: fused._lv_loop_cuda(*largs,
+                                                             lrounds)),
                      ("ring_launch_all",
                       lambda: ici._launch_all(state, items))):
         fn()
@@ -875,9 +997,14 @@ def host_breakdown(torch, x, calls=BREAKDOWN_CALLS):
         torch.cuda.synchronize()
     compare("K4 after the host breakdown", [it["out"] for it in items],
             ici._ring_exchange_plain(chunks))
+    compare("K3 after the host breakdown", lbuf.unbind(0),
+            fused._lv_loop_plain(*largs, lrounds))
     say("host-breakdown", calls=calls,
         k4=f"[{SHARD_S},{N // SHARDS}] int32 x {SHARDS} on cuda:0, a stream "
            "each; the route before rebuilt around the same local kernel",
+        k3=f"lv rung, n={ln} x {ls} x {lrounds} crash mix; the route before "
+           "rebuilt around the same kernel, less its per-launch "
+           "cudaFuncSetAttribute",
         us=json.dumps(out).replace(" ", ""))
     return out
 
@@ -1260,12 +1387,37 @@ def main() -> None:
             f"{run.__name__} on the card vs the CPU",
             [getattr(got[0], f) for f in fields] + list(got[1:]),
             [getattr(want[0], f) for f in fields] + list(want[1:])))
+    # FloodMin's per-side minima take up to eight sides; more take the
+    # chunked walk with every link kept: 8 and 12 sides, healing at round
+    # 3, payloads outside [0, V) among them, both streams
+    algo_fm = fused.FloodMinLoop(num_values=16, f=2)
+    many_sides_hw_err = 0.0
+    for sides in (8, 12):
+        for n, S in CHECK_SHAPES:
+            mix, x0 = loop_inputs(n, S, 16, heal_round=3)
+            mix = mix.replace(side=torch.randint(
+                0, sides, (S, n), generator=gen, device=dev,
+                dtype=torch.int32))
+            x0 = torch.randint(-1, 18, (S, n), generator=gen, device=dev,
+                               dtype=torch.int32)
+            args = (x0, *fast._mix_args(mix))
+            for mode in ("hash", "hw"):
+                name = fused._launch_name("floodmin_loop", mode)
+                err = compare(
+                    f"{name} {sides} sides n={n}",
+                    fused._hist_loop_cuda(algo_fm, *args, 5, mode),
+                    fused._hist_loop_plain(algo_fm, *args, 5, mode))
+                if mode == "hash":
+                    errs["floodmin_loop"] = max(errs["floodmin_loop"], err)
+                else:
+                    many_sides_hw_err = max(many_sides_hw_err, err)
     say("K1-FloodMin-vs-plain", n=f"{N},1000,1008", S=f"{S_CHECK},7,7",
         rounds=6,
         V="16,1000", p8=",".join(map(str, P8_GRID)),
-        cases="standard_mix + p8 grid, plus run_floodmin_loop vs CPU",
+        cases="standard_mix + p8 grid, plus run_floodmin_loop vs CPU; 8 and "
+              "12 sides (hash and hw), payloads -1..17 at V=16",
         outputs=5, tolerance=0, max_abs_err=errs["floodmin_loop"],
-        equal=True)
+        hw_sides_max_abs_err=many_sides_hw_err, equal=True)
     say("K1-BenOr-vs-plain", n=f"{N},1000,1008", S=f"{S_CHECK},7,7",
         rounds=12,
         p8=",".join(map(str, P8_GRID)),
@@ -1308,7 +1460,7 @@ def main() -> None:
         p2_max_abs_err=p2_err, known_answers=len(PHILOX_KAT), equal=True)
 
     hw_err = {"hist_exchange_hw": 0.0, "otr_loop_hw": 0.0,
-              "floodmin_loop_hw": 0.0, "benor_loop_hw": 0.0}
+              "floodmin_loop_hw": many_sides_hw_err, "benor_loop_hw": 0.0}
     hw_algos = ((fused.OtrLoop(num_values=V, after_decision=2),
                  PARITY_ROUNDS, V),
                 (fused.FloodMinLoop(num_values=16, f=2), 6, 16),
@@ -1533,7 +1685,7 @@ def main() -> None:
     (k1_ms, out), k1_smi = k1_timed("hash")
     (k1hw_ms, out_hw), k1hw_smi = k1_timed("hw")
     k1_links = loop_links(mix, out[5], ROUNDS, linger=1)
-    k1_bytes = 4 * S_FLAG * N * (3 + 6) + 4 * 6 * S_FLAG
+    k1_bytes = loop_bytes(S_FLAG, N, 6)
     k1_bound, k1_by, k1_pipe = bound_ms(k1_bytes, k1_links)
     k1_bound_walk = bound_ms(k1_bytes, k1_links, HASH_OPS_WALK)[0]
     (k1_plain_ms, plain), plain_smi = sampled(lambda: plain_ms(
@@ -1624,8 +1776,8 @@ def main() -> None:
     k2_rows = {}
     for mode, ops, walk in (("hash", HASH_OPS, HASH_OPS_WALK),
                             ("hw", HW_OPS, HW_OPS_WALK)):
-        k2m_ms, got = event_ms(
-            lambda: fused._hist_exchange_cuda(*k2_args, mode), reps=5)
+        k2m_ms, k2m_issue, k2m_host, got = card_times(
+            torch, lambda: fused._hist_exchange_cuda(*k2_args, mode), 20)
         k2m_plain_ms, want = plain_ms(
             lambda: fused._hist_exchange_plain(*k2_args, mode))
         compare(f"K2 ({mode}) at the per-round shape", [got], [want])
@@ -1644,13 +1796,15 @@ def main() -> None:
                 f"the bmm yardstick disagrees with K2 ({mode})")
         del keep, lib_out
         say("K2-time" if mode == "hash" else "K2-hw-time",
-            ms=round(k2m_ms, 3), plain_ms=round(k2m_plain_ms, 1),
+            ms=round(k2m_ms, 4), issue_ms=round(k2m_issue, 4),
+            host_ms=round(k2m_host, 4), plain_ms=round(k2m_plain_ms, 1),
             bound_ms=round(bnd, 4), bound_by=by, pipe=pipe,
             walk_bound_ms=round(walk_ms, 4),
             bytes_ms=round(k2_bytes / HBM_BYTES_PER_S * 1e3, 4),
             library_ms=round(lib_m_ms, 3), drawn_links=f"{k2_links:.4g}")
-        k2_rows[mode] = (k2m_ms, k2m_plain_ms, bnd, by, lib_m_ms)
-    k2_ms, k2_plain_ms, k2_bound, k2_by, lib_ms = k2_rows["hash"]
+        k2_rows[mode] = (k2m_ms, k2m_plain_ms, bnd, by, lib_m_ms, k2m_issue,
+                         k2m_host)
+    k2_ms, k2_plain_ms, k2_bound, k2_by, lib_ms = k2_rows["hash"][:5]
 
     # K1 FloodMin at its rung's shape (crash mix: p8 = 0, nothing hashed)
     fgen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -1660,11 +1814,11 @@ def main() -> None:
                        dtype=torch.int32).expand(S, n).contiguous()
     algo_fm = fused.FloodMinLoop(num_values=Vf, f=f)
     args = (x0, *fast._mix_args(mix))
-    fm_bytes = 4 * S * n * (3 + 5) + 4 * 6 * S
+    fm_bytes = loop_bytes(S, n, 5)
     fm_rows = {}
     for mode, ops in (("hash", HASH_OPS), ("hw", HW_OPS)):
-        ms, out = event_ms(lambda: fused._hist_loop_cuda(
-            algo_fm, *args, rounds, mode), reps=20)
+        ms, issue, host, out = card_times(torch, lambda: fused._hist_loop_cuda(
+            algo_fm, *args, rounds, mode), 20)
         p_ms, plain = plain_ms(
             lambda: fused._hist_loop_plain(algo_fm, *args, rounds, mode))
         compare(f"floodmin_loop ({mode}) at the rung's shape", out, plain)
@@ -1674,10 +1828,40 @@ def main() -> None:
         say("K1-FloodMin-time" if mode == "hash" else "K1-FloodMin-hw-time",
             n=n, S=S, V=Vf, rounds=rounds,
             launches=rung_launches["floodmin"].get(name, 0),
-            ms=round(ms, 4), plain_ms=round(p_ms, 2),
-            bound_ms=round(bnd, 5), bound_by=by, pipe=pipe,
+            ms=round(ms, 5), issue_ms=round(issue, 5), host_ms=round(host, 5),
+            plain_ms=round(p_ms, 2), bound_ms=round(bnd, 5), bound_by=by,
+            pipe=pipe, drawn_links=f"{links:.4g}")
+        fm_rows[mode] = (ms, p_ms, bnd, by, issue, host)
+
+    # K1 FloodMin at the flagship's widths on the four-family mix (its iid
+    # omission rows draw links), V=16, f=2: plain on the first S_PLAIN_HW
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    n, S, f, Vf = N, S_FLAG, 2, V
+    rounds = f + 2  # every lane decides in round f + 1
+    mix = fast.standard_mix(fgen, S, n, p_drop=P_DROP, device=dev)
+    x0 = torch.randint(0, Vf, (n,), generator=fgen, device=dev,
+                       dtype=torch.int32).expand(S, n).contiguous()
+    algo_fmw = fused.FloodMinLoop(num_values=Vf, f=f)
+    args = (x0, *fast._mix_args(mix))
+    cut = slice(0, S_PLAIN_HW)
+    fmw_bytes = loop_bytes(S, n, 5)
+    for mode, ops in (("hash", HASH_OPS), ("hw", HW_OPS)):
+        ms, issue, host, out = card_times(torch, lambda: fused._hist_loop_cuda(
+            algo_fmw, *args, rounds, mode), 3)
+        p_ms, plain = plain_ms(lambda: fused._hist_loop_plain(
+            algo_fmw, *(a[cut] for a in args), rounds, mode))
+        compare(f"floodmin_loop ({mode}) at n={n} x {S} (first "
+                f"{S_PLAIN_HW} scenarios)", [o[cut] for o in out], plain)
+        links = loop_links(mix, out[-1], rounds, linger=0)
+        bnd, by, pipe = bound_ms(fmw_bytes, links, ops)
+        say("K1-FloodMin-wide-time" if mode == "hash"
+            else "K1-FloodMin-wide-hw-time", n=n, S=S, V=Vf, rounds=rounds,
+            mix="standard", ms=round(ms, 5), issue_ms=round(issue, 5),
+            host_ms=round(host, 5), plain_ms=round(p_ms, 2),
+            plain_scenarios=S_PLAIN_HW, bound_ms=round(bnd, 5), bound_by=by,
+            pipe=pipe, bytes_ms=round(fmw_bytes / HBM_BYTES_PER_S * 1e3, 5),
             drawn_links=f"{links:.4g}")
-        fm_rows[mode] = (ms, p_ms, bnd, by)
+        fm_rows[mode + "-wide"] = (ms, p_ms, bnd, by, issue, host)
 
     # K1 Ben-Or at its rung's shape (iid omission at p8 = 13)
     bgen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -1687,7 +1871,7 @@ def main() -> None:
         torch.int32).expand(S, n).contiguous()
     algo_bo = fused.BenOrLoop()
     args = (x0, *fast._mix_args(mix))
-    bo_bytes = 4 * S * n * (3 + 7) + 4 * 6 * S
+    bo_bytes = loop_bytes(S, n, 7)
     bo_rows = {}
     for mode, ops, walk in (("hash", HASH_OPS, HASH_OPS_WALK),
                             ("hw", HW_OPS, HW_OPS_WALK)):
@@ -1721,22 +1905,23 @@ def main() -> None:
         x0 = torch.randint(0, 64, (n,), generator=lgen, device=dev,
                            dtype=torch.int32).expand(S, n).contiguous()
         args = (x0, *fast._mix_args(mix))
-        ms, out = event_ms(lambda: fused._lv_loop_cuda(*args, rounds),
-                           reps=reps)
+        ms, issue, host, out = card_times(
+            torch, lambda: fused._lv_loop_cuda(*args, rounds), reps)
         p_ms, plain = plain_ms(lambda: fused._lv_loop_plain(*args, rounds))
         compare(f"lv_loop at n={n} x {S} x {rounds}", out, plain)
         links = lv_links(mix, out[8], rounds)
-        nbytes = 4 * S * n * (3 + 9) + 4 * 6 * S
+        nbytes = loop_bytes(S, n, 9)
         bnd, by, pipe = bound_ms(nbytes, links)
         say("K3-time", n=n, S=S, rounds=rounds, mix=kind,
-            launches=rung_launches["lv"].get("lv_loop", 0), ms=round(ms, 4),
+            launches=rung_launches["lv"].get("lv_loop", 0), ms=round(ms, 5),
+            issue_ms=round(issue, 5), host_ms=round(host, 5),
             plain_ms=round(p_ms, 2), bound_ms=round(bnd, 5), bound_by=by,
             pipe=pipe, walk_bound_ms=round(
                 bound_ms(nbytes, links, HASH_OPS_WALK)[0], 5), bytes_ms=round(nbytes / HBM_BYTES_PER_S * 1e3, 5),
             hashed_links=f"{links:.4g}",
             frac_lanes_decided=round(float((out[5] != 0).float().mean()), 4))
-        lv_rows.append((ms, p_ms, bnd, by))
-    lv_ms, lv_plain_ms, lv_bound, lv_by = lv_rows[-1]
+        lv_rows.append((ms, p_ms, bnd, by, issue, host))
+    lv_ms, lv_plain_ms, lv_bound, lv_by = lv_rows[-1][:4]
 
     # P1 and P2 at the bisect shape, timed as K4 is: queued behind a sleep
     # kernel (the card's time) and back to back (the host's issue time).
@@ -1784,8 +1969,9 @@ def main() -> None:
          "source": "round_tpu_torch/csrc/hist_exchange.cu",
          "replaces": "round_tpu/ops/fused.py:167",
          "launches": k2_launches, "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": lib_ms},
+         "ms": k2_ms, "issue_ms": k2_rows["hash"][5],
+         "host_ms": k2_rows["hash"][6], "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": lib_ms},
         {"name": "otr_loop_hw", "route": "cuda",
          "source": "round_tpu_torch/csrc/hist_loop.cu",
          "replaces": "round_tpu/ops/fused.py:557",
@@ -1798,6 +1984,7 @@ def main() -> None:
          "replaces": "round_tpu/ops/fused.py:167",
          "launches": k2_hw_launches,
          "max_abs_err": hw_err["hist_exchange_hw"], "ms": k2_rows["hw"][0],
+         "issue_ms": k2_rows["hw"][5], "host_ms": k2_rows["hw"][6],
          "plain_ms": k2_rows["hw"][1], "bound_ms": k2_rows["hw"][2],
          "bound_by": k2_rows["hw"][3], "library_ms": k2_rows["hw"][4]},
     ]
@@ -1807,23 +1994,35 @@ def main() -> None:
             ("benor_loop", bo_rows, "benor", errs["benor_loop"])):
         for mode in ("hash", "hw"):
             kname = fused._launch_name(name, mode)
-            ms, p_ms, bnd, by = rows[mode]
-            kernels.append({
+            ms, p_ms, bnd, by = rows[mode][:4]
+            row = {
                 "name": kname, "route": "cuda",
                 "source": "round_tpu_torch/csrc/hist_loop.cu",
                 "replaces": "round_tpu/ops/fused.py:557",
                 "launches": rung_launches[rung].get(kname, 0),
                 "max_abs_err": err if mode == "hash" else hw_err[kname],
                 "ms": ms, "plain_ms": p_ms, "bound_ms": bnd, "bound_by": by,
-                "library_ms": None})
+                "library_ms": None}
+            if name == "floodmin_loop":
+                row["issue_ms"] = rows[mode][4]
+                w = rows[mode + "-wide"]
+                row["wide"] = {"shape": f"{N}x{S_FLAG}x4 V={V} standard mix",
+                               "ms": w[0], "issue_ms": w[4],
+                               "plain_ms": w[1],
+                               "plain_scenarios": S_PLAIN_HW,
+                               "bound_ms": w[2], "bound_by": w[3]}
+            kernels.append(row)
     kernels += [
         {"name": "lv_loop", "route": "cuda",
          "source": "round_tpu_torch/csrc/lv_loop.cu",
          "replaces": "round_tpu/ops/fused.py:965",
          "launches": rung_launches["lv"].get("lv_loop", 0),
          "max_abs_err": errs["lv_loop"], "ms": lv_ms,
-         "plain_ms": lv_plain_ms, "bound_ms": lv_bound, "bound_by": lv_by,
-         "library_ms": None},
+         "issue_ms": lv_rows[-1][4], "plain_ms": lv_plain_ms,
+         "bound_ms": lv_bound, "bound_by": lv_by, "library_ms": None,
+         "rung": {"shape": "256x256x16 crash mix", "ms": lv_rows[0][0],
+                  "issue_ms": lv_rows[0][4], "plain_ms": lv_rows[0][1],
+                  "bound_ms": lv_rows[0][2], "bound_by": lv_rows[0][3]}},
         {"name": "probe_double", "route": "cuda",
          "source": "round_tpu_torch/csrc/probe.cu",
          "replaces": "tools/tpu_bisect.py:31",

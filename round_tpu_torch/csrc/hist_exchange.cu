@@ -46,6 +46,7 @@
 #include <cuda_runtime.h>
 
 #include "count_mma.cuh"
+#include "launch.cuh"
 #include "hash.cuh"
 
 namespace {
@@ -214,18 +215,22 @@ size_t hist_exchange_smem_bytes(int n, int V) {
   return smem_of(n);
 }
 
-// Launch on `stream`; rowmask and side may be null; hw != 0 draws the
-// links from the hw-mode Philox stream.  Returns cudaGetLastError().
+// Launch on `stream` of `device`; rowmask and side may be null; hw != 0
+// draws the links from the hw-mode Philox stream.  Returns
+// cudaGetLastError().
 int hist_exchange_launch(const int* vals, const int* senders,
                          const int* rowmask, const int* side,
                          const int* salt0, const int* salt1r, const int* p8,
-                         float* out, int S, int n, int V, int hw,
+                         float* out, int S, int n, int V, int hw, int device,
                          void* stream) {
   if (S <= 0 || n <= 0) return (int)cudaSuccess;
+  const RtDevice on(device);
+  if (on.error() != cudaSuccess) return (int)on.error();
   const size_t smem = hist_exchange_smem_bytes(n, V);
+  static RtSmemLimit limit_hash, limit_hw;
   auto kernel = hw ? hist_exchange_kernel<true> : hist_exchange_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err =
+      (hw ? limit_hw : limit_hash).raise(kernel, device, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(S, (n + kRecv - 1) / kRecv);
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(

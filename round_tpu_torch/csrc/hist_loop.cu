@@ -66,14 +66,40 @@
 //     and one of them runs the policy's update.
 // The n x n mask never exists in memory.  Where the one-hot does not fit
 // in shared memory beside the state (large n and V) it lives in device
-// memory the wrapper allocates; the code is the same.  FloodMin keeps a
-// running minimum that no product gives and its rung draws nothing: it
-// keeps the receiver walk over a compacted sender list (one thread a
-// receiver, one link at a time), behind the policy's kMma = false.
+// memory the wrapper allocates; the code is the same.
+//
+// FloodMin (min_loop, behind the policy's kMma = false) uses no tensor
+// core: a minimum is not a sum.  The TPU kernel reads it off the histogram
+// (fused.py:466-470, the smallest value with a count), but a count product
+// over V = 1000 one-hot rows costs far more than a reduction over the
+// senders.  Its block follows n: a group of 1, 2, 4 or 8 warps per
+// scenario (the fewest that hold n lanes), as many scenarios as fill 256
+// threads.  A receiver's new x is min(x, min of the delivered payloads in
+// [0, V)); the self-delivery and the receiver's own link carry its own x
+// and cannot lower that, so its own link need not be taken out.
+//   - a round that keeps every link (p8 <= 0), or has no sender (p8 >=
+//     256): every receiver on a side gets the same minimum, so the group
+//     takes it once per side, O(n) a round instead of O(n^2): a
+//     __reduce_min_sync over each warp's senders per side slot, then one
+//     shared atomicMin per warp and slot.  The slots come from the
+//     group's own numbering of its sides (fm_side_slots, up to
+//     rt_kMaxSides); a scenario with more sides takes the chunked path
+//     below with every link kept;
+//   - a round that draws (0 < p8 < 256): a receiver's senders are split
+//     across lanes in aligned chunks of 16; RtKeepStream::keep16 gives a
+//     chunk's keep bytes (one Philox call in hw mode, two where n % 16 !=
+//     0; 16 hashes in hash mode), masked by side in sided rounds, and the
+//     lane takes the minimum of the kept payloads (stored chunk-major, so
+//     the lanes' loads hit distinct banks); a shuffle minimum over the
+//     receiver's lanes ends it, and a pass of a thread a receiver then
+//     runs the updates;
+//   - done lanes are frozen, decide when r > f (every lane alike, so every
+//     lane exits in round f + 1) and decided_round is kept.
 #include <cuda_runtime.h>
 
 #include "count_mma.cuh"
 #include "hash.cuh"
+#include "launch.cuh"
 
 // The block's dynamic shared memory.  The policy state is reached through
 // int offsets into it rather than through pointers kept in structs, so
@@ -82,11 +108,9 @@ extern __shared__ __align__(16) int smem[];
 
 namespace {
 
-constexpr int kMaxOut = 7;
-
 struct LoopParams {
   const int* x0;
-  const int* crashed;
+  const uint8_t* crashed;  // [S, n] bool
   const int* side;
   const int* crash_round;
   const int* heal_round;
@@ -94,8 +118,10 @@ struct LoopParams {
   const int* p8;
   const int* salt0;
   const int* salt1;
-  int* out[kMaxOut];  // the policy's state slots, then done, decided_round
-  uint8_t* onehot;    // [S][onehot_bytes] when the one-hot is not in smem
+  int* out;        // [K + 2][S][n]: the policy's state slots, then done,
+                   // decided_round
+  uint8_t* onehot;  // [S][onehot_bytes] when the one-hot is not in smem
+  int S;
   int n;
   int V;
   int rounds;
@@ -198,8 +224,9 @@ struct FloodMinPolicy {
   static constexpr int kDecided = 1;
   static constexpr int kPhase = 1;
   static constexpr bool kMma = false;  // a running minimum, no histogram
-  // at most 42 registers a thread, three blocks an SM at n=1024
-  static constexpr int kThreads = 512;
+  // 256 threads: one scenario of 8 warps, up to eight of one warp; at most
+  // 80 registers a thread, three blocks an SM (at 64 the hash draw spilled)
+  static constexpr int kThreads = 256;
   static constexpr int kMinBlocks = 3;
   struct Acc {
     int m;  // min{v in [0, V) delivered}, V when none
@@ -213,7 +240,6 @@ struct FloodMinPolicy {
   __device__ static int payload(const State<kState>& st, int i, int) {
     return st(0, i);
   }
-  __device__ static void reset(Acc& a, const RoundInfo& ri) { a.m = ri.V; }
   __device__ static void add(Acc& a, const RoundInfo& ri, int c) {
     if ((unsigned)c < (unsigned)ri.V && c < a.m) a.m = c;
   }
@@ -332,13 +358,43 @@ struct MmaLayout {
   }
 };
 
+// FloodMin's groups: 1, 2, 4 or 8 warps a scenario, the fewest that hold n
+// lanes, and 256 / (32 * warps) scenarios a block.  A scenario's ints, each
+// array padded to whole warps (np lanes): K state | done | decided_round |
+// side | crash set | this round's sender payloads | side slot | mailbox
+// minimum (np each), then the per-side minima of two rounds, the side
+// values and the number of slots (32).  np is a multiple of 32, so every
+// array and every group starts 16-byte aligned.  Sides and payloads are
+// stored chunk-major (fm_swz) for the chunked walk's loads.
+__host__ __device__ __forceinline__ int fm_group_warps(int n) {
+  const int w = (n + 31) / 32;
+  return w <= 1 ? 1 : w <= 2 ? 2 : w <= 4 ? 4 : 8;
+}
+__host__ __device__ __forceinline__ int fm_pad(int n) {
+  return (n + 31) / 32 * 32;
+}
+template <class A>
+__host__ __device__ __forceinline__ size_t fm_ints(int n) {
+  return (size_t)(A::kState + 7) * fm_pad(n) + 32;
+}
+template <class A>
+__host__ __device__ __forceinline__ int fm_scenarios(int n) {
+  return A::kThreads / (32 * fm_group_warps(n));
+}
+// Where sender i of nc chunks of 16 sits: word q = (i >> 2) & 3 of chunk
+// c = i >> 4 at int4 q * nc + c, so the lanes of a warp that read word q of
+// consecutive chunks read consecutive 16 bytes (no bank conflict).
+__host__ __device__ __forceinline__ int fm_swz(int i, int nc) {
+  return ((((i >> 2) & 3) * nc + (i >> 4)) << 2) | (i & 3);
+}
+
 template <class A>
 size_t smem_bytes(int n, int V, bool onehot_in_smem) {
   if constexpr (A::kMma) {
     const MmaLayout<A> L(n, V);
     return sizeof(int) * L.ints() + (onehot_in_smem ? L.onehot_bytes() : 0);
   } else {
-    return sizeof(int) * (size_t)(6 + A::kState) * n;
+    return sizeof(int) * fm_ints<A>(n) * fm_scenarios<A>(n);
   }
 }
 
@@ -348,130 +404,261 @@ size_t onehot_bytes(int n, int V) {
   return 0;
 }
 
-// -- the receiver walk (FloodMin) ---------------------------------------------
+// -- the per-side and chunked minimum (FloodMin) -----------------------------
 
-// Receiver j's mailbox of one round: walk the compacted senders, keep the
-// links that survive, accumulate their payloads.  Returns the mailbox size
-// without the self-delivery.  The partition test, the draw and its stream
-// (kHw) are template switches, so each loop carries only the tests it
-// needs.
-template <class A, bool kSided, bool kHashed, bool kHw>
-__device__ __forceinline__ int mailbox(typename A::Acc& acc,
-                                       const RoundInfo& ri, const int* cid,
-                                       const int* cpay, const int* sd, int ns,
-                                       int j, uint32_t s1r, int p8) {
-  const uint32_t row = (uint32_t)j * (uint32_t)ri.n;
-  const int sj = sd[j];
-  RtHwStream hw(ri.salt0, s1r);
-  const uint32_t thr = kHw ? rt_hw_threshold(p8) : (uint32_t)p8;
-  int size = 0;
-  for (int c = 0; c < ns; ++c) {
-    const int i = cid[c];
-    if (i == j) continue;
-    if (kSided && sd[i] != sj) continue;
-    if (kHashed) {
-      const uint32_t idx = row + (uint32_t)i;
-      if ((kHw ? hw.draw(idx) : rt_link_draw(idx, ri.salt0, s1r)) < thr)
-        continue;
+// The least of the payloads v.x .. v.w of four senders whose keep bytes
+// (0x80 kept) are the bytes of kw, as unsigned: 0xFFFFFFFF where none is
+// kept.  Branch-free, so the caller's 16-byte loads stay whole: PRMT
+// replicates a keep byte's top bit into a mask, one LOP3 makes a dropped
+// link's payload all ones.
+__device__ __forceinline__ unsigned fm_min4(uint32_t kw, const int4& v) {
+  const unsigned a = (unsigned)v.x | ~rt_prmt(kw, 0u, 0x8888);
+  const unsigned b = (unsigned)v.y | ~rt_prmt(kw, 0u, 0x9999);
+  const unsigned c = (unsigned)v.z | ~rt_prmt(kw, 0u, 0xAAAA);
+  const unsigned d = (unsigned)v.w | ~rt_prmt(kw, 0u, 0xBBBB);
+  return umin(umin(a, b), umin(c, d));
+}
+
+// The minimum of receiver j's kept links over its chunks c = cl, cl + G,
+// ... < nc (senders 16c .. 16c + 15, links row + 16c ..): pay holds each
+// sender's payload chunk-major (fm_swz), or V where it sends nothing or
+// its payload is outside [0, V) (padded lanes too), sd the sides alike.
+// kDraw: the links need their draws (else every link is kept); kSided:
+// keep only senders on side sj; kAligned: n % 16 == 0.
+template <bool kHw, bool kDraw, bool kSided, bool kAligned>
+__device__ __forceinline__ int fm_chunks(const RtKeepStream& ls, uint32_t row,
+                                         const int4* pay, const int4* sd,
+                                         int sj, int cl, int G, int nc,
+                                         int V) {
+  unsigned m = (unsigned)V;  // payloads and V are >= 0
+#pragma unroll 2
+  for (int c = cl; c < nc; c += G) {
+    uint4 kk = kDraw ? ls.keep16<kHw, kAligned>(row + 16u * (uint32_t)c)
+                     : make_uint4(RT_KEEP_ALL, RT_KEEP_ALL, RT_KEEP_ALL,
+                                  RT_KEEP_ALL);
+    if (kSided) {
+      kk.x &= rt_same_side(sd[c], sj);
+      kk.y &= rt_same_side(sd[nc + c], sj);
+      kk.z &= rt_same_side(sd[2 * nc + c], sj);
+      kk.w &= rt_same_side(sd[3 * nc + c], sj);
     }
-    ++size;
-    A::add(acc, ri, cpay[c]);
+    const int4 p0 = pay[c], p1 = pay[nc + c], p2 = pay[2 * nc + c],
+               p3 = pay[3 * nc + c];
+    m = umin(m, umin(umin(fm_min4(kk.x, p0), fm_min4(kk.y, p1)),
+                     umin(fm_min4(kk.z, p2), fm_min4(kk.w, p3))));
   }
-  return size;
+  return (int)m;
+}
+
+// fm_chunks for the round's case: whether its links need draws, whether it
+// tests sides and n % 16.  A round that keeps every link and tests no side
+// (or has slots for its sides) takes the per-side minimum, never this.
+template <bool kHw>
+__device__ __forceinline__ int fm_chunks_of(const RtKeepStream& ls,
+                                            bool draw, bool sided, int n,
+                                            uint32_t row, const int4* pay,
+                                            const int4* sd, int sj, int cl,
+                                            int G, int nc, int V) {
+#define FM_CHUNKS(D, S, A) \
+  fm_chunks<kHw, D, S, A>(ls, row, pay, sd, sj, cl, G, nc, V)
+  if (!draw) return FM_CHUNKS(false, true, true);
+  if ((n & 15) == 0) return sided ? FM_CHUNKS(true, true, true)
+                                  : FM_CHUNKS(true, false, true);
+  return sided ? FM_CHUNKS(true, true, false) : FM_CHUNKS(true, false, false);
+#undef FM_CHUNKS
+}
+
+// One warp numbers the distinct sides of the n lanes (lane i's side at
+// sdz[fm_swz(i, nc)]) in order of first appearance: slot[i] for each lane,
+// sval the side of each slot.  Returns the number of slots, or 0 where
+// there are more than rt_kMaxSides sides.
+__device__ __forceinline__ int fm_side_slots(const int* sdz, int* slot,
+                                             int* sval, int n, int nc,
+                                             int lane) {
+  constexpr unsigned kFull = 0xffffffffu;
+  int ns = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    const bool in = i < n;
+    const int v = in ? sdz[fm_swz(i, nc)] : 0;
+    int q = -1;
+    for (int z = 0; z < ns; ++z)
+      if (sval[z] == v) q = z;
+    unsigned miss = __ballot_sync(kFull, in && q < 0);
+    while (miss) {
+      if (ns == rt_kMaxSides) return 0;
+      const int nv = __shfl_sync(kFull, v, __ffs(miss) - 1);
+      if (lane == 0) sval[ns] = nv;
+      if (in && v == nv) q = ns;
+      ++ns;
+      miss = __ballot_sync(kFull, in && q < 0);
+    }
+    if (in) slot[i] = q;
+    __syncwarp();
+  }
+  return ns;
 }
 
 template <class A, bool kHw>
-__device__ __forceinline__ void walk_loop(const LoopParams& p) {
+__device__ __forceinline__ void min_loop(const LoopParams& p) {
   constexpr int K = A::kState;
-  constexpr int kThreads = A::kThreads;
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr int kSides = rt_kMaxSides;
   const int n = p.n;
-  int* cid = smem;      // [n] this round's senders (any order)
-  int* cpay = cid + n;  // [n] their payloads (state before the update)
-  int* sd = cpay + n;   // [n] partition side
-  int* crs = sd + n;    // [n] crash set
-  const State<K> st{4 * n, n};  // K x [n] policy state
-  int* dn = crs + n + K * n;    // [n] done (exited)
-  int* drd = dn + n;            // [n] decided_round
-  __shared__ int nsend;
+  const int V = p.V;
+  const int np = fm_pad(n);
+  const int nc = (n + 15) / 16;  // chunks of 16 senders
+  const int n16 = 16 * nc;       // lanes of the chunk-major arrays
+  const int gw = fm_group_warps(n);  // warps of a scenario
+  const int gt = 32 * gw;            // threads of a scenario
+  const int grp = threadIdx.x / gt;
+  const int t = threadIdx.x % gt;
+  const int warp = t >> 5, lane = t & 31;
+  const int s = blockIdx.x * fm_scenarios<A>(n) + grp;
+  const bool real = s < p.S;  // a group past S runs the barriers only
+  const int off = grp * (int)fm_ints<A>(n);
+  const State<K> st{off, np};  // K x [np] policy state
+  int* dn = smem + off + K * np;  // [np] done (exited); padded lanes 1
+  int* drd = dn + np;             // [np] decided_round
+  int* sdz = drd + np;            // [n16] partition side, chunk-major
+  int* crs = sdz + np;            // [np] crash set
+  int* spay = crs + np;           // [n16] sender payloads, chunk-major
+  int* slot = spay + np;          // [np] the lane's side slot
+  int* mbox = slot + np;          // [np] the receiver's mailbox minimum
+  int* smin = mbox + np;          // [2][kSides] per-side minima
+  int* sval = smin + 2 * kSides;  // [kSides] the side of each slot
+  int* nslots = sval + kSides;    // [1]
 
-  const int s = blockIdx.x;
-  const int tid = threadIdx.x;
   const size_t base = (size_t)s * n;
-  for (int i = tid; i < n; i += kThreads) {
-    A::init(st, i, p.x0[base + i], p.param);
-    crs[i] = p.crashed[base + i] != 0;
-    sd[i] = p.side[base + i];
-    dn[i] = 0;
+  for (int i = t; i < np; i += gt) {
+    const bool in = real && i < n;
+    A::init(st, i, in ? p.x0[base + i] : 0, p.param);
+    crs[i] = in && p.crashed[base + i] != 0;
+    if (i < n16) {
+      sdz[fm_swz(i, nc)] = in ? p.side[base + i] : 0;
+      spay[fm_swz(i, nc)] = V;
+    }
+    dn[i] = !in;
     drd[i] = -1;
+    slot[i] = 0;
   }
-  const int cr = p.crash_round[s];
-  const int hr = p.heal_round[s];
-  const int rot = p.rotate_down[s];
-  const int p8 = p.p8[s];
+  if (t < 2 * kSides) smin[t] = V;
+  __syncthreads();
+  if (warp == 0) {
+    const int ns = fm_side_slots(sdz, slot, sval, real ? n : 0, nc, lane);
+    if (lane == 0) *nslots = ns;
+  }
+  __syncthreads();
+  // sides: 0 where there are more than kSides (no slots), else how many
+  const int ns = real ? *nslots : 1;
+  const bool split = ns != 1;
+  const int cr = real ? p.crash_round[s] : 0;
+  const int hr = real ? p.heal_round[s] : 0;
+  const int rot = real ? p.rotate_down[s] : 0;
+  const int p8 = real ? p.p8[s] : 0;
   RoundInfo ri;
   ri.n = n;
-  ri.V = p.V;
+  ri.V = V;
   ri.param = p.param;
-  ri.salt0 = (uint32_t)p.salt0[s];
-  ri.salt1 = (uint32_t)p.salt1[s];
+  ri.salt0 = real ? (uint32_t)p.salt0[s] : 0u;
+  ri.salt1 = real ? (uint32_t)p.salt1[s] : 0u;
   const int period = rot > 1 ? rot : 1;
   const bool blackout = p8 >= 256;
+  int G = 1;  // lanes of a receiver's chunks
+  while (G < nc && G < 32) G <<= 1;
+  const int per = 32 / G;  // receivers a warp takes at once
+  const int sub = lane / G, cl = lane % G;
+  const int4* pay4 = reinterpret_cast<const int4*>(spay);
+  const int4* sd4 = reinterpret_cast<const int4*>(sdz);
 
   for (int r = 0; r < p.rounds; ++r) {
-    if (tid == 0) nsend = 0;
-    __syncthreads();
-    const int k = r % A::kPhase;
     const int victim = (r / period) % n;
-    const bool sided = r < hr;
-    const uint32_t s1r = rt_salt1r(r, (int)ri.salt1);
+    const bool sided = r < hr && split;
+    const bool by_side = sided && ns > 0;  // a minimum per side slot
+    const int nz = by_side ? ns : 1;       // minima this round
+    // no sender, or every link kept with a slot for each side
+    const bool totals = blackout || (p8 <= 0 && (!sided || ns > 0));
+    const int buf = (r & 1) * kSides;
     ri.r = r;
-    ri.k = k;
+    ri.k = 0;
+    // the senders' payloads: per-side minima, or each one for the chunks
     int any_active = 0;
-    for (int i = tid; i < n; i += kThreads) {
+    int m[kSides];
+#pragma unroll
+    for (int z = 0; z < kSides; ++z) m[z] = V;
+    for (int i0 = warp * 32; i0 < np; i0 += gt) {
+      const int i = i0 + lane;
       const bool active = !dn[i];
       any_active |= active;
-      const bool alive = !(crs[i] && r >= cr);
-      const bool rotated = rot > 0 && i == victim;
-      if (active && alive && !rotated && !blackout) {
-        const int c = atomicAdd(&nsend, 1);
-        cid[c] = i;
-        cpay[c] = A::payload(st, i, k);
+      const bool sender = active && !(crs[i] && r >= cr) &&
+                          !(rot > 0 && i == victim) && !blackout;
+      const int x = st(0, i);
+      const int v = sender && (unsigned)x < (unsigned)V ? x : V;
+      if (totals) {
+        const int q = by_side ? slot[i] : 0;
+#pragma unroll
+        for (int z = 0; z < kSides; ++z)
+          if (z < nz) m[z] = min(m[z], __reduce_min_sync(kFull, q == z ? v : V));
+      } else if (i < n16) {
+        spay[fm_swz(i, nc)] = v;
       }
+    }
+    if (totals && lane == 0) {
+#pragma unroll
+      for (int z = 0; z < kSides; ++z)
+        if (z < nz && m[z] < V) atomicMin(&smin[buf + z], m[z]);
     }
     // every lane done: the state is frozen for the remaining rounds
     if (!__syncthreads_or(any_active)) break;
-    const int ns = nsend;
 
-    for (int j = tid; j < n; j += kThreads) {
-      if (dn[j]) continue;  // frozen: its mailbox would be discarded
+    if (!totals) {
+      // each receiver's mailbox minimum: a warp takes `per` receivers at a
+      // time, G lanes each, then a shuffle minimum over the G lanes
+      const RtKeepStream ls(ri.salt0, rt_salt1r(r, (int)ri.salt1), p8, kHw);
+      const bool draw = p8 > 0;
+      for (int j0 = warp * per; j0 < n; j0 += gw * per) {
+        const int j = j0 + sub;
+        const bool live = j < n && !dn[j];
+        if (!__any_sync(kFull, live)) continue;
+        int mj = V;
+        if (live)
+          mj = fm_chunks_of<kHw>(ls, draw, sided, n,
+                                 (uint32_t)j * (uint32_t)n, pay4, sd4,
+                                 sided ? sdz[fm_swz(j, nc)] : 0, cl, G, nc,
+                                 V);
+        if (G == 32) {
+          mj = __reduce_min_sync(kFull, mj);
+        } else {
+          for (int o = G >> 1; o > 0; o >>= 1)
+            mj = min(mj, __shfl_xor_sync(kFull, mj, o));
+        }
+        if (live && cl == 0) mbox[j] = mj;
+      }
+    }
+    // every group of the block, whichever path it took this round
+    __syncthreads();
+    // the update, a thread a receiver
+    for (int j = t; j < n; j += gt) {
+      if (dn[j]) continue;
       typename A::Acc acc;
-      A::reset(acc, ri);
-      int size;
-      if (sided)
-        size = p8 > 0 ? mailbox<A, true, true, kHw>(acc, ri, cid, cpay, sd,
-                                                    ns, j, s1r, p8)
-                      : mailbox<A, true, false, kHw>(acc, ri, cid, cpay, sd,
-                                                     ns, j, s1r, p8);
-      else
-        size = p8 > 0 ? mailbox<A, false, true, kHw>(acc, ri, cid, cpay, sd,
-                                                     ns, j, s1r, p8)
-                      : mailbox<A, false, false, kHw>(acc, ri, cid, cpay, sd,
-                                                      ns, j, s1r, p8);
-      // self-delivery: an active lane hears its own payload (the state
-      // before the update, which only this thread writes)
-      ++size;
-      A::add(acc, ri, A::payload(st, j, k));
-      if (A::update(st, j, acc, ri, size)) dn[j] = 1;
+      acc.m = totals ? smin[buf + (by_side ? slot[j] : 0)] : mbox[j];
+      A::add(acc, ri, A::payload(st, j, 0));  // the self-delivery
+      if (A::update(st, j, acc, ri, 0)) dn[j] = 1;
       if (st(A::kDecided, j) && drd[j] < 0) drd[j] = r;
     }
+    // the other round's minima: last read before the previous barrier,
+    // next written after the next one
+    if (t < kSides) smin[(kSides - buf) + t] = V;
     __syncthreads();
   }
 
-  for (int i = tid; i < n; i += kThreads) {
+  if (!real) return;
+  const size_t plane = (size_t)p.S * n;
+  for (int i = t; i < n; i += gt) {
 #pragma unroll
-    for (int q = 0; q < K; ++q) p.out[q][base + i] = st(q, i);
-    p.out[K][base + i] = dn[i];
-    p.out[K + 1][base + i] = drd[i];
+    for (int q = 0; q < K; ++q) p.out[q * plane + base + i] = st(q, i);
+    p.out[K * plane + base + i] = dn[i];
+    p.out[(K + 1) * plane + base + i] = drd[i];
   }
 }
 
@@ -690,11 +877,12 @@ __device__ __forceinline__ void mma_loop(const LoopParams& p) {
     __syncthreads();
   }
 
+  const size_t plane = (size_t)p.S * n;
   for (int i = tid; i < n; i += kThreads) {
 #pragma unroll
-    for (int q = 0; q < K; ++q) p.out[q][base + i] = st(q, i);
-    p.out[K][base + i] = dn[i];
-    p.out[K + 1][base + i] = drd[i];
+    for (int q = 0; q < K; ++q) p.out[q * plane + base + i] = st(q, i);
+    p.out[K * plane + base + i] = dn[i];
+    p.out[(K + 1) * plane + base + i] = drd[i];
   }
 }
 
@@ -704,56 +892,67 @@ __global__ void __launch_bounds__(A::kThreads, A::kMinBlocks)
   if constexpr (A::kMma)
     mma_loop<A, kHw>(p);
   else
-    walk_loop<A, kHw>(p);
+    min_loop<A, kHw>(p);
 }
 
 template <class A, bool kHw>
-int launch_stream(const LoopParams& p, int S, size_t smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_loop_kernel<A, kHw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+int launch_stream(const LoopParams& p, int device, size_t smem,
+                  void* stream) {
+  static RtSmemLimit limit;
+  const cudaError_t err =
+      limit.raise(hist_loop_kernel<A, kHw>, device, smem);
   if (err != cudaSuccess) return (int)err;
-  hist_loop_kernel<A, kHw><<<S, A::kThreads, smem, (cudaStream_t)stream>>>(p);
+  // the tensor-core instances take a block per scenario, FloodMin a block
+  // per fm_scenarios
+  const int per = A::kMma ? 1 : fm_scenarios<A>(p.n);
+  const int blocks = (p.S + per - 1) / per;
+  hist_loop_kernel<A, kHw>
+      <<<blocks, A::kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <class A>
-int launch(const int* const* ins, int* const* outs, uint8_t* onehot, int S,
-           int n, int V, int rounds, int param, int hw, void* stream) {
+int launch(const int* const* ins, const uint8_t* crashed, int* out,
+           uint8_t* onehot, int S, int n, int V, int rounds, int param,
+           int hw, int device, void* stream) {
   if (S <= 0 || n <= 0) return (int)cudaSuccess;
+  const RtDevice on(device);
+  if (on.error() != cudaSuccess) return (int)on.error();
   LoopParams p;
   p.x0 = ins[0];
-  p.crashed = ins[1];
-  p.side = ins[2];
-  p.crash_round = ins[3];
-  p.heal_round = ins[4];
-  p.rotate_down = ins[5];
-  p.p8 = ins[6];
-  p.salt0 = ins[7];
-  p.salt1 = ins[8];
-  for (int q = 0; q < kMaxOut; ++q)
-    p.out[q] = q < A::kState + 2 ? outs[q] : nullptr;
+  p.crashed = crashed;
+  p.side = ins[1];
+  p.crash_round = ins[2];
+  p.heal_round = ins[3];
+  p.rotate_down = ins[4];
+  p.p8 = ins[5];
+  p.salt0 = ins[6];
+  p.salt1 = ins[7];
+  p.out = out;
   p.onehot = onehot;
+  p.S = S;
   p.n = n;
   p.V = V;
   p.rounds = rounds;
   p.param = param;
   const size_t smem = smem_bytes<A>(n, V, onehot == nullptr);
-  return hw ? launch_stream<A, true>(p, S, smem, stream)
-            : launch_stream<A, false>(p, S, smem, stream);
+  return hw ? launch_stream<A, true>(p, device, smem, stream)
+            : launch_stream<A, false>(p, device, smem, stream);
 }
 
 }  // namespace
 
 // C entry points, one triple per instance.  Inputs in hist_loop's order:
-// x0, crashed, side ([S, n] int32), crash_round, heal_round, rotate_down,
-// p8, salt0, salt1 ([S] int32).  Outputs: the policy's state slots, done,
-// decided_round ([S, n] int32).  `onehot` is null, or S * onehot_bytes
-// bytes of device memory that hold the tensor-core instances' one-hot
-// where it does not fit in shared memory (smem_bytes(n, V, 1) too large);
-// smem_bytes(n, V, onehot == null) is what the launch asks for.  hw != 0
-// draws the links from the hw-mode Philox stream, else from the hash.  Each
-// launch runs on `stream` and returns cudaGetLastError().
+// x0 ([S, n] int32), crashed ([S, n] bool, a byte each), side ([S, n]
+// int32), crash_round, heal_round, rotate_down, p8, salt0, salt1 ([S]
+// int32).  `out` holds the outputs [K + 2][S][n] int32: the policy's K
+// state slots, done, decided_round.  `onehot` is
+// null, or S * onehot_bytes bytes of device memory that hold the
+// tensor-core instances' one-hot where it does not fit in shared memory
+// (smem_bytes(n, V, 1) too large); smem_bytes(n, V, onehot == null) is what
+// the launch asks for.  hw != 0 draws the links from the hw-mode Philox
+// stream, else from the hash.  Each launch runs on `stream` of `device`
+// and returns cudaGetLastError().
 extern "C" {
 
 #define RT_LOOP_ENTRY(NAME, POLICY)                                          \
@@ -763,17 +962,16 @@ extern "C" {
   size_t NAME##_onehot_bytes(int n, int V) {                                \
     return onehot_bytes<POLICY>(n, V);                                      \
   }                                                                          \
-  int NAME##_launch(const int* x0, const int* crashed, const int* side,     \
+  int NAME##_launch(const int* x0, const uint8_t* crashed, const int* side, \
                     const int* crash_round, const int* heal_round,          \
                     const int* rotate_down, const int* p8, const int* salt0, \
-                    const int* salt1, int* const* outs, uint8_t* onehot,    \
-                    int S, int n, int V, int rounds, int param, int hw,     \
+                    const int* salt1, int* out, uint8_t* onehot, int S,     \
+                    int n, int V, int rounds, int param, int hw, int device, \
                     void* stream) {                                          \
-    const int* ins[9] = {x0,         crashed,     side, crash_round, \
-                         heal_round, rotate_down, p8,   salt0,       \
-                         salt1};                                             \
-    return launch<POLICY>(ins, outs, onehot, S, n, V, rounds, param, hw,    \
-                          stream);                                           \
+    const int* ins[8] = {x0,          side, crash_round, heal_round, \
+                         rotate_down, p8,   salt0,       salt1};             \
+    return launch<POLICY>(ins, crashed, out, onehot, S, n, V, rounds, param, \
+                          hw, device, stream);                               \
   }
 
 RT_LOOP_ENTRY(otr_loop, OtrPolicy)

@@ -7,14 +7,13 @@ first use, all sources in parallel, into ``round_tpu_torch/_build/<key>/``
 where ``<key>`` hashes the sources and the flags, so an edited source
 rebuilds and an unchanged one loads.  Nothing here runs at import time.
 
-Two ways to reach a launch.  ``lib(name)`` returns the loaded library,
-behind a lock; K1-K3's wrappers take it, with a ``torch.cuda.device``
-context and the stream's ``cuda_stream``.  The lean route, for P1, P2 and
-K4: a wrapper binds the entry points it calls once (``bind``) and keeps
-them in a module global, passes the device index, and takes the current
-stream of that device from ``raw_stream``, with no ``Stream`` object, no
-device context and no lock; the C entry point makes the device current
-only when it is not.
+Every wrapper takes the lean launch route: it binds the entry points it
+calls once (``bind``, which loads the library behind a lock at first use)
+and keeps them in a module global, passes the device index, and takes the
+current stream of that device from ``raw_stream``, with no ``Stream``
+object, no device context and no lock.  The C entry point makes the device
+current only when it is not, and K1-K3 raise a kernel's shared-memory
+limit once per size, not on every launch (csrc/launch.cuh).
 """
 
 from __future__ import annotations
@@ -46,19 +45,19 @@ _U = ctypes.c_uint
 _LOOP = {
     f"{algo}_loop_{fn}": sig
     for algo in ("otr", "floodmin", "benor")
-    for fn, sig in (("launch", ([_P] * 9 + [_PP, _P] + [_I] * 6 + [_P], _I)),
+    for fn, sig in (("launch", ([_P] * 11 + [_I] * 7 + [_P], _I)),
                     ("smem_bytes", ([_I, _I, _I], ctypes.c_size_t)),
                     ("onehot_bytes", ([_I, _I], ctypes.c_size_t)))
 }
 # C signatures: library -> {function: (argtypes, restype)}
 _SIGNATURES = {
     "hist_exchange": {
-        "hist_exchange_launch": ([_P] * 8 + [_I] * 4 + [_P], _I),
+        "hist_exchange_launch": ([_P] * 8 + [_I] * 5 + [_P], _I),
         "hist_exchange_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "hist_loop": _LOOP,
     "lv_loop": {
-        "lv_loop_launch": ([_P] * 9 + [_PP] + [_I] * 3 + [_P], _I),
+        "lv_loop_launch": ([_P] * 10 + [_I] * 4 + [_P], _I),
         "lv_loop_smem_bytes": ([_I], ctypes.c_size_t),
     },
     "probe": {

@@ -103,13 +103,36 @@ LAUNCHES: Dict[str, int] = {
     "ring_exchange_local": 0, "ring_exchange_peers": 0,
 }
 
-# P1's and P2's bound entry points (probe_double_launch, philox_bits_launch)
-_PROBE = None
+# the kernels' entry points, bound once, by the name of the first one
+# asked for (K1 by instance; P1 and P2 share theirs)
+_ENTRIES: Dict[str, Tuple] = {}
+_PROBE_ENTRIES = ("probe", "probe_double_launch", "philox_bits_launch")
+# a kernel's shared-memory bytes at a shape, asked of its library once
+_SMEM: Dict[Tuple, int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _entries(library: str, *functions: str) -> Tuple:
+    """The entry points `functions` of kernel `library`, bound once (the
+    lean route: ``_native.bind``), kept under the first one's name."""
+    fns = _ENTRIES.get(functions[0])
+    if fns is None:
+        fns = _ENTRIES[functions[0]] = _native.bind(library, *functions)
+    return fns
+
+
+def _smem(fn, *shape) -> int:
+    """fn(*shape): a kernel's shared-memory bytes at a shape, asked of the
+    library once per shape."""
+    key = (fn.__name__, shape)
+    got = _SMEM.get(key)
+    if got is None:
+        got = _SMEM[key] = fn(*shape)
+    return got
 
 
 def _u32(x) -> torch.Tensor:
@@ -207,7 +230,7 @@ def _philox_bits_plain(seed: torch.Tensor, m: int, counter) -> torch.Tensor:
 
 
 def _philox_bits_cuda(seed: torch.Tensor, shape, counter) -> torch.Tensor:
-    launch = (_PROBE or _bind_probe())[1]
+    launch = _entries(*_PROBE_ENTRIES)[1]
     key = (seed if seed.dtype == torch.int32 and seed.is_contiguous()
            else seed.to(torch.int32).contiguous())
     out = key.new_empty(shape)
@@ -260,7 +283,7 @@ def probe_double(x: torch.Tensor) -> torch.Tensor:
         if x.device.type == "cpu":
             return x * 2.0
         raise ValueError(f"probe_double: unsupported device {x.device}")
-    launch = (_PROBE or _bind_probe())[0]
+    launch = _entries(*_PROBE_ENTRIES)[0]
     x = x.contiguous()
     out = torch.empty_like(x)
     index = x.get_device()
@@ -270,14 +293,6 @@ def probe_double(x: torch.Tensor) -> torch.Tensor:
     if err:
         _native.check(err, "probe_double launch")
     return out
-
-
-def _bind_probe():
-    """P1's and P2's entry points, bound once (the lean route)."""
-    global _PROBE
-    _PROBE = _native.bind("probe", "probe_double_launch",
-                          "philox_bits_launch")
-    return _PROBE
 
 
 def _check_dot(dot: str) -> None:
@@ -356,44 +371,57 @@ def _hist_exchange_plain(vals, senders, rowmask, side, salt0, salt1r, p8,
 
 
 def _kernel_inputs(device, S: int, n: int, lanes, scalars):
-    """int32 contiguous views of a kernel's [S, n] (`lanes`, None passes
-    through) and [S] (`scalars`) inputs, after checking device and shape:
-    the kernels index them as dense int32 rows."""
+    """A kernel's [S, n] (`lanes`, None passes through) and [S] (`scalars`)
+    inputs as dense int32 rows, after checking device and shape: a tensor
+    that already is one is passed as it is."""
     out = []
     for t, shape in [(t, (S, n)) for t in lanes] + [(t, (S,)) for t in scalars]:
         if t is None:
             out.append(None)
             continue
-        if t.device != device or tuple(t.shape) != shape:
+        if t.shape != shape or t.device != device:
             raise ValueError(
                 f"kernel input of shape {tuple(t.shape)} on {t.device}; "
                 f"expected {shape} on {device}")
-        out.append(t.to(torch.int32).contiguous())
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            t = t.to(torch.int32).contiguous()
+        out.append(t)
     return out
+
+
+def _crash_bytes(crashed, device, S: int, n: int) -> torch.Tensor:
+    """K1's and K3's crash set: a dense [S, n] bool tensor, whose bytes the
+    kernels read (a bool tensor is passed as it is)."""
+    if crashed.shape != (S, n) or crashed.device != device:
+        raise ValueError(
+            f"crashed of shape {tuple(crashed.shape)} on {crashed.device}; "
+            f"expected {(S, n)} on {device}")
+    if crashed.dtype != torch.bool:
+        crashed = crashed != 0
+    return crashed.contiguous()
 
 
 def _hist_exchange_cuda(vals, senders, rowmask, side, salt0, salt1r, p8,
                         num_values: int, mode: str) -> torch.Tensor:
-    from round_tpu_torch.ops import _native
-
+    """Launch K2 (csrc/hist_exchange.cu) in `mode`, on the lean route."""
+    launch, smem_bytes = _entries("hist_exchange", "hist_exchange_launch",
+                                  "hist_exchange_smem_bytes")
     S, n = vals.shape
-    so = _native.lib("hist_exchange")
-    smem = so.hist_exchange_smem_bytes(n, num_values)
+    smem = _smem(smem_bytes, n, num_values)
     if smem > _MAX_SMEM:
         raise ValueError(
             f"hist_exchange: num_values={num_values} at n={n} needs {smem} "
             f"bytes of shared memory per block (max {_MAX_SMEM})")
     args = _kernel_inputs(vals.device, S, n, (vals, senders, rowmask, side),
                           (salt0, salt1r, p8))
-    out = torch.empty((S, num_values, n), dtype=torch.float32,
-                      device=vals.device)
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = so.hist_exchange_launch(
-            *[None if a is None else a.data_ptr() for a in args],
-            out.data_ptr(), S, n, num_values, int(mode == "hw"), stream)
+    out = vals.new_empty((S, num_values, n), dtype=torch.float32)
+    index = vals.get_device()
+    err = launch(*[None if a is None else a.data_ptr() for a in args],
+                 out.data_ptr(), S, n, num_values, int(mode == "hw"), index,
+                 _native.raw_stream(index))
     LAUNCHES[_launch_name("hist_exchange", mode)] += 1
-    _native.check(err, "hist_exchange launch")
+    if err:
+        _native.check(err, "hist_exchange launch")
     return out
 
 
@@ -705,40 +733,41 @@ def _hist_loop_plain(algo, x0, crashed, side, crash_round, heal_round,
 def _hist_loop_cuda(algo: LoopAlgo, x0, crashed, side, crash_round,
                     heal_round, rotate_down, p8, salt0, salt1, rounds: int,
                     mode: str):
-    """Launch the K1 instance of `algo` (csrc/hist_loop.cu) in `mode`."""
-    from round_tpu_torch.ops import _native
-
+    """Launch the K1 instance of `algo` (csrc/hist_loop.cu) in `mode`, on
+    the lean route."""
     if not algo.kernel:
         raise ValueError(f"no CUDA kernel for {type(algo).__name__}")
+    kernel = algo.kernel
+    launch, smem_bytes, onehot_bytes = _entries(
+        "hist_loop", kernel + "_launch", kernel + "_smem_bytes",
+        kernel + "_onehot_bytes")
     S, n = x0.shape
     V = algo.num_values
-    so = _native.lib("hist_loop")
-    smem_bytes = getattr(so, f"{algo.kernel}_smem_bytes")
     # the tensor-core instances keep the round's sender one-hot in shared
     # memory where it fits, else in device memory beside the state
-    in_smem = smem_bytes(n, V, 1) <= _MAX_SMEM
-    smem = smem_bytes(n, V, int(in_smem))
+    in_smem = _smem(smem_bytes, n, V, 1) <= _MAX_SMEM
+    smem = _smem(smem_bytes, n, V, int(in_smem))
     if smem > _MAX_SMEM:
         raise ValueError(
-            f"{algo.kernel}: num_values={V} at n={n} needs {smem} bytes of "
+            f"{kernel}: num_values={V} at n={n} needs {smem} bytes of "
             f"shared memory per block (max {_MAX_SMEM})")
-    onehot = None if in_smem else torch.empty(
-        (S * getattr(so, f"{algo.kernel}_onehot_bytes")(n, V),),
-        dtype=torch.uint8, device=x0.device)
-    ins = _kernel_inputs(x0.device, S, n, (x0, crashed, side),
-                         (crash_round, heal_round, rotate_down, p8, salt0,
-                          salt1))
-    outs = [torch.empty((S, n), dtype=torch.int32, device=x0.device)
-            for _ in range(algo.n_state + 2)]
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        err = getattr(so, f"{algo.kernel}_launch")(
-            *[a.data_ptr() for a in ins], _native.pointer_array(outs),
-            None if onehot is None else onehot.data_ptr(),
-            S, n, V, rounds, algo.kernel_param, int(mode == "hw"), stream)
-    LAUNCHES[_launch_name(algo.kernel, mode)] += 1
-    _native.check(err, f"{algo.kernel} launch")
-    return tuple(outs)
+    onehot = None if in_smem else x0.new_empty(
+        (S * _smem(onehot_bytes, n, V),), dtype=torch.uint8)
+    x0, side, *scalars = _kernel_inputs(
+        x0.device, S, n, (x0, side),
+        (crash_round, heal_round, rotate_down, p8, salt0, salt1))
+    crashed = _crash_bytes(crashed, x0.device, S, n)
+    out = x0.new_empty((algo.n_state + 2, S, n), dtype=torch.int32)
+    index = x0.get_device()
+    err = launch(x0.data_ptr(), crashed.data_ptr(), side.data_ptr(),
+                 *[a.data_ptr() for a in scalars], out.data_ptr(),
+                 None if onehot is None else onehot.data_ptr(), S, n, V,
+                 rounds, algo.kernel_param, int(mode == "hw"), index,
+                 _native.raw_stream(index))
+    LAUNCHES[_launch_name(kernel, mode)] += 1
+    if err:
+        _native.check(err, f"{kernel} launch")
+    return out.unbind(0)
 
 
 def hist_loop(
@@ -900,30 +929,40 @@ def _lv_loop_plain(x0, crashed, side, crash_round, heal_round, rotate_down,
         x, ts, ready, commit, vote, decided, dec, done, dround))
 
 
+def lv_key_fits(n: int, rounds: int) -> bool:
+    """Whether K3's collect key (ts + 2) * n + (n - 1 - i), which picks the
+    highest ts and then the smallest sender i with one 32-bit maximum, stays
+    below 2^32 for every ts a run of `rounds` can reach (-1 up to
+    ceil(rounds / 4) - 1)."""
+    return ((rounds + 3) // 4 + 2) * n <= 1 << 32
+
+
 def _lv_loop_cuda(x0, crashed, side, crash_round, heal_round, rotate_down,
                   p8, salt0, salt1, rounds: int):
-    """Launch K3 (csrc/lv_loop.cu)."""
-    from round_tpu_torch.ops import _native
-
+    """Launch K3 (csrc/lv_loop.cu), on the lean route."""
     S, n = x0.shape
-    so = _native.lib("lv_loop")
-    smem = so.lv_loop_smem_bytes(n)
+    if not lv_key_fits(n, rounds):
+        raise ValueError(f"lv_loop: n={n} over {rounds} rounds overflows the "
+                         "kernel's 32-bit collect key")
+    launch, smem_bytes = _entries("lv_loop", "lv_loop_launch",
+                                  "lv_loop_smem_bytes")
+    smem = _smem(smem_bytes, n)
     if smem > _MAX_SMEM:
         raise ValueError(f"lv_loop: n={n} needs {smem} bytes of shared "
-                         f"memory per block (max {_MAX_SMEM})")
-    ins = _kernel_inputs(x0.device, S, n, (x0, crashed, side),
-                         (crash_round, heal_round, rotate_down, p8, salt0,
-                          salt1))
-    outs = [torch.empty((S, n), dtype=torch.int32, device=x0.device)
-            for _ in range(9)]
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        err = so.lv_loop_launch(*[a.data_ptr() for a in ins],
-                                _native.pointer_array(outs), S, n, rounds,
-                                stream)
+                         f"memory per scenario (max {_MAX_SMEM})")
+    x0, side, *scalars = _kernel_inputs(
+        x0.device, S, n, (x0, side),
+        (crash_round, heal_round, rotate_down, p8, salt0, salt1))
+    crashed = _crash_bytes(crashed, x0.device, S, n)
+    out = x0.new_empty((9, S, n), dtype=torch.int32)
+    index = x0.get_device()
+    err = launch(x0.data_ptr(), crashed.data_ptr(), side.data_ptr(),
+                 *[a.data_ptr() for a in scalars], out.data_ptr(), S, n,
+                 rounds, index, _native.raw_stream(index))
     LAUNCHES["lv_loop"] += 1
-    _native.check(err, "lv_loop launch")
-    return tuple(outs)
+    if err:
+        _native.check(err, "lv_loop launch")
+    return out.unbind(0)
 
 
 def lv_loop(

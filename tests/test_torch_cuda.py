@@ -451,3 +451,66 @@ def test_otr_loop_kernel_onehot_in_device_memory(dev):
         want = fused._hist_loop_plain(algo, *args, 4, mode)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+def _many_sided_inputs(dev, n, S, V, seed, sides):
+    """`sides` sides for the first rounds, the p8 grid over the rows, x0
+    with a few payloads outside [0, V)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    args = list(_loop_inputs(dev, n, S, V, seed, heal_round=3))
+    args[0] = torch.randint(-1, V + 2, (S, n), generator=g, device=dev,
+                            dtype=torch.int32)                   # x0
+    args[2] = torch.randint(0, sides, (S, n), generator=g, device=dev,
+                            dtype=torch.int32)                   # side
+    args[4] = torch.full((S,), 3, dtype=torch.int32, device=dev)  # heal
+    args[6] = torch.tensor([0, 1, 13, 64, 128, 255, 256], dtype=torch.int32,
+                           device=dev).repeat(S // 7 + 1)[:S]    # p8
+    return tuple(args)
+
+
+@pytest.mark.parametrize("sides", [2, 8, 9, 30])
+@pytest.mark.parametrize("mode", ["hash", "hw"])
+@pytest.mark.parametrize("n", [64, 1000, 1008, 33])
+def test_floodmin_kernel_sides_and_widths(dev, n, mode, sides):
+    """K1's FloodMin instance: per-side minima for up to eight sides, the
+    chunked walk with every link kept for more, payloads outside [0, V),
+    widths of 1, 2 (n = 64), 8 warps a scenario, n % 16 != 0, S not a
+    multiple of the scenarios a block."""
+    algo = fused.FloodMinLoop(num_values=16, f=2)
+    args = _many_sided_inputs(dev, n, 15, 16, n + sides, sides)
+    got = fused._hist_loop_cuda(algo, *args, 5, mode)
+    torch.cuda.synchronize()
+    want = fused._hist_loop_plain(algo, *args, 5, mode)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1008, 33, 1024])
+def test_lv_loop_kernel_widths_and_sides(dev, n):
+    """K3 at widths with a partial last word, scenarios past a block's
+    four, twelve sides healing mid-run, 40 rounds."""
+    args = _many_sided_inputs(dev, n, 23, 40, n + 7, 12)
+    got = fused._lv_loop_cuda(*args, 40)
+    torch.cuda.synchronize()
+    want = fused._lv_loop_plain(*args, 40)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_lean_route_on_a_side_stream(dev):
+    """K1 and K3 launch on the caller's current stream of the tensor's
+    device, through the lean route."""
+    args = _loop_inputs(dev, 64, 7, 16, 3)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = [fused._hist_loop_cuda(fused.FloodMinLoop(num_values=16, f=2),
+                                     *args, 4, "hw"),
+               fused._lv_loop_cuda(*args, 8)]
+    side.synchronize()
+    want = [fused._hist_loop_plain(fused.FloodMinLoop(num_values=16, f=2),
+                                   *args, 4, "hw"),
+            fused._lv_loop_plain(*args, 8)]
+    for g_, w_ in zip(got, want):
+        for a, b in zip(g_, w_):
+            assert torch.equal(a, b)
