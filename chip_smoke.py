@@ -64,6 +64,21 @@ Phases, each printed as one line:
                    through round_tpu_torch.apps.ladder (timed in hw, parity
                    on hash replays): rounds/sec, parity, spec parities and
                    the launches of the rung's kernels
+  ladder-epsilon   the fifth rung, ε-agreement at n=1024 x 32 x 8 phases,
+                   f=100, byzantine-silence masks, on the count-rank engine
+                   (no kernel of its own): rounds/sec, parity_exact against
+                   the general engine, property_parity, the peak GiB
+  eps-breakdown    the ε rung's round split into its steps (masks, the
+                   count products, one order statistic, the tree sum)
+  dryrun-eps       the dry run's ε segment on a 1 x 2 thread mesh of cuda:0
+                   (scenario-sharded, raw-bit against one shard)
+  bench-ladder     the bench's ladder arm: --ladder-only epsilon,lv with
+                   --lite (--ladder-only wins over --lite's --no-ladder):
+                   the lite flagship line, then one line per named rung
+  event-models     LastVotingEvent, TwoPhaseCommitEvent (both modes),
+                   ShortLastVoting, MultiLastVoting and LastVotingBytes on
+                   the general engine on the card, bit for bit against the
+                   same runs on the CPU
   bisect           python -m round_tpu_torch.tools.bisect: every stage ok,
                    each in its own process, with the launches it reports
   K*-time, P*-time each kernel's time at its path's shape (K3 also at
@@ -128,7 +143,9 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import io
 import json
 import math
 import re
@@ -1186,6 +1203,97 @@ def sharded_phases(torch, gen):
     return rows
 
 
+def eps_breakdown(torch, dev, wall_s_per_run: float, rounds: int) -> None:
+    """[eps-breakdown]: the ε rung's round split into its steps at the
+    rung's shape (n=1024, S=32, f=100), each timed alone by CUDA events
+    over 8 calls: one round's 32 byzantine-silence masks (the host loop
+    over scenarios), the two count products, one order statistic, and the
+    trimmed mean's tree sum; beside the rung's wall time a round."""
+    from round_tpu_torch.apps import ladder
+    from round_tpu_torch.engine import epsfast, scenarios
+    from round_tpu_torch.ops.detsum import tree_sum
+
+    n, S, f = 1024, 32, 100
+    keys = [tuple(k) for k in ladder._eps_keys(0, S).tolist()]
+    sampler = scenarios.byzantine_silence(n, f, device=dev)
+    x = torch.stack([ladder._eps_init(k, n, dev) for k in keys])
+    masks_ms, ho = event_ms(
+        lambda: torch.stack([sampler(k, 0) for k in keys]), reps=8)
+    hmask = torch.zeros_like(ho)
+    hvals = torch.zeros_like(x)
+    count_ms, (V, C) = event_ms(
+        lambda: epsfast._count_ranks(ho, hmask, x, hvals), reps=8)
+    members = torch.cat([ho, hmask], dim=2)
+    rank_ms, _ = event_ms(lambda: epsfast._rank_val(V, members, C, 3 * f),
+                          reps=8)
+    sel = torch.rand((S, n, 2 * n), device=dev)
+    tree_ms, _ = event_ms(lambda: tree_sum(sel, dim=-1), reps=8)
+    say("eps-breakdown", round_ms=round(wall_s_per_run * 1e3 / rounds, 3),
+        masks_ms=round(masks_ms, 3), count_products_ms=round(count_ms, 3),
+        rank_val_ms=round(rank_ms, 3), tree_sum_ms=round(tree_ms, 3))
+
+
+def event_models(torch, dev) -> None:
+    """[event-models]: the event-round and LastVoting-variant models on the
+    general engine on the card, each held bit for bit against the same run
+    on the CPU (random lossy schedules, a fixed seed)."""
+    from round_tpu_torch.engine import scenarios
+    from round_tpu_torch.engine.executor import run_instance
+    from round_tpu_torch.models.common import consensus_io
+    from round_tpu_torch.models.lastvoting import LastVotingBytes
+    from round_tpu_torch.models.lastvoting_event import LastVotingEvent
+    from round_tpu_torch.models.lastvoting_variants import (
+        MultiLastVoting, ShortLastVoting, mlv_io,
+    )
+    from round_tpu_torch.models.tpc import tpc_io
+    from round_tpu_torch.models.tpc_event import TwoPhaseCommitEvent
+    from round_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    n = 16
+    gen = torch.Generator().manual_seed(SEED)
+
+    def schedule(T, p):
+        ho = torch.rand((T, n, n), generator=gen) < p
+        return ho | torch.eye(n, dtype=torch.bool)
+
+    init = torch.randint(0, 50, (n,), generator=gen, dtype=torch.int32)
+    votes = torch.rand((n,), generator=gen) < 0.9
+    payload = torch.randint(0, 256, (n, 8), generator=gen,
+                            dtype=torch.uint8)
+    cases = [
+        ("LastVotingEvent", LastVotingEvent(), consensus_io(init), 6, 4),
+        ("TwoPhaseCommitEvent", TwoPhaseCommitEvent(), tpc_io(0, votes), 1, 3),
+        ("TwoPhaseCommitEvent-blocking",
+         TwoPhaseCommitEvent(blocking=True, all_votes=True),
+         tpc_io(0, votes), 1, 3),
+        ("ShortLastVoting", ShortLastVoting(), consensus_io(init), 6, 3),
+        ("MultiLastVoting", MultiLastVoting(),
+         mlv_io(n, {3: 17, 9: 4}, {0: 9, 5: 3}), 12, 3),
+        ("LastVotingBytes", LastVotingBytes(8), consensus_io(payload), 6, 4),
+    ]
+    decided = {}
+    t0 = time.perf_counter()
+    for name, algo, io_, phases, k in cases:
+        ho = schedule(phases * k, 0.85)
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            res = run_instance(algo, tree_map(lambda t: t.to(d), io_), n,
+                               (7, SEED), scenarios.from_schedule(ho.to(d)),
+                               phases, device=d)
+            runs.append([t.cpu() for t in tree_leaves(res.state)]
+                        + [res.done.cpu(), res.decided_round.cpu()])
+        equal = all(a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(*runs))
+        require(equal and len(runs[0]) == len(runs[1]),
+                f"{name} on the card differs from the CPU")
+        decided[name] = int(runs[0][-2].sum())
+    say("event-models", n=n, models=len(cases), tolerance=0, equal=True,
+        done_lanes=json.dumps(decided).replace(" ", ""),
+        wall_s=round(time.perf_counter() - t0, 1))
+    require(all(v > 0 for v in decided.values()),
+            f"an event-model run finished no lane: {decided}")
+
+
 def main() -> None:
     if not (ROOT / "round_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: round_tpu_torch/csrc is not beside "
@@ -1533,7 +1641,7 @@ def main() -> None:
     # -- 5. the main paths, through the bench's entry point ------------------
     common = ["--n", str(N), "--phases", str(ROUNDS), "--values", str(V),
               "--p-drop", str(P_DROP), "--seed", str(SEED), "--parity", "0",
-              "--device", "cuda"]
+              "--device", "cuda", "--no-ladder"]
     flag_args = ["--scenarios", str(S_FLAG), "--engine", "loop",
                  "--repeats", "2"]
     fused.reset_launches()
@@ -1642,6 +1750,78 @@ def main() -> None:
         for kernel in kernels:
             require(launches.get(kernel, 0) > 0,
                     f"ladder rung {name} launched no {kernel} kernel")
+
+    # -- 6b'. the fifth rung, its dry-run segment, the bench's ladder arm ---
+    fused.reset_launches()
+    eps_res = ladder.rung_epsilon(repeats=2, device=dev)
+    eps_launches = {k: v for k, v in fused.LAUNCHES.items() if v}
+    ex = eps_res["extra"]
+    say("ladder-epsilon", metric=eps_res["metric"],
+        rounds_per_sec=ex["rounds_per_sec"],
+        wall_s_per_run=ex["wall_s_per_run"],
+        frac_lanes_decided=ex["frac_lanes_decided"],
+        decided_phase_p50=ex["decided_phase_p50"],
+        parity_exact=ex["parity_exact"], parity_frac=ex["parity_frac"],
+        property_parity=ex["property_parity"], peak_gib=ex["peak_gib"],
+        sharded=str(ex["sharded"]).lower(), devices=ex["devices"],
+        launches=json.dumps(eps_launches).replace(" ", ""))
+    require(eps_res["metric"] == "ladder_epsilon_n1024",
+            f"the ε rung ran {eps_res['metric']}")
+    require(ex["parity_exact"] is True,
+            "ladder rung epsilon: parity_exact is false")
+    require(ex["property_parity"] is True,
+            "ladder rung epsilon: property_parity is false")
+    require(ex["frac_lanes_decided"] > 0, "the ε rung decided nothing")
+    require(ex["sharded"] is (torch.cuda.device_count() > 1),
+            "the ε rung's sharding does not follow the visible cards")
+    eps_breakdown(torch, dev, ex["wall_s_per_run"], ex["rounds_per_run"])
+
+    from round_tpu_torch.parallel import mesh as mesh_mod
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mesh_mod.dryrun_eps(2, devices=[torch.device("cuda", 0)] * 2)
+    line = buf.getvalue().strip()
+    say("dryrun-eps", mesh="1x2 of cuda:0", n=16, f=2, S=4, phases=8,
+        wall_s=round(time.perf_counter() - t0, 2), line=json.dumps(line))
+    require(line.startswith("dryrun_multichip eps-fused ok"),
+            f"dryrun eps segment: {line!r}")
+
+    lite_args = ["--ladder-only", "epsilon,lv", "--lite", "--device",
+                 "cuda", "--seed", str(SEED)]
+    parsed = bench.parse_args(lite_args)
+    order = bench.ladder_rungs(parsed, dev)
+    require(parsed.no_ladder and order == ["lv", "epsilon"],
+            f"--ladder-only under --lite runs {order}")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lite = bench.main(lite_args)
+    printed = [json.loads(ln) for ln in buf.getvalue().splitlines()
+               if ln.startswith("{")]
+    metrics = [r["metric"] for r in printed]
+    say("bench-ladder", args=json.dumps(" ".join(lite_args)),
+        precedence="--ladder-only over --lite's implied --no-ladder",
+        lines=json.dumps(metrics).replace(" ", ""),
+        lite_rounds_per_sec=lite["value"],
+        extrapolated_flagship_rps=lite["extra"][
+            "extrapolated_flagship_rps"],
+        lv_rounds_per_sec=printed[1]["extra"]["rounds_per_sec"]
+        if len(printed) > 1 else None,
+        epsilon_rounds_per_sec=printed[2]["extra"]["rounds_per_sec"]
+        if len(printed) > 2 else None,
+        wall_s=round(time.perf_counter() - t0, 1))
+    require(metrics == [f"otr_n{N}_s1000_rounds_per_sec", "ladder_lv_n256",
+                        "ladder_epsilon_n1024"],
+            f"bench --ladder-only epsilon,lv --lite printed {metrics}")
+    require(printed[0] == lite and lite["extra"]["lite"] is True,
+            "bench.main did not return the flagship's line")
+    require(printed[1]["extra"]["parity_frac"] == 1.0
+            and printed[2]["extra"]["parity_exact"] is True,
+            "a rung of the bench's ladder arm lost parity")
+
+    event_models(torch, dev)
 
     # -- 6c. the bisect tool, each stage in its own process ------------------
     t0 = time.perf_counter()

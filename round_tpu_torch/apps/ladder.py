@@ -1,4 +1,4 @@
-"""The BASELINE config ladder on the card: four benchmark rungs mirroring
+"""The BASELINE config ladder on the card: five benchmark rungs mirroring
 the reference's test scripts, each timed and checked in the same run.
 
 Port of round_tpu/apps/ladder.py.  Each rung reports rounds/sec plus
@@ -16,13 +16,15 @@ the reference's metric names and ``extra`` keys:
   benor     ladder_benor_n512    Ben-Or n=512 x 4096 omission scenarios
                                  (p_drop 0.05), 8 phases, on K1 benor_loop
                                  (testBenOr.sh)
+  epsilon   ladder_epsilon_n1024 ε-agreement n=1024 x 32 byzantine-silence
+                                 scenarios, f=100, 8 phases, on the
+                                 count-rank engine (engine/epsfast.py; no
+                                 kernel of its own), scenario-sharded over
+                                 the visible cards when there are several
+                                 (testDummyByzantine.sh + Epsilon.scala)
 
-    python -m round_tpu_torch.apps.ladder [--only lv,benor] [--device cuda]
+    python -m round_tpu_torch.apps.ladder [--only lv,epsilon] [--device cuda]
         [--n N --scenarios S]    # one JSON line per rung
-
-The reference's fifth rung, ε-agreement (``rung_epsilon``), is absent: it
-runs engine/epsfast.py and ops/detsum.py, which are not ported yet
-(ROADMAP Queue 1, item 11).
 
 Link streams, as in the reference: the timed runs draw their links in
 ``mode="hw"`` on the card (the Philox stream of ops.fused, in the place of
@@ -39,8 +41,9 @@ Differences from the reference, on purpose:
   - nothing falls back: a rung whose kernel or check fails raises (no loop
     to per-round degradation, no general-engine stand-in for lv_loop, no
     caught-and-recorded rung failure, no time budget that skips rungs);
-  - random draws (fault mixes, initial values) come from a
-    ``torch.Generator`` seeded per repeat, not from threefry keys.
+  - random draws (fault mixes, initial values; the ε rung's initial
+    values from a generator seeded by each scenario key) come from a
+    ``torch.Generator``, not from threefry keys.
 
 Timing: CUDA events around a run that ends in an on-device reduction to an
 O(1) summary (``decided_summary``); only the summary is copied to the host
@@ -64,6 +67,7 @@ from round_tpu_torch.engine.executor import (
 )
 from round_tpu_torch.models.benor import BenOr, BenOrState
 from round_tpu_torch.models.common import consensus_io
+from round_tpu_torch.models.epsilon import EpsilonConsensus
 from round_tpu_torch.models.floodmin import FloodMin, FloodMinState
 from round_tpu_torch.models.lastvoting import LastVoting
 from round_tpu_torch.models.otr import OTR, OtrState
@@ -400,11 +404,146 @@ def rung_benor(repeats: int = 2, n: int = 512, S: int = 4096,
     return {"metric": f"ladder_benor_n{n}", "extra": extra}
 
 
+def _eps_init(key, n: int, dev) -> torch.Tensor:
+    """The ε rung's [n] initial values in [0, 100), drawn by a generator
+    seeded from the scenario key (round_tpu draws them from a split of the
+    key), so a key carries its scenario to whatever device runs it."""
+    seed = ((int(key[0]) & 0xFFFFFFFF) << 31) ^ (int(key[1]) & 0xFFFFFFFF)
+    return torch.rand((n,), generator=_gen(seed, dev), device=dev) * 100.0
+
+
+def _eps_keys(seed: int, count: int):
+    """`count` scenario keys ``(salt0, salt1)`` drawn on the host."""
+    salts = torch.randint(0, 2**32, (count, 2), generator=_gen(seed, "cpu"),
+                          dtype=torch.int64)
+    return salts
+
+
+def rung_epsilon(repeats: int = 2, n: int = 1024, S: int = 32,
+                 phases: int = 8, f: Optional[int] = None,
+                 parity_k: int = 16, device=None) -> Dict[str, Any]:
+    """ε-agreement on the count-rank engine (engine/epsfast.py) under
+    byzantine-silence masks (round_tpu/apps/ladder.py::rung_epsilon):
+    rounds/sec, raw-bit parity of (decided, decided_round, decision)
+    against the general engine on ``parity_k`` fresh scenarios (the gate:
+    ``parity_exact``), and the two safety properties on two seeds.  With
+    several cards visible the timed run is scenario-sharded over them
+    (parallel/mesh.py::sharded_keyed_parity, raw-bit against one card).
+    f defaults to the reference's 100 at n=1024 and scales with n
+    elsewhere (n > 5f).  On the card ``extra`` adds the peak GiB the run
+    held."""
+    dev = resolve_device(device)
+    eps = 0.5
+    if f is None:
+        f = max(1, n * 100 // 1024)
+    algo = EpsilonConsensus(n, f=f, epsilon=eps)
+    sampler = scenarios.byzantine_silence(n, f, device=dev)
+
+    from round_tpu_torch.engine.epsfast import (
+        run_epsilon_batch, run_epsilon_fast,
+    )
+
+    def batch(keys, d):
+        keys = [tuple(int(v) for v in k) for k in keys]
+        x0 = torch.stack([_eps_init(k, n, d) for k in keys])
+        return run_epsilon_batch(
+            algo, x0, keys, scenarios.byzantine_silence(n, f, device=d),
+            phases), x0
+
+    def one_fast(key):
+        from round_tpu_torch.parallel.mesh import shard_device
+
+        res, _x0 = batch([key], shard_device())
+        return (res.state.decided[0], res.decided_round[0],
+                res.state.decision[0])
+
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    sharded = cards > 1 and S % cards == 0
+    shard_parity = None
+    if sharded:
+        from round_tpu_torch.parallel.mesh import sharded_keyed_parity
+
+        run, _sh, shard_parity = sharded_keyed_parity(
+            one_fast, _eps_keys(0, S), cards,
+            devices=[torch.device("cuda", i) for i in range(cards)])
+
+        def outputs(seed):
+            dec, dr, _val = run(_eps_keys(seed, S))
+            return dec.to(dev), dr.to(dev)
+    else:
+        def outputs(seed):
+            res, _x0 = batch(_eps_keys(seed, S), dev)
+            return res.state.decided, res.decided_round
+
+    def bench(seed):
+        return decided_summary(*outputs(seed), phases)
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    best, (cnt, hist) = _time_best(bench, repeats, dev)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else None)
+
+    # differential parity against the general engine: raw-bit equality of
+    # (decided, decided_round, decision) on parity_k fresh scenarios
+    pkeys = _eps_keys(3, parity_k)
+    fast, x0 = batch(pkeys, dev)
+    agree = []
+    for s, key in enumerate(pkeys.tolist()):
+        ref = run_instance(algo, {"initial_value": x0[s]}, n, tuple(key),
+                           sampler, phases, device=dev)
+        agree.append(bool(
+            torch.equal(fast.state.decided[s], ref.state.decided)
+            and torch.equal(fast.decided_round[s], ref.decided_round)
+            and torch.equal(fast.state.decision[s].view(torch.int32),
+                            ref.state.decision.view(torch.int32))))
+    # parity_exact is the gate; the fraction is for display
+    parity_exact = all(agree)
+    parity_frac = sum(agree) / max(len(agree), 1)
+
+    # the two safety properties on the timed engine: honest decisions
+    # within ε of each other and inside the initial range
+    ok = True
+    for seed in range(2):
+        key = tuple(_eps_keys(40 + seed, 1)[0].tolist())
+        init = _eps_init(key, n, dev)
+        res = run_epsilon_fast(algo, {"initial_value": init}, n, key,
+                               sampler, phases, device=dev)
+        honest = replay_ho(key, sampler, 1)[0].all(dim=0)
+        dec = res.state.decision[honest]
+        got = res.state.decided[honest]
+        if bool(got.any()):
+            d = dec[got]
+            ok &= float(d.max() - d.min()) <= eps + 1e-5
+            ok &= float(d.min()) >= float(init.min()) - 1e-5
+            ok &= float(d.max()) <= float(init.max()) + 1e-5
+        ok &= bool(got.all())
+    # the general engine's histogram unit: run_instance reports the round,
+    # one round a phase here (the reference's _speed_extra)
+    extra = speed_extra(best, phases, cnt, hist, n * S,
+                        p50_key="decided_phase_p50")
+    extra.update({
+        "f": f, "eps": eps, "engine": "eps_fused",
+        "parity_exact": parity_exact,
+        "parity_frac": round(parity_frac, 4),
+        "property_parity": bool(ok),
+        "devices": cards,
+        "sharded": sharded,
+    })
+    if shard_parity is not None:
+        extra["shard_parity"] = shard_parity
+    if peak is not None:
+        extra["peak_gib"] = round(peak, 3)
+    return {"metric": f"ladder_epsilon_n{n}", "extra": extra}
+
+
 RUNGS = {
     "otr4": rung_otr4,
     "floodmin": rung_floodmin,
     "lv": rung_lv,
     "benor": rung_benor,
+    "epsilon": rung_epsilon,
 }
 
 
@@ -413,7 +552,8 @@ def run_ladder(only: Optional[List[str]] = None, repeats: int = 2,
                S: Optional[int] = None) -> List[Dict[str, Any]]:
     """Run the rungs in order (round_tpu/apps/ladder.py::run_ladder without
     its crash isolation: a failing rung raises).  `n` and `S` override the
-    sizes of the floodmin, lv and benor rungs (otr4 keeps 4 x 1)."""
+    sizes of the floodmin, lv, benor and epsilon rungs (otr4 keeps 4 x 1;
+    epsilon's parity check then runs min(16, S) scenarios)."""
     unknown = set(only or ()) - set(RUNGS)
     if unknown:
         raise ValueError(f"unknown rungs {sorted(unknown)}; "
@@ -423,7 +563,9 @@ def run_ladder(only: Optional[List[str]] = None, repeats: int = 2,
     for name, fn in RUNGS.items():
         if only and name not in only:
             continue
-        kw = {} if name == "otr4" else sizes
+        kw = {} if name == "otr4" else dict(sizes)
+        if name == "epsilon" and "S" in kw:
+            kw["parity_k"] = min(16, kw["S"])
         out.append(fn(repeats=repeats, device=device, **kw))
     return out
 
@@ -431,13 +573,16 @@ def run_ladder(only: Optional[List[str]] = None, repeats: int = 2,
 def main(argv=None) -> List[Dict[str, Any]]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated rungs (otr4,floodmin,lv,benor)")
+                    help="comma-separated rungs "
+                         "(otr4,floodmin,lv,benor,epsilon)")
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n", type=int, default=None,
-                    help="group size of the floodmin/lv/benor rungs")
+                    help="group size of the floodmin/lv/benor/epsilon "
+                         "rungs")
     ap.add_argument("--scenarios", type=int, default=None,
-                    help="scenarios of the floodmin/lv/benor rungs")
+                    help="scenarios of the floodmin/lv/benor/epsilon "
+                         "rungs")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     only = [s for s in args.only.split(",") if s] or None

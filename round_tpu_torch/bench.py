@@ -16,6 +16,24 @@ on-device reduction of the outputs to an O(1) summary (decided_summary);
 only that summary is copied to the host.  ``--device cpu`` runs the plain
 versions and times with the host clock.  A failing kernel or device fails
 the run: there is no fallback engine.
+
+After the flagship line the five-rung config ladder (apps/ladder.py)
+prints one JSON line a rung, as round_tpu's bench does:
+
+  --ladder          run the ladder; the default on a CUDA device
+  --no-ladder       skip it
+  --ladder-only a,b run only the named rungs (implies --ladder)
+  --lite            the flagship kernel at S=1,000 x 10 rounds, with the
+                    full shape's rounds/sec extrapolated in ``extra``;
+                    implies --no-ladder and overrides --ladder
+
+Precedence, as in round_tpu: ``--ladder-only`` runs its rungs whatever
+``--lite`` or ``--no-ladder`` say.  Two differences on purpose: the
+flagship line is printed with ``--ladder-only`` too (round_tpu skips it),
+and a failing rung fails the command (no crash isolation, no time
+budget).  ``--ladder-n``/``--ladder-scenarios`` size the floodmin, lv,
+benor and epsilon rungs (default: the reference shapes).  ``main``
+returns the flagship's dict.
 """
 
 from __future__ import annotations
@@ -58,7 +76,52 @@ def parse_args(argv=None):
                          "and report agreement (0 = off)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    return ap.parse_args(argv)
+    ap.add_argument("--lite", action="store_true",
+                    help="the flagship kernel at S=1,000 x 10 rounds, the "
+                         "full shape's rounds/sec extrapolated in extra; "
+                         "implies --no-ladder")
+    ap.add_argument("--ladder", action="store_true",
+                    help="also run the five-rung config ladder (one JSON "
+                         "line a rung); the default on a CUDA device")
+    ap.add_argument("--no-ladder", action="store_true",
+                    help="skip the ladder even on a CUDA device")
+    ap.add_argument("--ladder-only", default=None,
+                    help="comma-separated rung names (implies --ladder)")
+    ap.add_argument("--ladder-n", type=int, default=None,
+                    help="group size of the floodmin/lv/benor/epsilon rungs")
+    ap.add_argument("--ladder-scenarios", type=int, default=None,
+                    help="scenarios of the floodmin/lv/benor/epsilon rungs")
+    return apply_lite(ap.parse_args(argv))
+
+
+def apply_lite(args):
+    """--lite's overrides (round_tpu bench.py::apply_lite): the flagship
+    kernel at S=1,000 x 10 rounds, at most 2 repeats and 4 parity
+    scenarios, and no ladder unless --ladder-only names rungs."""
+    if args.lite:
+        args.scenarios = 1000
+        args.phases = 10
+        args.repeats = min(args.repeats, 2)
+        args.parity = min(args.parity, 4)
+        args.no_ladder = True
+        args.ladder = False
+    return args
+
+
+def ladder_rungs(args, dev):
+    """The rungs to run after the flagship, in order; empty for none."""
+    from round_tpu_torch.apps.ladder import RUNGS
+
+    if args.ladder_only:
+        only = [r.strip() for r in args.ladder_only.split(",") if r.strip()]
+        unknown = sorted(set(only) - set(RUNGS))
+        if unknown:
+            raise SystemExit(f"unknown ladder rung(s) {unknown}; valid: "
+                             f"{sorted(RUNGS)}")
+        return [r for r in RUNGS if r in only]
+    if args.ladder or (dev.type == "cuda" and not args.no_ladder):
+        return list(RUNGS)
+    return []
 
 
 def card_info() -> dict:
@@ -179,6 +242,7 @@ def main(argv=None) -> dict:
     if args.scenarios < 1:
         raise SystemExit("--scenarios must be >= 1")
     dev = resolve_device(args.device)
+    rungs = ladder_rungs(args, dev)  # an unknown rung fails before the run
     bench = Bench(args, dev)
     S = args.scenarios
 
@@ -205,8 +269,15 @@ def main(argv=None) -> dict:
         "repeats": args.repeats,
         "seed": args.seed,
     })
-    if dev.type == "cuda":
-        extra.update(card_info())
+    card = card_info() if dev.type == "cuda" else {}
+    extra.update(card)
+    if args.lite:
+        # per-round work scales about linearly in S, so the full shape's
+        # rounds/sec is about the lite figure over 10,000 / S (round_tpu
+        # bench.py: a mildly conservative estimate)
+        extra["extrapolated_flagship_rps"] = round(rounds / best * S / 10_000,
+                                                   2)
+        extra["lite"] = True
     if args.parity > 0:
         extra["parity_frac"] = round(bench.parity(args.parity), 4)
     result = {
@@ -216,6 +287,13 @@ def main(argv=None) -> dict:
         "extra": extra,
     }
     print(json.dumps(result), flush=True)
+    if rungs:
+        from round_tpu_torch.apps.ladder import run_ladder
+
+        for res in run_ladder(rungs, device=dev, n=args.ladder_n,
+                              S=args.ladder_scenarios):
+            res["extra"].update({"backend": dev.type, **card})
+            print(json.dumps(res), flush=True)
     return result
 
 

@@ -9,8 +9,8 @@ functions over the process state:
 
 The engine batches these over the process axis with ``torch.func.vmap``, so
 user code reads like the reference's per-process DSL (one process's view of
-one round).  ``EventRound`` is not ported yet (no model on the ported path
-needs it).
+one round).  ``EventRound`` folds a per-message ``receive`` over the
+mailbox; ``FoldRound`` is its vectorised form.
 
 Reference parity: psync Round.scala:18-71, Round.scala:102-104.
 """
@@ -134,6 +134,49 @@ class Round:
         """Early-exit hint (Round.scala:33-35); the lockstep engine does not
         need it."""
         return ctx.n
+
+
+class EventRound(Round):
+    """Open round (OOPSLA'20 EventRound, Round.scala:83-131): user code sees
+    one message at a time instead of the whole mailbox
+    (round_tpu/core/rounds.py::EventRound).
+
+    Subclasses implement:
+      pre(ctx, state) -> state                       (init: reset round vars)
+      send(ctx, state) -> SendSpec
+      receive(ctx, state, sender, payload) -> (state, go_ahead)
+      finish_round(ctx, state, did_timeout) -> state
+
+    ``update`` folds ``receive`` over the present senders in id order (a
+    deterministic refinement of the runtime's arrival order), then calls
+    ``finish_round`` with did_timeout = "no receive signalled goAhead"
+    (InstanceHandler.scala:239-244).  Under the engine's vmap over lanes the
+    fold is a Python loop over the n senders with a select on each one's
+    presence bit (round_tpu's ``fori_loop``): n sequential steps a round,
+    so it stays off every fast path — prefer ``FoldRound`` or a plain Round
+    with a vectorised ``update``.
+    """
+
+    def receive(self, ctx: RoundCtx, state, sender, payload):
+        raise NotImplementedError
+
+    def finish_round(self, ctx: RoundCtx, state, did_timeout):
+        return state
+
+    def update(self, ctx: RoundCtx, state, mailbox):
+        from round_tpu_torch.utils.tree import tree_where  # local: avoid cycle
+
+        mask = mailbox.mask
+        go = torch.zeros_like(mask[0])
+        for i in range(ctx.n):
+            payload_i = pytree.tree_map(lambda v: v[i], mailbox.values)
+            sender = torch.tensor(i, dtype=torch.int32, device=mask.device)
+            new_st, new_go = self.receive(ctx, state, sender, payload_i)
+            present = mask[i]
+            state = tree_where(present, new_st, state)
+            go = torch.where(present, go | torch.as_tensor(
+                new_go, device=mask.device), go)
+        return self.finish_round(ctx, state, torch.logical_not(go))
 
 
 class FoldRound(Round):

@@ -26,8 +26,10 @@ LINK_GOLD = 0x9E3779B9
 LINK_RMIX = 0x7FEB352D
 _M32 = 0xFFFFFFFF
 # stream constants of the scenario-constant draws (round_tpu folds these
-# into the key for the crash set)
+# into the key): the crash set, the byzantine set, the partition sides
 _CRASH_STREAM = 0x5EED
+_BYZ_STREAM = 0xB12
+_SIDE_STREAM = 0x9A87
 
 
 def _with_self(ho: torch.Tensor) -> torch.Tensor:
@@ -88,14 +90,21 @@ def full(n: int, device=None) -> Callable:
     return sample
 
 
-def _hash_crash_set(key, n: int, f: int, dev) -> torch.Tensor:
-    """f of n processes chosen by the key: the f lanes with the smallest
-    hash ranks (a uniform random f-subset, scenario-constant)."""
+def _lane_hash(key, n: int, stream: int, dev) -> torch.Tensor:
+    """[n] scenario-constant uint32 words (in int64), one a lane, on the
+    link hash's scheme with `stream` in the place of the round."""
     k0, k1 = _key_salt(key)
     lane = torch.arange(n, dtype=torch.int64, device=dev)
     z = (lane * LINK_GOLD + k0) & _M32
-    z = z ^ ((_CRASH_STREAM * LINK_RMIX + k1) & _M32)
-    order = torch.argsort(_mix32(z), stable=True)
+    z = z ^ ((stream * LINK_RMIX + k1) & _M32)
+    return _mix32(z)
+
+
+def _hash_crash_set(key, n: int, f: int, dev,
+                    stream: int = _CRASH_STREAM) -> torch.Tensor:
+    """f of n processes chosen by the key: the f lanes with the smallest
+    hash ranks (a uniform random f-subset, scenario-constant)."""
+    order = torch.argsort(_lane_hash(key, n, stream, dev), stable=True)
     crashed = torch.zeros(n, dtype=torch.bool, device=dev)
     crashed[order[:f]] = True
     return crashed
@@ -116,6 +125,21 @@ def crash(n: int, f: int, device=None) -> Callable:
     return sample
 
 
+def crash_at(n: int, f: int, crash_round: int, device=None) -> Callable:
+    """f processes crash at a given round, alive and talkative before
+    (round_tpu/engine/scenarios.py::crash_at).  The crash set is the one
+    ``crash`` draws for the same key."""
+    dev = resolve_device(device)
+
+    def sample(key, r):
+        crashed = _hash_crash_set(key, n, f, dev)
+        dead = crashed[None, :] & (int(r) >= crash_round)
+        return _with_self(
+            torch.ones((n, n), dtype=torch.bool, device=dev) & ~dead)
+
+    return sample
+
+
 def omission(n: int, p_drop: float, impl: str = "hash",
              device=None) -> Callable:
     """Each (sender, receiver) link drops independently with prob p_drop per
@@ -127,6 +151,89 @@ def omission(n: int, p_drop: float, impl: str = "hash",
 
     def sample(key, r):
         return _with_self(~link_bernoulli(key, r, n, p_drop, device=dev))
+
+    return sample
+
+
+def quorum_omission(n: int, p_drop: float, quorum: Callable[[int], int],
+                    device=None) -> Callable:
+    """Random omissions, but every receiver still hears at least
+    ``quorum(n)`` processes (round_tpu/engine/scenarios.py::quorum_omission;
+    cf. OTR's goodRound liveness predicate, Otr.scala:96).
+
+    Each link's score is its 32-bit link-hash word for the round; a link
+    drops when the score's top byte is below p_drop·256 (1/256 granularity,
+    as link_bernoulli), and the q smallest scores of each row are heard
+    whatever they drew.  round_tpu ranks threefry uniforms; the ranks here
+    come from a stable sort, so a tie would go to the smaller sender id
+    (the link hash is a bijection of the link index within a round, so
+    scores of one round never tie while n² ≤ 2^32)."""
+    dev = resolve_device(device)
+    q = quorum(n)
+    thresh = (max(1, round(p_drop * 256.0)) if p_drop > 0 else 0)
+
+    def sample(key, r):
+        k0, k1 = _key_salt(key)
+        i = torch.arange(n, dtype=torch.int64, device=dev)
+        idx = i[:, None] * n + i[None, :]
+        z = (idx * LINK_GOLD + k0) & _M32
+        score = _mix32(z ^ ((int(r) * LINK_RMIX + k1) & _M32))
+        ho = (score >> 24) >= thresh
+        rank = torch.argsort(torch.argsort(score, dim=1, stable=True), dim=1,
+                             stable=True)
+        return _with_self(ho | (rank < q))
+
+    return sample
+
+
+def partition(n: int, round_heal: int, device=None) -> Callable:
+    """Network split into two halves until `round_heal`, then fully
+    connected (round_tpu/engine/scenarios.py::partition).  Each lane's side
+    is one bit of its scenario-constant hash word (round_tpu draws a
+    threefry Bernoulli(0.5) per lane)."""
+    dev = resolve_device(device)
+
+    def sample(key, r):
+        if int(r) >= round_heal:
+            return torch.ones((n, n), dtype=torch.bool, device=dev)
+        side = (_lane_hash(key, n, _SIDE_STREAM, dev) >> 31) & 1
+        return _with_self(side[:, None] == side[None, :])
+
+    return sample
+
+
+def coordinator_down(n: int, rounds_per_phase: int, p_drop: float = 0.0,
+                     device=None) -> Callable:
+    """The rotating coordinator of the current phase is crashed (nobody
+    hears it), plus optional background omissions drawn by link_bernoulli
+    (round_tpu/engine/scenarios.py::coordinator_down; round_tpu draws them
+    from threefry uniforms).  coord = r / rounds_per_phase % n
+    (LastVoting.scala:95)."""
+    dev = resolve_device(device)
+
+    def sample(key, r):
+        coord = (int(r) // rounds_per_phase) % n
+        ho = torch.ones((n, n), dtype=torch.bool, device=dev)
+        if p_drop > 0.0:
+            ho = ~link_bernoulli(key, r, n, p_drop, device=dev)
+        ho = ho & (torch.arange(n, device=dev) != coord)[None, :]
+        return _with_self(ho)
+
+    return sample
+
+
+def byzantine_silence(n: int, f: int, device=None) -> Callable:
+    """f byzantine processes that are silent toward a random half of the
+    receivers each round (round_tpu/engine/scenarios.py::
+    byzantine_silence): the mask side of the byzantine model.  The
+    byzantine set is a hash-ranked f-subset on its own stream, the targets
+    link_bernoulli at p = 1/2 (exact at 1/256 granularity)."""
+    dev = resolve_device(device)
+
+    def sample(key, r):
+        byz = _hash_crash_set(key, n, f, dev, stream=_BYZ_STREAM)
+        target = link_bernoulli(key, r, n, 0.5, device=dev)
+        return _with_self(~(byz[None, :] & target))
 
     return sample
 

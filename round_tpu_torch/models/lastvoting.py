@@ -1,7 +1,7 @@
 """LastVoting — Paxos in the HO model (Charron-Bost & Schiper).
 
-Port of round_tpu/models/lastvoting.py (``LastVoting`` and ``LVSpec``; the
-byte-payload and event variants come later).  Protocol (example/
+Port of round_tpu/models/lastvoting.py (``LastVoting``, ``LVSpec`` and
+``LastVotingBytes``; the event variant is models/lastvoting_event.py).  Protocol (example/
 LastVoting.scala:80-212): 4-round phases with a rotating coordinator
 ``coord = (r / 4) % n`` (LastVoting.scala:95):
 
@@ -210,3 +210,34 @@ class LastVoting(Algorithm):
 
     def decision(self, state: LVState):
         return state.decision
+
+
+class LastVotingBytes(LastVoting):
+    """LastVoting over opaque fixed-width byte payloads — the LastVotingB
+    role (example/LastVotingB.scala: consensus on Array[Byte] command
+    batches; round_tpu/models/lastvoting.py::LastVotingBytes).  The value is
+    a uint8[payload_bytes] vector (pad short commands); the four rounds are
+    inherited unchanged, since they touch the value only through gathers and
+    masked selects.  The int-domain trace spec does not apply."""
+
+    def __init__(self, payload_bytes: int = 16):
+        super().__init__()
+        self.payload_bytes = payload_bytes
+        self.spec = None
+
+    def make_init_state(self, ctx: RoundCtx, io) -> LVState:
+        x = torch.as_tensor(io["initial_value"]).to(torch.uint8)
+        assert x.shape == (self.payload_bytes,), x.shape
+        zeros = torch.zeros_like(x)
+        no = torch.zeros((), dtype=torch.bool, device=x.device)
+        ts = torch.full((), -1, dtype=torch.int32, device=x.device)
+        return LVState(
+            x=x,
+            ts=ts,
+            ready=no,
+            commit=no,
+            vote=zeros,
+            decided=no,
+            # no -1 sentinel in the byte domain: `decided` is the truth
+            decision=zeros,
+        )

@@ -765,8 +765,8 @@ def dryrun(n_devices: int, devices=None) -> None:
 
     Segments: the general engine (sharded_simulate), the scenario-sharded
     whole-run loop kernel, the proc-sharded fast path through the library
-    gather, the same through the hand-written exchange, and the
-    guarded-send path (TPC)."""
+    gather, the same through the hand-written exchange, the guarded-send
+    path (TPC), and the count-rank ε-agreement engine (dryrun_eps)."""
     from round_tpu_torch.engine import fast, scenarios
     from round_tpu_torch.engine.executor import simulate
     from round_tpu_torch.models.otr import OTR, OtrState
@@ -855,3 +855,45 @@ def dryrun(n_devices: int, devices=None) -> None:
            "guarded-send dryrun decided nothing")
     print("dryrun_multichip guarded-send sharded path ok: TPC coordinator "
           "guard gathered with the payload, bit-parity vs single-device")
+    dryrun_eps(n_devices, devs)
+
+
+def dryrun_eps(n_devices: int, devices=None) -> None:
+    """The dry run's ε segment (round_tpu/parallel/mesh.py::_dryrun_cpu,
+    the eps-fused part): the count-rank ε-agreement engine
+    (engine/epsfast.py) scenario-sharded over an n_devices line mesh
+    through sharded_keyed_parity — the harness the ladder's ε rung uses —
+    raw-bit against the mesh's first device alone, n=16, f=2, S=2 per
+    device, 8 phases, byzantine-silence masks.  The run must decide."""
+    from round_tpu_torch.engine import scenarios
+    from round_tpu_torch.engine.epsfast import run_epsilon_fast
+    from round_tpu_torch.models.epsilon import EpsilonConsensus
+
+    devs = list(devices) if devices is not None else _visible_devices()
+    devs = [torch.device(d) for d in devs]
+    if len(devs) < n_devices:
+        raise RuntimeError(f"dryrun wants {n_devices} devices, have "
+                           f"{len(devs)}")
+    n3, f3, S3, ph3 = 16, 2, 2 * n_devices, 8
+    algo = EpsilonConsensus(n3, f=f3, epsilon=0.5)
+
+    def one_eps(key):
+        dev = shard_device()
+        gen = torch.Generator(device=dev).manual_seed(
+            (key[0] << 32) + key[1])
+        io = {"initial_value": torch.rand((n3,), generator=gen,
+                                          device=dev) * 100.0}
+        res = run_epsilon_fast(algo, io, n3, key,
+                               scenarios.byzantine_silence(n3, f3,
+                                                           device=dev),
+                               ph3, device=dev)
+        return res.state.decided, res.decided_round, res.state.decision
+
+    keys = torch.stack([torch.arange(S3), torch.full((S3,), 9)], dim=1)
+    _run, sh, parity = sharded_keyed_parity(one_eps, keys, n_devices,
+                                            devices=devs)
+    _check(parity, "eps_fused sharded diverged from single-device")
+    _check(bool(sh[0].any()), "eps_fused dryrun decided nothing")
+    print("dryrun_multichip eps-fused ok: count-rank engine scenario-"
+          f"sharded over {n_devices} devices, raw-bit parity vs "
+          "single-device")

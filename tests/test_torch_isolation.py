@@ -42,7 +42,13 @@ def test_port_files_exist():
                  "round_tpu_torch/parallel/ici.py",
                  "round_tpu_torch/models/tpc.py",
                  "round_tpu_torch/models/erb.py",
-                 "round_tpu_torch/models/lattice.py", "chip_smoke.py"):
+                 "round_tpu_torch/models/lattice.py",
+                 "round_tpu_torch/models/epsilon.py",
+                 "round_tpu_torch/models/lastvoting_variants.py",
+                 "round_tpu_torch/models/lastvoting_event.py",
+                 "round_tpu_torch/models/tpc_event.py",
+                 "round_tpu_torch/engine/epsfast.py",
+                 "round_tpu_torch/ops/detsum.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -61,7 +67,11 @@ def test_importing_the_port_loads_no_jax():
         "round_tpu_torch.apps.ladder, round_tpu_torch.spec, "
         "round_tpu_torch.tools.bisect, round_tpu_torch.parallel.mesh, "
         "round_tpu_torch.parallel.ici, round_tpu_torch.models.tpc, "
-        "round_tpu_torch.models.erb, round_tpu_torch.models.lattice, sys; "
+        "round_tpu_torch.models.erb, round_tpu_torch.models.lattice, "
+        "round_tpu_torch.models.epsilon, round_tpu_torch.engine.epsfast, "
+        "round_tpu_torch.models.lastvoting_variants, "
+        "round_tpu_torch.models.lastvoting_event, "
+        "round_tpu_torch.models.tpc_event, round_tpu_torch.ops.detsum, sys; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'round_tpu')); assert not bad, bad"
     )

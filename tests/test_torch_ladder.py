@@ -155,4 +155,4 @@ def test_ladder_cli_on_cpu():
                                             "ladder_lv_n8"]
     assert all(r["extra"]["backend"] == "cpu" for r in lines)
     with pytest.raises(ValueError, match="unknown rungs"):
-        ladder.run_ladder(["epsilon"], device="cpu")
+        ladder.run_ladder(["pbft"], device="cpu")

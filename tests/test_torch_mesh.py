@@ -459,7 +459,7 @@ def test_mesh_defaults_to_the_cards():
 def test_dryrun_on_cpu_devices(capsys):
     tmesh.dryrun(8, devices=[CPU] * 8)
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 5 and all(
+    assert len(lines) == 6 and all(
         ln.startswith("dryrun_multichip") and " ok" in ln for ln in lines)
     with pytest.raises(RuntimeError, match="wants 8 devices, have 2"):
         tmesh.dryrun(8, devices=[CPU] * 2)
