@@ -1,17 +1,26 @@
 """The fused fast engine: histogram rounds through the CUDA exchange kernel.
 
-Port of the main-path, ladder and sharded-family parts of
-round_tpu/engine/fast.py.  For *histogram rounds* — broadcast a
-small-domain value, consume the mailbox only through per-value counts (OTR,
-FloodMin, Ben-Or, and with guarded sends Two-Phase Commit and eager
-reliable broadcast) — the whole round runs through
-``ops.fused.hist_exchange`` (K2, one launch per round: ``run_hist``,
-``run_tpc_fast``, ``run_erb_fast``) or the whole run through one K1 launch
-(``ops.fused.hist_loop``: ``run_otr_loop``, the flagship path,
-``run_floodmin_loop`` and ``run_benor_loop``).  The [S, n, n] mask never
-exists in device memory on those paths.  Lattice agreement
-(``run_lattice_fast``) rides the same ``hist_scan`` scaffolding over
-bit-plane count matmuls and the dense hash-mode mask (``mix_ho``).
+Port of round_tpu/engine/fast.py, whole.  For *histogram rounds* —
+broadcast a small-domain value, consume the mailbox only through per-value
+counts (OTR, FloodMin, Ben-Or, early-stopping k-set agreement, and with
+guarded sends Two-Phase Commit and eager reliable broadcast) — the whole
+round runs through ``ops.fused.hist_exchange`` (K2, one launch per round:
+``run_hist``, ``run_tpc_fast``, ``run_erb_fast``) or the whole run through
+one K1 launch (``ops.fused.hist_loop``: ``run_otr_loop``, the flagship
+path, ``run_floodmin_loop`` and ``run_benor_loop``).  The [S, n, n] mask
+never exists in device memory on those paths.
+
+The matrix-state and guarded-send engines — lattice agreement
+(``run_lattice_fast``), ◇S (``run_esfd_fast``), Θ (``run_theta_fast``),
+PBFT with and without view change (``run_pbft_fast``,
+``run_pbft_vc_fast``), the token ring (``run_mutex_fast``) and Game of
+Life (``run_gol_fast``) — ride the same ``hist_scan`` scaffolding over the
+dense hash-mode mask (``mix_ho``): bit-plane products as float32 ``bmm`` of
+0/1 operands (exact counts), masked row sums and gathers, as round_tpu
+computes them outside any Pallas kernel.  ``mix_ho_stats`` and
+``sampler_ho_stats`` aggregate those masks per round.  ``run_hist`` and
+``run_otr_loop`` count ``engine.hist_runs`` and ``engine.loop_runs`` in
+``obs.metrics.METRICS``.
 
 The fault model is a `FaultMix`: per-scenario structured parameters (crash
 sets, partition sides, a rotating suppressed process, an iid-omission
@@ -32,6 +41,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from round_tpu_torch.models.common import ghost_decide
+from round_tpu_torch.obs.metrics import METRICS
 from round_tpu_torch.ops import fused
 from round_tpu_torch.utils.device import resolve_device
 from round_tpu_torch.utils.tree import struct, tree_where
@@ -492,6 +502,76 @@ def mix_ho(mix: FaultMix, r) -> torch.Tensor:
     return fused.ho_link_mask(colmask, side_r, salt0, salt1r, p8)
 
 
+def _ho_round_stats(get_ho: Callable, max_rounds: int) -> dict:
+    """THE per-round HO-mask reducer both stat surfaces share
+    (round_tpu/engine/fast.py::_ho_round_stats): `get_ho(r)` returns the
+    round-r mask with receiver rows on the last-but-one axis and senders
+    last.
+
+    round_tpu takes float32 means of the bool mask and of the int32 mailbox
+    sizes (XLA sums them in float32).  Here the 0/1 entries and the sizes
+    are summed exactly as int64 and the sum is divided, as float32, by the
+    element count as a float32 tensor on the same device (a tensor, not a
+    Python scalar: CUDA divides by a scalar as a product with its
+    reciprocal).  The bits agree with round_tpu's wherever XLA's float32
+    sum is exact, i.e. while the sum stays below 2^24; above that XLA's
+    own answer depends on its reduction order and the two may differ in
+    the last places."""
+    import numpy as np
+
+    density, heard_mean, heard_min = [], [], []
+    for r in range(max_rounds):
+        ho = torch.as_tensor(get_ho(r))
+        heard = ho.sum(dim=-1, dtype=torch.int64)  # per-receiver mailbox size
+        dev = ho.device
+
+        def mean(total, count):
+            return (total.to(torch.float32)
+                    / torch.tensor(float(count), dtype=torch.float32,
+                                   device=dev))
+
+        density.append(mean(heard.sum(), ho.numel()))
+        heard_mean.append(mean(heard.sum(), heard.numel()))
+        heard_min.append(heard.min().to(torch.int32))
+
+    def stack(xs, dtype):
+        if not xs:
+            return np.zeros((0,), dtype=dtype)
+        return torch.stack(xs).cpu().numpy()
+
+    return {
+        "density": stack(density, np.float32),
+        "heard_mean": stack(heard_mean, np.float32),
+        "heard_min": stack(heard_min, np.int32),
+    }
+
+
+def mix_ho_stats(mix: FaultMix, max_rounds: int) -> dict:
+    """Per-round statistics of the HO masks the fused path derives from
+    `mix` (hash mode — the bit-exact link formula, mix_ho;
+    round_tpu/engine/fast.py::mix_ho_stats): who heard whom in round r,
+    aggregated over the scenario batch, one round's [S, n, n] mask at a
+    time.
+
+    Returns numpy arrays, one entry per round:
+      density     [T] float32 — delivered-link fraction over all S·n·n links;
+      heard_mean  [T] float32 — mean mailbox size per receiver;
+      heard_min   [T] int32 — smallest mailbox any receiver saw (the
+                  quorum-risk diagnostic).
+
+    hw-mode runs have no replayable mask, so the stats always describe the
+    hash-mode schedule of the same mix."""
+    return _ho_round_stats(lambda r: mix_ho(mix, r), max_rounds)
+
+
+def sampler_ho_stats(sampler: Callable, key, max_rounds: int) -> dict:
+    """mix_ho_stats for a plain HO sampler ((key, r) -> [n, n] bool, the
+    engine/scenarios.py families): same per-round density / heard_mean /
+    heard_min dict, same shared reducer
+    (round_tpu/engine/fast.py::sampler_ho_stats)."""
+    return _ho_round_stats(lambda r: sampler(key, r), max_rounds)
+
+
 class LatticeHist(HistRound):
     """Lattice agreement on the fused path (models/lattice.py semantics,
     LatticeAgreement.scala:32-67; round_tpu/engine/fast.py::LatticeHist):
@@ -557,11 +637,481 @@ def run_lattice_fast(state0, mix: FaultMix, max_rounds: int):
     rnd = LatticeHist(state0.proposed.shape[-1])
 
     def counts_fn(state, k, done, r):
-        deliver = mix_ho(mix, r) & (~done)[:, None, :]    # [S, j, i]
-        return lattice_counts(deliver, state.proposed, state.proposed)
+        return lattice_counts(_deliver(mix, r, done), state.proposed,
+                              state.proposed)
 
     return hist_scan(rnd, state0, lambda s: s.decided, max_rounds, n,
                      counts_fn)
+
+
+def _deliver(mix: FaultMix, r: int, done: torch.Tensor) -> torch.Tensor:
+    """Round r's [S, j(recv), i(send)] delivery: the hash-mode HO mask with
+    exited senders silenced."""
+    return mix_ho(mix, r) & (~done)[:, None, :]
+
+
+def _bmm01(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int32 batched product of 0/1 operands.  CUDA has no integer bmm, so
+    it runs in float32: every sum is a count ≤ n < 2^24, exact (TF32 keeps
+    0 and 1 exact too), and the result is never a half-precision type."""
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32)).to(
+        torch.int32)
+
+
+class EsfdHist(HistRound):
+    """◇S failure detector on the fused path (models/failure_detector.py
+    semantics; round_tpu/engine/fast.py::EsfdHist): the suspected-set
+    broadcast rides bit-plane OR counts (planes 0..n-1 = per-peer
+    accusation counts) stacked with the raw delivery planes (planes
+    n..2n-1 = who this receiver heard — sender identity as a one-hot
+    'value').  The update is three masked writes."""
+
+    def __init__(self, n: int, hysteresis: int):
+        self.num_values = 2 * n
+        self.h = hysteresis
+
+    # no payload() override: the counts_fn builds its planes directly, and
+    # a stray run_hist(EsfdHist) hits the base NotImplementedError
+
+    def update_counts(self, state, counts, size, r, n, k: int = 0, coin=None):
+        h = self.h
+        accused = (counts[:, :n, :] > 0).transpose(1, 2)    # [S, j, p]
+        present = (counts[:, n:, :] > 0).transpose(1, 2)    # [S, j, p]
+        ls = torch.clamp(state.last_seen + 1, max=h + 1)
+        ls = torch.where(accused & ~present, h + 1, ls)
+        ls = torch.where(present, 0, ls).to(torch.int32)
+        return state.replace(last_seen=ls), torch.zeros_like(
+            size, dtype=torch.bool)
+
+
+def run_esfd_fast(state0, mix: FaultMix, max_rounds: int, hysteresis: int):
+    """◇S through the bitset exchange (round_tpu/engine/fast.py::
+    run_esfd_fast): per round one [S, j, i] × [S, i, p] product of the
+    delivery and the suspicion matrices (float32 on 0/1 operands, exact)
+    for the accusations, plus the delivery planes themselves.  Hash links
+    only, as in round_tpu; lane-exact against the general engine.
+
+    `done` never fires (a failure detector runs forever); decided_fn
+    reports all-false lanes."""
+    S, n = mix.crashed.shape
+
+    def counts_fn(state, k, done, r):
+        deliver = _deliver(mix, r, done)                      # [S, j, i]
+        sus = state.last_seen > hysteresis                    # [S, i, p]
+        orc = _bmm01(deliver, sus).transpose(1, 2)            # [S, p, j]
+        heard = deliver.transpose(1, 2).to(torch.int32)       # [S, i, j]
+        return torch.cat([orc, heard], dim=1)                 # [S, 2n, j]
+
+    rnd = EsfdHist(n, hysteresis)
+    return hist_scan(
+        rnd, state0,
+        lambda s: torch.zeros(s.last_seen.shape[:2], dtype=torch.bool,
+                              device=s.last_seen.device),
+        max_rounds, n, counts_fn)
+
+
+class ThetaHist(HistRound):
+    """Θ-model round synchronizer on the fused path (models/theta.py
+    semantics; round_tpu/engine/fast.py::ThetaHist): the Some(round)/None
+    broadcast rides delivery-WEIGHTED planes — plane p carries round[p]+2
+    where sender p fired and delivered, 0 otherwise — so the per-peer
+    heard-max is one masked maximum, no mailbox pytree."""
+
+    num_values = 1  # planes are sender-indexed, not value-indexed
+
+    def __init__(self, f: int, theta: float):
+        self.f = f
+        self.theta = float(theta)
+
+    def update_counts(self, state, counts, size, r, n, k: int = 0, coin=None):
+        from round_tpu_torch.models.theta import _next_round_at
+
+        vals = counts.transpose(1, 2)                       # [S, j, p]
+        heard = torch.where(
+            vals > 0, torch.maximum(state.heard, vals - 2), state.heard)
+        firing = r == state.next_round_at                   # [S, j]
+        new_round = torch.where(firing, state.round + 1, state.round)
+        nra = torch.where(firing, _next_round_at(self.theta, new_round),
+                          state.next_round_at)
+        state = state.replace(round=new_round, next_round_at=nra,
+                              heard=heard)
+        return state, torch.zeros_like(firing)
+
+
+def run_theta_fast(state0, mix: FaultMix, max_rounds: int, f: int,
+                   theta: float):
+    """Θ-model through the fused exchange (round_tpu/engine/fast.py::
+    run_theta_fast): one [S, j, p] weighted plane per round (deliver ∧
+    sender fired, weighted by the sender's logical round).  Hash links
+    only; lane-exact against the general engine."""
+    S, n = mix.crashed.shape
+    rnd = ThetaHist(f, theta)
+
+    def counts_fn(state, k, done, r):
+        deliver = _deliver(mix, r, done)                      # [S, j, p]
+        defined = r == state.next_round_at                    # [S, p] fired
+        w = torch.where(defined, state.round + 2, 0)          # [S, p]
+        planes = deliver.to(torch.int32) * w[:, None, :]      # [S, j, p]
+        return planes.transpose(1, 2)                         # [S, p, j]
+
+    return hist_scan(
+        rnd, state0,
+        lambda s: torch.zeros(s.round.shape, dtype=torch.bool,
+                              device=s.round.device),
+        max_rounds, n, counts_fn)
+
+
+class PbftHist(HistRound):
+    """PBFT-style byzantine consensus on the fused path (models/pbft.py Bcp
+    semantics; round_tpu/engine/fast.py::PbftHist): 3-subround phases.
+
+      k=0 pre-prepare: three planes — heard-the-coordinator, the
+        coordinator's request and its claimed digest (adoption, digest
+        recheck, abort-to-null on silence/mismatch);
+      k=1 prepare: one plane — #heard senders whose (ok, digest) matches
+        the receiver's digest;
+      k=2 commit: one plane — #heard PREPARED senders with a matching
+        digest; decide x or null, terminate either way."""
+
+    num_values = 3
+    phase_len = 3
+    needs_lane_ids = True  # the coordinator test is a lane-identity compare
+
+    def update_counts(self, state, counts, size, r, n, k: int = 0, coin=None,
+                      lane_ids=None):
+        from round_tpu_torch.models.pbft import DECIDE_NULL, digest
+
+        no_exit = torch.zeros_like(size, dtype=torch.bool)
+        if k == 0:
+            coord = (r // 3) % n
+            got = counts[:, 0, :] > 0
+            req = counts[:, 1, :]
+            claimed = counts[:, 2, :]
+            recomputed = digest(req)
+            is_coord = lane_ids[None, :] == coord
+            adopt = got & ~is_coord
+            x = torch.where(adopt, req, state.x)
+            dig = torch.where(adopt, recomputed, state.dig)
+            valid = torch.where(adopt, recomputed == claimed, state.valid)
+            fail = ~got | ~valid
+            state = ghost_decide(state, fail,
+                                 torch.full_like(state.decision, DECIDE_NULL))
+            return state.replace(x=x, dig=dig, valid=valid), fail
+        confirmed = counts[:, 0, :]
+        if k == 1:
+            return state.replace(prepared=confirmed > 2 * n // 3), no_exit
+        committed = confirmed > 2 * n // 3
+        state = ghost_decide(state, torch.ones_like(committed),
+                             torch.where(committed, state.x, DECIDE_NULL))
+        return state, ~no_exit
+
+
+def run_pbft_fast(state0, mix: FaultMix, max_rounds: int = 3):
+    """PBFT through the fused exchange (round_tpu/engine/fast.py::
+    run_pbft_fast): guarded sends AND into the delivery directly (the mask
+    is explicit here, so there is no hard-wired self-delivery to correct),
+    digest agreement as outer scalar equality, masked row sums.  Hash links
+    only; lane-exact against the general engine on FaultMix families."""
+    S, n = mix.crashed.shape
+    rnd = PbftHist()
+
+    def counts_fn(state, k, done, r):
+        deliver = _deliver(mix, r, done)                      # [S, j, i]
+        if k == 0:
+            coord = (r // 3) % n
+            # only the coordinator's column is read, and its own send
+            # guard (id == coord) is trivially true — no column mask
+            g = deliver[:, :, coord].to(torch.int32)          # [S, j]
+            req_c = state.x[:, coord]                         # [S]
+            dig_c = state.dig[:, coord]                       # [S]
+            return torch.stack([g, req_c[:, None].expand_as(g),
+                                dig_c[:, None].expand_as(g)], dim=1)
+        dig_eq = state.dig[:, :, None] == state.dig[:, None, :]  # [S, j, i]
+        ok = state.valid if k == 1 else state.prepared
+        conf = (deliver & ok[:, None, :] & dig_eq).sum(dim=2,
+                                                        dtype=torch.int32)
+        return conf[:, None, :]
+
+    return hist_scan(rnd, state0, lambda s: s.decided, max_rounds, n,
+                     counts_fn)
+
+
+def run_pbft_vc_fast(state0, mix: FaultMix, max_rounds: int):
+    """PBFT WITH primary rotation on the fused path (models/pbft.py
+    PbftViewChange semantics; round_tpu/engine/fast.py::run_pbft_vc_fast):
+    6-round phases as batched plane ops over the whole [S, n] batch.
+    Per-lane views make the coordinator a per-receiver gather
+    (coord = view % n), the distributedState accumulators ride [S, n, n]
+    planes, and the ack-confirmation count is one [S, j, i, m] reduction
+    (m = n: byzantine groups are small), summed as int32.  Hash links only;
+    lane-exact against the general engine.
+
+    Returns (state, done, decided_round) like hist_scan."""
+    from round_tpu_torch.models.pbft import cert_digest, digest
+
+    S, n = mix.crashed.shape
+    dev = mix.crashed.device
+    lane = torch.arange(n, dtype=torch.int32, device=dev)[None, :]  # [1, n]
+    maj23, maj13 = 2 * n // 3, n // 3
+    no_exit = torch.zeros((S, n), dtype=torch.bool, device=dev)
+
+    def gather(a, idx):
+        """a[s, idx[s, j]] for per-receiver indices idx [S, n]."""
+        return torch.gather(a, 1, idx.to(torch.int64))
+
+    def col(deliver, idx):
+        """deliver[s, j, idx[s, j]]: did receiver j hear its own pick."""
+        return torch.gather(deliver, 2, idx.to(torch.int64)[:, :, None])[
+            ..., 0]
+
+    def same(a):
+        """[S, j, i]: a[s, j] == a[s, i]."""
+        return a[:, :, None] == a[:, None, :]
+
+    def pre_prepare(st, deliver):
+        cj = (st.view % n).to(torch.int32)                  # receiver's coord
+        sguard = (lane == cj) & ~st.vc_active               # at the sender
+        got = col(deliver, cj) & gather(sguard, cj) \
+            & (gather(st.view, cj) == st.view)
+        req_c = gather(st.x, cj)
+        claimed = gather(st.dig, cj)
+        recomputed = digest(req_c)
+
+        active = ~st.vc_active & ~st.decided
+        adopt = got & (lane != cj) & active
+        valid = torch.where(adopt, recomputed == claimed, st.valid)
+        fail = active & (~got | ~valid)
+        return st.replace(
+            x=torch.where(adopt, req_c, st.x),
+            dig=torch.where(adopt, recomputed, st.dig),
+            valid=valid,
+            vc_active=st.vc_active | fail,
+            next_view=torch.where(fail, st.view + 1, st.next_view),
+        ), no_exit
+
+    def prepare(st, deliver):
+        pred = st.valid[:, None, :] & same(st.dig) & same(st.view)
+        conf = (deliver & (~st.vc_active)[:, None, :] & pred).sum(
+            dim=2, dtype=torch.int32)
+        prepared = (conf > maj23) & ~st.vc_active & ~st.decided
+        return st.replace(
+            prepared=prepared,
+            prep_req=torch.where(prepared, st.x, st.prep_req),
+            prep_view=torch.where(prepared, st.view, st.prep_view),
+        ), no_exit
+
+    def commit(st, deliver):
+        sguard = st.prepared & ~st.vc_active
+        conf = (deliver & sguard[:, None, :] & same(st.dig)
+                & same(st.view)).sum(dim=2, dtype=torch.int32)
+        active = ~st.vc_active & ~st.decided
+        committed = (conf > maj23) & active
+        st = ghost_decide(st, committed, st.x)
+        fail = active & ~committed
+        return st.replace(
+            vc_active=st.vc_active | fail,
+            next_view=torch.where(fail, st.view + 1, st.next_view),
+        ), st.decided
+
+    def view_change(st, deliver):
+        match = deliver & st.vc_active[:, None, :] & same(st.next_view)
+        keep = st.vc_active & ~st.decided
+        pr_b = st.prep_req[:, None, :].expand_as(st.vc_req)
+        pv_b = st.prep_view[:, None, :].expand_as(st.vc_pv)
+        return st.replace(
+            vc_heard=torch.where(keep[:, :, None], match,
+                                 torch.zeros_like(st.vc_heard)),
+            vc_req=torch.where(keep[:, :, None], pr_b, st.vc_req),
+            vc_pv=torch.where(keep[:, :, None] & match, pv_b,
+                              torch.full_like(st.vc_pv, -1)),
+        ), no_exit
+
+    def view_change_ack(st, deliver):
+        my_cert = cert_digest(st.vc_req, st.vc_pv)          # [S, n, m]
+        ackd = torch.where(st.vc_heard, my_cert, -1)
+        acker_ok = deliver & st.vc_active[:, None, :] & same(st.next_view)
+        matches = acker_ok[:, :, :, None] \
+            & (ackd[:, None, :, :] == my_cert[:, :, None, :])  # [S,j,i,m]
+        confirm = matches.sum(dim=2, dtype=torch.int32)        # [S,j,m]
+        confirmed = st.vc_heard & (confirm > maj13)
+        quorum = confirmed.sum(dim=2, dtype=torch.int32) > maj23
+
+        has_prep = confirmed & (st.vc_pv >= 0)
+        key = torch.where(has_prep, st.vc_pv, -2)
+        at_max = key == key.max(dim=2, keepdim=True).values
+        # the first maximal index, written out (no argmax of a bool)
+        best = torch.where(at_max, lane[:, None, :], n).min(dim=2).values
+        sel = torch.where(
+            has_prep.any(dim=2),
+            torch.gather(st.vc_req, 2, best.to(torch.int64)[..., None])[
+                ..., 0],
+            st.x)
+        keep = st.vc_active & ~st.decided
+        return st.replace(
+            sel_req=torch.where(keep, sel, st.sel_req),
+            nv_ok=torch.where(keep, quorum, st.nv_ok),
+        ), no_exit
+
+    def new_view(st, deliver):
+        nc = (st.next_view % n).to(torch.int32)
+        sguard = st.vc_active & (lane == nc) & st.nv_ok
+        got = col(deliver, nc) & gather(sguard, nc) \
+            & (gather(st.next_view, nc) == st.next_view)
+        sel = gather(st.sel_req, nc)
+
+        keep = st.vc_active & ~st.decided
+        install = keep & got
+        retry = keep & ~got
+        return st.replace(
+            view=torch.where(install, st.next_view, st.view),
+            x=torch.where(install, sel, st.x),
+            dig=torch.where(install, digest(sel), st.dig),
+            valid=torch.where(install, True, st.valid),
+            prepared=torch.where(install, False, st.prepared),
+            vc_active=torch.where(install, False, st.vc_active),
+            next_view=torch.where(retry, st.next_view + 1, st.next_view),
+        ), no_exit
+
+    bodies = (pre_prepare, prepare, commit,
+              view_change, view_change_ack, new_view)
+
+    state = state0
+    done = torch.zeros((S, n), dtype=torch.bool, device=dev)
+    dround = torch.full((S, n), -1, dtype=torch.int32, device=dev)
+    for r in range(max_rounds):
+        new_state, exit_ = bodies[r % 6](state, _deliver(mix, r, done))
+        active = ~done
+        state = tree_where(active, new_state, state)
+        done = done | (active & exit_)
+        dround = torch.where(state.decided & (dround < 0), r, dround)
+    return state, done, dround
+
+
+class MutexHist(HistRound):
+    """Dijkstra's self-stabilizing token ring on the fused path
+    (models/mutex.py semantics; round_tpu/engine/fast.py::MutexHist): each
+    lane reads exactly its LEFT neighbour — one diagonal-shifted gather of
+    the delivery matrix plus the rolled value plane, no mailbox fold.  A
+    lane that heard nothing keeps x and holds no token (the EventRound
+    timeout path)."""
+
+    num_values = 2
+    needs_lane_ids = True  # process 0's increment rule is identity-based
+
+    def update_counts(self, state, counts, size, r, n, k: int = 0, coin=None,
+                      lane_ids=None):
+        got = counts[:, 0, :] > 0
+        x_left = counts[:, 1, :]
+        is_zero = lane_ids[None, :] == 0
+        token = torch.where(is_zero, state.x == x_left,
+                            state.x != x_left) & got
+        new_x = torch.where(
+            is_zero,
+            torch.where(token, (state.x + 1) % (n + 1), state.x),
+            torch.where(token, x_left, state.x),
+        )
+        state = state.replace(x=torch.where(got, new_x, state.x),
+                              has_token=token)
+        return state, torch.zeros_like(got)
+
+
+def run_mutex_fast(state0, mix: FaultMix, max_rounds: int):
+    """The token ring through the fused exchange (round_tpu/engine/fast.py::
+    run_mutex_fast): plane 0 = heard the left neighbour (one gather of the
+    delivery matrix at the ring shift), plane 1 = the left neighbour's
+    value.  Hash links only; lane-exact against the general engine's
+    EventRound."""
+    S, n = mix.crashed.shape
+    rnd = MutexHist()
+    left = (torch.arange(n, device=mix.crashed.device) - 1) % n
+
+    def counts_fn(state, k, done, r):
+        deliver = _deliver(mix, r, done)                      # [S, j, i]
+        got = torch.gather(deliver, 2,
+                           left[None, :, None].expand(S, n, 1))[..., 0]
+        x_left = state.x[:, left]                             # [S, j]
+        return torch.stack([got.to(torch.int32), x_left], dim=1)
+
+    return hist_scan(
+        rnd, state0,
+        lambda s: torch.zeros(s.x.shape, dtype=torch.bool, device=s.x.device),
+        max_rounds, n, counts_fn)
+
+
+class CgolHist(HistRound):
+    """Conway's Game of Life on the fused path (models/gameoflife.py;
+    round_tpu/engine/fast.py::CgolHist): one alive-neighbour count plane
+    per round; the torus overlay is a static dest mask ANDed into the
+    delivery (its empty diagonal also cancels the HO formula's
+    self-loop)."""
+
+    num_values = 1
+
+    def update_counts(self, state, counts, size, r, n, k: int = 0, coin=None):
+        alive_nbrs = counts[:, 0, :]
+        survive = state.alive & ((alive_nbrs == 2) | (alive_nbrs == 3))
+        born = ~state.alive & (alive_nbrs == 3)
+        return state.replace(alive=survive | born), torch.zeros_like(born)
+
+
+def run_gol_fast(state0, mix: FaultMix, neighbours, max_rounds: int):
+    """Game of Life through the fused exchange (round_tpu/engine/fast.py::
+    run_gol_fast): the overlay is a point-to-multipoint dest mask, applied
+    as one AND on the delivery; the B3/S23 count is one [n, n] masked
+    matvec a scenario (float32 on 0/1 operands, exact).  Hash links only;
+    lane-exact against the general engine, lossy overlays included."""
+    S, n = mix.crashed.shape
+    rnd = CgolHist()
+    dest_t = torch.as_tensor(neighbours, device=mix.crashed.device).to(
+        torch.bool).T[None]                                   # [1, j, i]
+
+    def counts_fn(state, k, done, r):
+        deliver = _deliver(mix, r, done) & dest_t
+        return _bmm01(deliver, state.alive[:, :, None])[..., 0][:, None, :]
+
+    return hist_scan(
+        rnd, state0,
+        lambda s: torch.zeros(s.alive.shape, dtype=torch.bool,
+                              device=s.alive.device),
+        max_rounds, n, counts_fn)
+
+
+class KSetESHist(HistRound):
+    """Early-stopping k-set agreement on the fused path
+    (KSetEarlyStopping.scala:8-46; round_tpu/engine/fast.py::KSetESHist;
+    general-engine model models/kset.py::KSetESRound).
+
+    The (est, canDecide) broadcast rides ONE histogram over a doubled
+    domain, code = est·2 + can, so K2 runs at V = 2·n_values.  The update
+    decodes straight off the counts: est folds to
+    min{code >> 1 : counts[code] > 0} (the mailbox masked_min), canDecide to
+    an any-odd-code test plus the fewer-than-k-dropouts trigger
+    (last_nb - size < k)."""
+
+    def __init__(self, n_values: int, t: int, k: int):
+        self.num_values = 2 * n_values
+        self.t = t
+        self.k = k
+
+    def payload(self, state, k: int = 0):
+        return state.est * 2 + state.can_decide.to(torch.int32)
+
+    def update_counts(self, state, counts, size, r, n, k: int = 0, coin=None):
+        codes = torch.arange(self.num_values, dtype=torch.int32,
+                             device=counts.device)[None, :, None]
+        deciding = (r > self.t // self.k) | state.can_decide
+        heard = counts > 0
+        est_m = torch.where(heard, codes >> 1, 2**31 - 1).min(
+            dim=1).values.to(state.est.dtype)
+        can_rx = (heard & (codes % 2 == 1)).any(dim=1)
+        can = can_rx | (state.last_nb - size < self.k)
+        state = ghost_decide(state, deciding, state.est)
+        state = state.replace(
+            est=torch.where(deciding, state.est, est_m),
+            can_decide=torch.where(deciding, state.can_decide, can),
+            last_nb=torch.where(deciding, state.last_nb, size),
+        )
+        return state, deciding
 
 
 def hist_scan(
@@ -659,7 +1209,10 @@ def run_hist(
     per round on the card (round_tpu/engine/fast.py::run_hist).
 
     state0 leaves are [S, n, ...].  Returns (state, done [S, n],
-    decided_round [S, n]).  Exited lanes stop sending and freeze."""
+    decided_round [S, n]).  Exited lanes stop sending and freeze.  Counts
+    ``engine.hist_runs`` at Python entry (obs.metrics.METRICS), as
+    round_tpu does."""
+    METRICS.counter("engine.hist_runs").inc()
     S, n = mix.crashed.shape
     V = rnd.num_values
 
@@ -695,9 +1248,11 @@ def run_otr_loop(
     Drop-in for run_hist(OtrHist(...), fresh state0, ...) in the same
     mode: same (state, done, decided_round), bit for bit.  `state0` must be a FRESH OtrState
     (decided/decision/after at their init values); only its `x` enters the
-    kernel.  A resumed state is refused."""
+    kernel.  A resumed state is refused.  Counts ``engine.loop_runs`` at
+    Python entry, as round_tpu does."""
     from round_tpu_torch.models.otr import OtrState
 
+    METRICS.counter("engine.loop_runs").inc()
     _require_fresh(
         not (bool(state0.decided.any())
              or bool((state0.after != rnd.after_decision).any())),

@@ -14,10 +14,16 @@ import torch
 from round_tpu_torch.engine.fast import FaultMix
 from round_tpu_torch.models.benor import BenOrState
 from round_tpu_torch.models.erb import ErbState
+from round_tpu_torch.models.failure_detector import EsfdState
 from round_tpu_torch.models.floodmin import FloodMinState
+from round_tpu_torch.models.gameoflife import CgolState
+from round_tpu_torch.models.kset import KSetESState, KSetState
 from round_tpu_torch.models.lastvoting import LVState
 from round_tpu_torch.models.lattice import LatticeState
+from round_tpu_torch.models.mutex import MutexState
 from round_tpu_torch.models.otr import OtrState
+from round_tpu_torch.models.pbft import BcpState, PbftVcState
+from round_tpu_torch.models.theta import ThetaState
 from round_tpu_torch.models.tpc import TpcState
 from round_tpu_torch.utils.device import resolve_device
 
@@ -126,3 +132,70 @@ def lattice_state_from_numpy(d: Mapping[str, np.ndarray],
     dev = resolve_device(device)
     return LatticeState(**{k: _bool(d[k], dev) for k in
                            ("active", "proposed", "decided", "decision")})
+
+
+def _fields(cls, d: Mapping[str, np.ndarray], dev, bools) -> object:
+    """cls from numpy arrays named as its fields: the names in `bools` as
+    bool, every other as int32 (uint32 bit patterns kept)."""
+    import dataclasses
+
+    return cls(**{f.name: (_bool if f.name in bools else _int32)(
+        d[f.name], dev) for f in dataclasses.fields(cls)})
+
+
+def kset_es_state_from_numpy(d: Mapping[str, np.ndarray],
+                             device=None) -> KSetESState:
+    """A KSetESState from numpy arrays named est, can_decide, last_nb,
+    decided, decision."""
+    return _fields(KSetESState, d, resolve_device(device),
+                   ("can_decide", "decided"))
+
+
+def kset_state_from_numpy(d: Mapping[str, np.ndarray],
+                          device=None) -> KSetState:
+    """A KSetState from numpy arrays named t_vals, t_mask ([.., n] each),
+    decider, decided, decision."""
+    return _fields(KSetState, d, resolve_device(device),
+                   ("t_mask", "decider", "decided"))
+
+
+def esfd_state_from_numpy(d: Mapping[str, np.ndarray],
+                          device=None) -> EsfdState:
+    """An EsfdState from a numpy array named last_seen ([.., n])."""
+    return _fields(EsfdState, d, resolve_device(device), ())
+
+
+def theta_state_from_numpy(d: Mapping[str, np.ndarray],
+                           device=None) -> ThetaState:
+    """A ThetaState from numpy arrays named round, next_round_at, heard
+    ([.., n])."""
+    return _fields(ThetaState, d, resolve_device(device), ())
+
+
+def bcp_state_from_numpy(d: Mapping[str, np.ndarray],
+                         device=None) -> BcpState:
+    """A BcpState (PBFT) from numpy arrays named x, dig, valid, prepared,
+    decided, decision."""
+    return _fields(BcpState, d, resolve_device(device),
+                   ("valid", "prepared", "decided"))
+
+
+def pbft_vc_state_from_numpy(d: Mapping[str, np.ndarray],
+                             device=None) -> PbftVcState:
+    """A PbftVcState from numpy arrays named as its sixteen fields
+    (vc_heard, vc_req and vc_pv [.., n] each)."""
+    return _fields(PbftVcState, d, resolve_device(device),
+                   ("valid", "prepared", "decided", "vc_active", "vc_heard",
+                    "nv_ok"))
+
+
+def mutex_state_from_numpy(d: Mapping[str, np.ndarray],
+                           device=None) -> MutexState:
+    """A MutexState from numpy arrays named x, has_token."""
+    return _fields(MutexState, d, resolve_device(device), ("has_token",))
+
+
+def cgol_state_from_numpy(d: Mapping[str, np.ndarray],
+                          device=None) -> CgolState:
+    """A CgolState from a numpy array named alive."""
+    return _fields(CgolState, d, resolve_device(device), ("alive",))

@@ -8,16 +8,18 @@ While r ≤ maxR, x := mean of every 2f-th element of sorted(V) with f
 trimmed from each end.  After maxR, decide x; halted processes' last
 values stay in every V via the ``halted`` map.  Needs n > 5f and f ≥ 1.
 
-The trimmed mean sums through ``ops.detsum.tree_sum``, the horizon's logs
-through ``horizon_log``: both pin their floating-point results so that the
-general engine and the count-rank engine (engine/epsfast.py) agree bit for
-bit on every device.
+The trimmed mean sums through ``ops.detsum.tree_sum``, the horizon's log
+through ``horizon_log`` (XLA's float32 log on the CPU, emulated): both pin
+their floating-point results so that the general engine and the
+count-rank engine (engine/epsfast.py) agree bit for bit with each other on
+every device, and with round_tpu.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from round_tpu_torch.core.algorithm import Algorithm
@@ -31,32 +33,97 @@ _INF = float("inf")
 _INT32_MAX = 2**31 - 1
 
 
+def _f32(word: int) -> float:
+    """The float32 whose bit pattern is `word`, as a Python float."""
+    return float(np.uint32(word).view(np.float32))
+
+
+# XLA's float32 log on the CPU (Cephes' logf): the polynomial's nine
+# coefficients p0..p8, ln 2 split as q2 + q1, √½, the smallest normal
+_LOG_P = tuple(_f32(w) for w in (
+    0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A, 0xBDFE5D4F, 0x3E11E9BF, 0xBE2AAE50,
+    0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA))
+_LOG_Q1, _LOG_Q2 = _f32(0xB95E8083), _f32(0x3F318000)
+_SQRT_HALF, _MIN_NORMAL = _f32(0x3F3504F3), _f32(0x00800000)
+
+
+def _fma32(a, b, c) -> torch.Tensor:
+    """a·b + c rounded once to float32, as the x86 FMA rounds it.  The
+    float32 product is exact in float64; the float64 sum is rounded to
+    float32, and where it landed exactly on a float32 midpoint that the
+    exact sum is not on, the TwoSum error picks the side."""
+    like = a if isinstance(a, torch.Tensor) else b
+    a64, b64, c64 = (torch.as_tensor(t, device=like.device).to(torch.float64)
+                     for t in (a, b, c))
+    p = a64 * b64
+    s = p + c64
+    z = s - p
+    err = (p - (s - z)) + (c64 - z)          # s + err == a·b + c exactly
+    r = s.to(torch.float32)
+    r64 = r.to(torch.float64)
+    toward = torch.where(s > r64, math.inf, -math.inf).to(torch.float32)
+    nb = torch.nextafter(r, toward)          # r's neighbour on s's side
+    nb64 = nb.to(torch.float64)
+    tie = (s == (r64 + nb64) * 0.5) & (err != 0)
+    return torch.where(tie & ((nb64 > r64) == (err > 0)), nb, r)
+
+
 def horizon_log(x: torch.Tensor) -> torch.Tensor:
-    """float32 log as the float32 rounding of the float64 log: the same
-    bits on the CPU and the card and whatever the tensor's size (torch's
-    float32 log takes a vectorised path or a scalar one by position on the
-    CPU, and the two can differ in the last place)."""
-    return torch.log(x.to(torch.float64)).to(torch.float32)
+    """float32 log, bit for bit XLA's on the CPU — what round_tpu's horizon
+    computes (round_tpu/models/epsilon.py::EpsilonRound.update).  The
+    algorithm is the one XLA compiles jnp.log to on x86 (its object code):
+    clamp to the smallest normal, x = m·2^e with m in [0.5, 1), m < √½
+    folded into (m − 1) + m and e − 1; Cephes' polynomial as three
+    fused Horner pairs a, b, c joined as ((a·x³ + b)·x³ + c)·x³ + e·q1,
+    each step one FMA; then ((x − x²/2) + that) + e·q2, the first and
+    the last step FMAs.  Written in elementwise torch ops (each float32
+    FMA emulated exactly in float64), so the CPU and the card give the
+    same bits.  Zero and subnormal inputs give -inf, negative ones and NaN
+    give NaN."""
+    x = torch.as_tensor(x).to(torch.float32)
+    # XLA's code runs with subnormal inputs read as zero
+    x = torch.where(x.abs() < _MIN_NORMAL, 0.0, x)
+    m, ex = torch.frexp(torch.clamp(x, min=_MIN_NORMAL))
+    small = m < _SQRT_HALF
+    y = (m - 1.0) + torch.where(small, m, 0.0)
+    e = ex.to(torch.float32) - small.to(torch.float32)
+    p = _LOG_P
+    y2 = y * y
+    y3 = y2 * y
+    a = _fma32(y, _fma32(y, p[0], p[1]), p[2])
+    b = _fma32(y, _fma32(y, p[3], p[4]), p[5])
+    c = _fma32(y, _fma32(y, p[6], p[7]), p[8])
+    u = _fma32(y3, _fma32(y3, a, b), c)
+    v = _fma32(y3, u, e * _LOG_Q1)
+    out = _fma32(e, _LOG_Q2, _fma32(y2, -0.5, y) + v)
+    out = torch.where(x == 0, -math.inf, out)
+    return torch.where((x < 0) | torch.isnan(x), math.nan, out).where(
+        ~torch.isposinf(x), math.inf)
 
 
 def horizon(diff: torch.Tensor, epsilon: float, c: int) -> torch.Tensor:
     """maxR from the spread ``diff`` (float32): 0 when diff ≤ ε, else
-    ⌈log(diff/ε) / log(c)⌉ in float32 (round_tpu/models/epsilon.py::
-    EpsilonRound.update, Epsilon.scala:33-37)."""
+    ⌈log(diff/ε) / log(c)⌉ in float32 as XLA compiles round_tpu's
+    expression (round_tpu/models/epsilon.py::EpsilonRound.update,
+    Epsilon.scala:33-37).  ε and log(c) are constants there, and XLA
+    divides by a constant as a product with its float32 reciprocal; it
+    folds log(c) at compile time to the correctly rounded float32 log.
+    So: ⌈horizon_log(diff · fl(1/ε)) · fl(1/log c)⌉, the reciprocals
+    taken on the host in float32 and multiplied as float32 tensors (a
+    product of two tensors rounds alike on the CPU and the card)."""
     dev = diff.device
-    # ε as a float32 tensor, not a Python scalar: CUDA divides by a scalar
-    # as a product with its reciprocal, which is not the float32 quotient
-    eps = torch.tensor(epsilon, dtype=torch.float32, device=dev)
-    log_c = horizon_log(torch.tensor(float(c), dtype=torch.float32,
-                                     device=dev))
-    r1 = torch.ceil(horizon_log(diff / eps) / log_c)
+    eps32 = np.float32(epsilon)
+    inv_eps = torch.tensor(np.float32(1.0) / eps32, device=dev)
+    inv_log_c = torch.tensor(np.float32(1.0) / np.float32(math.log(c)),
+                             device=dev)
+    r1 = torch.ceil(horizon_log(diff * inv_eps) * inv_log_c)
     # diff/ε past float32's range (a tiny ε) makes r1 +inf, and maxR
     # saturates as XLA converts it; the -inf or NaN of an empty or
     # one-valued V is discarded below, zeroed first so the cast is defined
     r1i = torch.nan_to_num(r1, nan=0.0, posinf=0.0, neginf=0.0).to(
         torch.int32)
     r1i = torch.where(torch.isposinf(r1), _INT32_MAX, r1i)
-    return torch.where(diff <= eps, 0, r1i)
+    return torch.where(diff <= torch.tensor(eps32, device=dev), 0, r1i)
 
 
 @struct

@@ -766,7 +766,8 @@ def dryrun(n_devices: int, devices=None) -> None:
     Segments: the general engine (sharded_simulate), the scenario-sharded
     whole-run loop kernel, the proc-sharded fast path through the library
     gather, the same through the hand-written exchange, the guarded-send
-    path (TPC), and the count-rank ε-agreement engine (dryrun_eps)."""
+    path (TPC), the count-rank ε-agreement engine (dryrun_eps) and the
+    PBFT view-change engine (dryrun_pbft_vc)."""
     from round_tpu_torch.engine import fast, scenarios
     from round_tpu_torch.engine.executor import simulate
     from round_tpu_torch.models.otr import OTR, OtrState
@@ -856,6 +857,7 @@ def dryrun(n_devices: int, devices=None) -> None:
     print("dryrun_multichip guarded-send sharded path ok: TPC coordinator "
           "guard gathered with the payload, bit-parity vs single-device")
     dryrun_eps(n_devices, devs)
+    dryrun_pbft_vc(n_devices, devs)
 
 
 def dryrun_eps(n_devices: int, devices=None) -> None:
@@ -897,3 +899,41 @@ def dryrun_eps(n_devices: int, devices=None) -> None:
     print("dryrun_multichip eps-fused ok: count-rank engine scenario-"
           f"sharded over {n_devices} devices, raw-bit parity vs "
           "single-device")
+
+
+def dryrun_pbft_vc(n_devices: int, devices=None) -> None:
+    """The dry run's PBFT view-change segment (round_tpu/parallel/mesh.py::
+    _dryrun_cpu, the view-change family): the 6-round batched engine
+    (engine.fast.run_pbft_vc_fast) scenario-sharded over an n_devices line
+    mesh, bit for bit against the mesh's first device alone — per-lane
+    views make the coordinator a per-receiver gather and the
+    distributedState accumulators [S, n, n] planes, all of which must shard
+    along the scenario axis.  n=16, S=2 per device, 12 rounds, the
+    four-family mix with f=3 crashes from round 0.  The run must decide."""
+    from round_tpu_torch.engine import fast
+    from round_tpu_torch.models.pbft import PbftVcState
+
+    devs = list(devices) if devices is not None else _visible_devices()
+    devs = [torch.device(d) for d in devs]
+    if len(devs) < n_devices:
+        raise RuntimeError(f"dryrun wants {n_devices} devices, have "
+                           f"{len(devs)}")
+    dev0 = devs[0]
+    n6, S6, r6 = 16, 2 * n_devices, 12
+    x6 = (torch.arange(n6, dtype=torch.int32, device=dev0) * 7 + 3) % 100
+    gen = torch.Generator(device=dev0).manual_seed(19)
+    mix6 = fast.standard_mix(gen, S6, n6, p_drop=0.15, f=3, crash_round=0,
+                             device=dev0)
+    st6 = PbftVcState.fresh(x6, S6, n6)
+    sp = P(SCENARIO_AXIS)
+    line = Mesh.line(devs[:n_devices], SCENARIO_AXIS)
+    got = shard_map(lambda st, mx: fast.run_pbft_vc_fast(st, mx, r6), line,
+                    in_specs=(sp, sp), out_specs=(sp, sp, sp))(st6, mix6)
+    ref = fast.run_pbft_vc_fast(st6, mix6, r6)
+    _assert_tree_parity(got, ref, "scenario-sharded view-change engine "
+                        "diverged from single-device")
+    _check(bool(got[0].decided.any()), "view-change dryrun decided nothing")
+    print("dryrun_multichip view-change family ok: 6-round byzantine engine "
+          f"scenario-sharded over {n_devices} devices, n={n6} scenarios="
+          f"{S6}, bit-parity vs single-device, decided_lanes="
+          f"{int(got[0].decided.sum())}/{S6 * n6}")

@@ -7,9 +7,10 @@ omission, crash) from its keys, the masks replay in the port through
 ``from_schedule``, and every state leaf is compared as raw bits (NaN
 decisions of undecided lanes included), with ``decided_round`` and
 ``done`` (tolerance 0).  The horizon ⌈log(diff/ε)/log c⌉ is held against
-the reference's model code over random spreads; at spreads of exactly
-ε·c^k the two packages' float32 logs can differ in the last place and
-flip the ceiling, and ``test_horizon_exact_spreads`` pins where."""
+the reference's model code over random spreads and at spreads of exactly
+ε·c^k, where the ceiling would flip on a last-place difference of the two
+packages' float32 logs (``test_horizon_exact_spreads``); the port's log is
+XLA's CPU log, emulated (``test_horizon_log_*``)."""
 
 import math
 
@@ -210,14 +211,11 @@ def test_horizon_random_spreads(shape, eps):
 @pytest.mark.parametrize("eps", [0.5, 0.1])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"n{s[0]}f{s[1]}")
 def test_horizon_exact_spreads(shape, eps):
-    """Spreads of exactly ε·c^k (float32) and their float32 neighbours.
-    Where c is a power of two (the rung's c = 4) the horizons agree.
-    Elsewhere round_tpu's float32 log (XLA on the CPU) and the port's
-    (float32 rounding of the float64 log) differ in the last place for
-    some of these spreads, and log(diff/ε)/log(c) then lands on either
-    side of the integer k; every disagreement must be exactly that case —
-    the port's quotient within 4 ulp of an integer, the horizons one apart
-    — and the test records how many there are."""
+    """Spreads of exactly ε·c^k (float32) and their float32 neighbours,
+    where log(diff/ε)/log(c) lands on or next to an integer: the horizons
+    equal round_tpu's, c a power of two (the rung's c = 4) or not (3, 7).
+    The port's horizon_log is XLA's float32 CPU log bit for bit, and log(c)
+    the correctly rounded constant XLA folds."""
     n, f = shape
     c = TEps(n, f=f, epsilon=eps).rounds[0].c
     e32 = np.float32(eps)
@@ -227,15 +225,49 @@ def test_horizon_exact_spreads(shape, eps):
     sp = np.concatenate([exact, np.nextafter(exact, np.float32(np.inf)),
                          np.nextafter(exact, np.float32(0))])
     got, want = _horizons(n, f, eps, sp)
-    off = got != want
-    if c & (c - 1) == 0:
-        assert not off.any(), sp[off]
-        return
-    q = (torch.log(torch.from_numpy(sp / e32).double()).float()
-         / torch.log(torch.tensor(float(c)).double()).float()).numpy()
-    near = np.abs(q - np.round(q)) <= 4 * np.spacing(np.abs(q))
-    assert (np.abs(got[off] - want[off]) == 1).all()
-    assert near[off].all(), sp[off & ~near]
+    np.testing.assert_array_equal(got, want)
+
+
+def _xla_log_matches(bits: np.ndarray) -> np.ndarray:
+    """Where the port's horizon_log gives jnp.log's bits (NaN for NaN)."""
+    from round_tpu_torch.models.epsilon import horizon_log
+
+    x = bits.view(np.float32)
+    want = np.asarray(jax.jit(jnp.log)(jnp.asarray(x)))
+    got = horizon_log(torch.from_numpy(x.copy())).numpy()
+    return ((got.view(np.uint32) == want.view(np.uint32))
+            | (np.isnan(got) & np.isnan(want)))
+
+
+def test_horizon_log_is_xla_log_on_a_sample():
+    """2^20 float32 bit patterns drawn over the whole range (negative,
+    subnormal, NaN and infinite ones among them) and the edge values: the
+    port's emulation of XLA's CPU log gives jnp.log's bits on every one."""
+    rng = np.random.default_rng(9)
+    bits = np.concatenate([
+        rng.integers(0, 2**32, 2**19, dtype=np.uint64).astype(np.uint32),
+        rng.integers(0x00800000, 0x7F800000, 2**19, dtype=np.uint32),
+        np.array([0, 1, 0x007FFFFF, 0x00800000, 0x00800001, 0x3F3504F2,
+                  0x3F3504F3, 0x3F3504F4, 0x3F800000, 0x3F7FFFFF,
+                  0x7F7FFFFF, 0x7F800000, 0x7FC00000, 0x80000000,
+                  0x80000001, 0xBF800000, 0xFF800000], dtype=np.uint32)])
+    ok = _xla_log_matches(bits)
+    assert ok.all(), bits[~ok][:10]
+
+
+@pytest.mark.slow
+def test_horizon_log_full_sweep():
+    """Every positive float32 (subnormal, normal, +inf: 2^31 − 2^23 bit
+    patterns, in chunks of 2^24): the port's horizon_log against jnp.log,
+    bit for bit.  ~10 minutes on 8 CPU threads: run it with
+    ``pytest tests/test_torch_epsilon.py -m slow -k full_sweep -s``."""
+    chunk, top, bad = 1 << 24, 0x7F800001, 0
+    for lo in range(1, top, chunk):
+        bits = np.arange(lo, min(lo + chunk, top), dtype=np.uint32)
+        bad += int((~_xla_log_matches(bits)).sum())
+    print(f"horizon_log vs jnp.log: {bad} of {top - 1} positive float32 "
+          "differ")
+    assert bad == 0
 
 
 # -- the fifth rung and the dry run's ε segment, small, on the CPU ----------

@@ -48,7 +48,18 @@ def test_port_files_exist():
                  "round_tpu_torch/models/lastvoting_event.py",
                  "round_tpu_torch/models/tpc_event.py",
                  "round_tpu_torch/engine/epsfast.py",
-                 "round_tpu_torch/ops/detsum.py", "chip_smoke.py"):
+                 "round_tpu_torch/ops/detsum.py",
+                 "round_tpu_torch/models/kset.py",
+                 "round_tpu_torch/models/failure_detector.py",
+                 "round_tpu_torch/models/theta.py",
+                 "round_tpu_torch/models/pbft.py",
+                 "round_tpu_torch/models/mutex.py",
+                 "round_tpu_torch/models/gameoflife.py",
+                 "round_tpu_torch/utils/byzantine.py",
+                 "round_tpu_torch/obs/__init__.py",
+                 "round_tpu_torch/obs/metrics.py",
+                 "round_tpu_torch/obs/trace.py",
+                 "round_tpu_torch/apps/selector.py", "chip_smoke.py"):
         assert want in names
 
 

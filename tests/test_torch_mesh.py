@@ -459,9 +459,23 @@ def test_mesh_defaults_to_the_cards():
 def test_dryrun_on_cpu_devices(capsys):
     tmesh.dryrun(8, devices=[CPU] * 8)
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 6 and all(
+    assert len(lines) == 7 and all(
         ln.startswith("dryrun_multichip") and " ok" in ln for ln in lines)
+    assert lines[-1].startswith("dryrun_multichip view-change family ok")
     with pytest.raises(RuntimeError, match="wants 8 devices, have 2"):
         tmesh.dryrun(8, devices=[CPU] * 2)
     with pytest.raises(AssertionError, match="boom"):
         tmesh._assert_tree_parity((torch.zeros(2),), (torch.ones(2),), "boom")
+
+
+def test_dryrun_pbft_vc_segment_on_a_cpu_thread_mesh(capsys):
+    """The dry run's PBFT view-change segment alone, on a 1 x 4 line of CPU
+    devices (scenario-sharded, bit for bit against one device; it must
+    decide), and its device-count check."""
+    tmesh.dryrun_pbft_vc(4, devices=[CPU] * 4)
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 1
+    assert out[0].startswith("dryrun_multichip view-change family ok")
+    assert "scenarios=8" in out[0]
+    with pytest.raises(RuntimeError, match="wants 4 devices, have 3"):
+        tmesh.dryrun_pbft_vc(4, devices=[CPU] * 3)

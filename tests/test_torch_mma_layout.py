@@ -262,6 +262,42 @@ def test_model_counts_equal_hist_exchange_plain(n, mode, with_side):
         assert torch.equal(got.to(torch.float32), want[s]), int(p8[s])
 
 
+def exchange_counts_by_pass(vals, senders, side, salt0, salt1r, p8, V,
+                            mode):
+    """K2's counts at any V as the kernel runs them: passes of 16 values
+    (csrc/hist_exchange.cu's v0 loop), each a product over the values in
+    [v0, v0 + 16) ∩ [0, V), stacked: [V, n]."""
+    return torch.cat([
+        exchange_counts(vals - v0, senders, side, salt0, salt1r, p8,
+                        min(16, V - v0), mode)
+        for v0 in range(0, V, 16)])
+
+
+@pytest.mark.parametrize("V", [24, 32])
+@pytest.mark.parametrize("n,with_side,mode", [
+    (64, False, "hash"), (64, False, "hw"), (64, True, "hash"),
+    (64, True, "hw"), (200, True, "hash"), (200, False, "hw")])
+def test_model_value_passes_equal_hist_exchange_plain(n, with_side, mode, V):
+    """Past 16 values K2 takes a second pass of its value loop: V = 32 is
+    KSet's doubled domain (engine.fast.KSetESHist at n_values = 16), V = 24
+    a pass that is half full.  Payloads outside [0, V) count nowhere."""
+    vals, active, colmask, side, salt0, salt1r, p8 = _inputs(
+        n, len(P8_GRID), 11 * n + V + with_side, with_side)
+    rng = np.random.default_rng(V * n)
+    vals = torch.as_tensor(rng.integers(-1, V + 2, vals.shape,
+                                        dtype=np.int32))
+    senders = colmask & active & (p8 < 256)[:, None]
+    want = fused._hist_exchange_plain(vals, senders, None, side, salt0,
+                                      salt1r, p8, V, mode)
+    for s in range(len(P8_GRID)):
+        got = exchange_counts_by_pass(
+            vals[s].to(torch.int64), senders[s],
+            None if side is None else side[s], int(salt0[s]),
+            int(salt1r[s]), p8[s], V, mode)
+        assert got.shape == (V, n)
+        assert torch.equal(got.to(torch.float32), want[s]), int(p8[s])
+
+
 def _round0_model(algo, x0, crashed, side, crash_round, heal_round,
                   rotate_down, p8, salt0, salt1, mode):
     """Round 0 of K1's tensor-core instances for one scenario, as the
