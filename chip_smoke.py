@@ -142,9 +142,26 @@ Phases, each printed as one line:
   ring-peers       the same checks and time over distinct cards, where more
                    than one is visible; otherwise it says it skipped
 
+  fuzz-eval        the fault-schedule fuzzer (round_tpu_torch/fuzz, no kernel
+                   of its own): one evaluation of 1,024 OTR genomes (n=4,
+                   12 rounds) on the card, every outcome field and the score
+                   bit for bit against the CPU, run_round steps = horizon
+  fuzz-search      the documented search shape: OTR, n=4, 12 rounds, pop
+                   1,024, 30 generations, one evaluation each
+  fuzz-value       PBFT and PBFT-VC in-envelope value sweeps (pop 512, 10
+                   generations, one liar at most): no honest safety
+                   violation; the first generation equal to the CPU's
+  fuzz-minimize    the known-bad genome minimized on the card and the CPU
+  fuzz-pop         one evaluation at P = 1,024, 4,096, 16,384: ms,
+                   schedules/sec, peak GiB above what was held before, the
+                   device's kernels and copies
+                   (torch.profiler) and host syncs; kernels must not grow
+                   with P, syncs stay below one a round
+
 With ``--only sharded`` the script builds the kernels and runs the K4 and
 sharded phases alone; with ``--only peers`` just K4-vs-plain and ring-peers
-(for a machine with several cards).
+(for a machine with several cards); with ``--only fuzz`` the five fuzz
+phases.  The fuzz phases print one JSON line each, with a "phase" key.
 
 Then the card's name and power limit as nvidia-smi reports them, a
 {"kernels": [...]} line (per kernel: launches on its path — K2's rows
@@ -1705,6 +1722,252 @@ def families_wide(torch, dev, shapes=FAMILY_SHAPES) -> dict:
     return kset_launches
 
 
+# the fuzzer's phases: the documented search shape (docs/FUZZING.md, the
+# fuzz CLI's defaults), the cross-check's in-envelope sweep shape, the
+# known-bad genome of the tier-1 smoke, and the population ladder
+FUZZ_N, FUZZ_H, FUZZ_POP, FUZZ_GENS = 4, 12, 1024, 30
+FUZZ_VALUE_POP, FUZZ_VALUE_GENS = 512, 10
+FUZZ_POPS = (1024, 4096, 16384)
+FUZZ_FIELDS = ("decided", "decision", "decided_round", "decide_round",
+               "agreement_viol", "validity_viol", "coverage", "undecided",
+               "score")
+
+
+def say_json(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def same_outcome(what, got, want, keys) -> None:
+    """Every field bit for bit (floats in raw bits)."""
+    import numpy as np
+
+    for k in keys:
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        require(a.dtype == b.dtype and a.shape == b.shape,
+                f"{what}: {k} is {a.dtype}{a.shape}, want {b.dtype}{b.shape}")
+        if a.dtype.kind == "f":
+            a, b = a.view(np.uint32), b.view(np.uint32)
+        require(bool((a == b).all()), f"{what}: {k} differs from the CPU's")
+
+
+@contextlib.contextmanager
+def round_steps():
+    """Count executor.run_round calls (one a round for the whole
+    population when the evaluation is batched)."""
+    from round_tpu_torch.engine import executor
+
+    count = [0]
+    inner = executor.run_round
+
+    def counting(*a, **kw):
+        count[0] += 1
+        return inner(*a, **kw)
+
+    executor.run_round = counting
+    try:
+        yield count
+    finally:
+        executor.run_round = inner
+
+
+def device_syncs(torch, fn):
+    """(result, host-device synchronisations fn made), counted by torch's
+    sync debug mode (each cudaStreamSynchronize or blocking copy warns)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in seen)
+
+
+def profiled_launches(torch, fn):
+    """(kernels, memcpy/memset) the device ran during fn, from
+    torch.profiler's CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = evt.name.lower()
+        if "memcpy" in name or "memset" in name:
+            copies += 1
+        else:
+            kernels += 1
+    return kernels, copies
+
+
+def fuzz_phases(torch, dev) -> dict:
+    """The fault-schedule fuzzer (round_tpu_torch/fuzz) on the card: one
+    batched evaluation per generation, held against the same work on the
+    CPU.  Returns the numbers the summary line carries."""
+    import numpy as np
+
+    from round_tpu_torch.fuzz import genome, minimize, objectives
+    from round_tpu_torch.fuzz.search import make_target, search
+    from round_tpu_torch.obs.metrics import METRICS
+
+    cpu = torch.device("cpu")
+    gib = 2.0 ** 30
+    out = {}
+
+    # -- fuzz-eval: one evaluation on the card against the CPU ---------------
+    t_dev = make_target("otr", FUZZ_N, FUZZ_H, seed=0, device=dev)
+    t_cpu = make_target("otr", FUZZ_N, FUZZ_H, seed=0, device=cpu)
+    pop = genome.seed_population(0, FUZZ_POP, FUZZ_N, FUZZ_H)
+    with round_steps() as steps:
+        got = t_dev.evaluate(pop)
+    ms, _ = event_ms(lambda: t_dev.evaluate(pop))   # warm, then timed
+    want = t_cpu.evaluate(pop)
+    same_outcome("fuzz-eval", got, want, FUZZ_FIELDS)
+    require(steps[0] == t_dev.horizon,
+            f"fuzz-eval: {steps[0]} run_round steps, horizon {t_dev.horizon}")
+    say_json("fuzz-eval", protocol="otr", n=FUZZ_N, horizon=t_dev.horizon,
+             P=FUZZ_POP, fields_bit_equal=list(FUZZ_FIELDS),
+             score_tolerance=0, ms=round(ms, 3),
+             run_round_steps=steps[0],
+             decided_frac=float(got["decided"].mean()))
+    out["eval_ms"] = ms
+
+    # -- fuzz-search: the documented CLI shape, run to the end ---------------
+    spent = [0.0]
+    inner_eval = t_dev.evaluate
+
+    def timed_eval(p):
+        t0 = time.perf_counter()
+        try:
+            return inner_eval(p)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    t_dev.evaluate = timed_eval
+    d0 = METRICS.counter("fuzz.dispatches").value
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = search(t_dev, pop_size=FUZZ_POP, generations=FUZZ_GENS, seed=0)
+    peak = (torch.cuda.max_memory_allocated() - base) / gib
+    del t_dev.evaluate
+    dispatches = METRICS.counter("fuzz.dispatches").value - d0
+    require(dispatches == FUZZ_GENS and res.generations == FUZZ_GENS,
+            f"fuzz-search: {dispatches} evaluations in {res.generations} "
+            f"generations, want {FUZZ_GENS}")
+    require(bool(np.isfinite(res.best_score)), "fuzz-search: best score")
+    say_json("fuzz-search", protocol="otr", n=FUZZ_N, horizon=FUZZ_H,
+             pop=FUZZ_POP, generations=res.generations, seed=0,
+             dispatches=dispatches, evaluated=res.evaluated,
+             schedules_per_sec=res.schedules_per_sec, wall_s=res.wall_s,
+             evaluate_share=spent[0] / res.wall_s,
+             operators_share=1.0 - spent[0] / res.wall_s, peak_gib=peak,
+             best_score=res.best_score,
+             coverage_cells=int(res.coverage_map.sum()),
+             n_cells=t_dev.n_cells)
+    out["search_schedules_per_sec"] = res.schedules_per_sec
+
+    # -- fuzz-value: the in-envelope value sweeps ------------------------------
+    cap = genome.value_cap_default(FUZZ_N)
+    for proto in ("pbft", "pbft-vc"):
+        tv = make_target(proto, FUZZ_N, FUZZ_H, seed=0, device=dev)
+        tc = make_target(proto, FUZZ_N, FUZZ_H, seed=0, device=cpu)
+        gens = []
+        inner_v = tv.evaluate
+
+        def record(p, inner_v=inner_v, gens=gens):
+            o = inner_v(p)
+            gens.append((p, o))
+            return o
+
+        tv.evaluate = record
+        res = search(tv, pop_size=FUZZ_VALUE_POP,
+                     generations=FUZZ_VALUE_GENS, seed=0, value_cap=cap)
+        viol = [int(((o["agreement_viol"] + o["validity_viol"]) > 0).sum())
+                for _, o in gens]
+        liars = [int((p.byz_value.any(axis=1) & (p.equiv_p8 > 0)).sum())
+                 for p, _ in gens]
+        require(len(gens) == FUZZ_VALUE_GENS,
+                f"fuzz-value {proto}: {len(gens)} generations")
+        require(not any(viol),
+                f"fuzz-value {proto}: honest safety violations {viol}")
+        require(liars[-1] > 0, f"fuzz-value {proto}: no liar was evolved")
+        same_outcome(f"fuzz-value {proto}", gens[0][1],
+                     tc.evaluate(gens[0][0]), FUZZ_FIELDS)
+        say_json("fuzz-value", protocol=proto, n=FUZZ_N,
+                 horizon=tv.horizon, pop=FUZZ_VALUE_POP,
+                 generations=res.generations, value_cap=cap,
+                 evaluated=res.evaluated, violations_per_gen=viol,
+                 active_liars_per_gen=liars, first_gen_equal_cpu=True,
+                 schedules_per_sec=res.schedules_per_sec,
+                 best_score=res.best_score)
+
+    # -- fuzz-minimize: the known-bad genome of the tier-1 smoke ---------------
+    bad = {"crashed": np.zeros(4, bool), "crash_round": np.int32(0),
+           "side": np.array([0, 0, 1, 1], np.int32),
+           "heal_round": np.int32(8), "rotate_down": np.int32(0),
+           "p8": np.int32(128), "salt0": np.int32(77),
+           "salt1": np.int32(88), "byz": np.zeros(4, bool)}
+    pred = objectives.undecided_at_horizon(4)
+    t0 = time.perf_counter()
+    mr = minimize.minimize(make_target("otr", 4, 8, seed=0, device=dev),
+                           bad, pred)
+    wall = time.perf_counter() - t0
+    mc = minimize.minimize(make_target("otr", 4, 8, seed=0, device=cpu),
+                           bad, pred)
+    require((mr.dropped_initial, mr.dropped_final, mr.iterations)
+            == (mc.dropped_initial, mc.dropped_final, mc.iterations),
+            "fuzz-minimize: the counts differ from the CPU's")
+    require(bool((mr.schedule == mc.schedule).all()),
+            "fuzz-minimize: the minimal schedule differs from the CPU's")
+    for f in mc.genome_row:
+        require(bool((np.asarray(mr.genome_row[f])
+                      == np.asarray(mc.genome_row[f])).all()),
+                f"fuzz-minimize: genome_row[{f}] differs from the CPU's")
+    require(mr.dropped_final < mr.dropped_initial,
+            "fuzz-minimize: nothing was shrunk")
+    say_json("fuzz-minimize", protocol="otr", n=4, horizon=8,
+             predicate=pred.__name__, dropped_initial=mr.dropped_initial,
+             dropped_final=mr.dropped_final, iterations=mr.iterations,
+             equal_cpu=True, wall_s=wall)
+
+    # -- fuzz-pop: the population ladder ---------------------------------------
+    t_dev = make_target("otr", FUZZ_N, FUZZ_H, seed=0, device=dev)
+    rows = []
+    for P in FUZZ_POPS:
+        pop = genome.seed_population(0, P, FUZZ_N, FUZZ_H)
+        t_dev.evaluate(pop)                                # warm
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        t_dev.evaluate(pop)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / gib
+        _, syncs = device_syncs(torch, lambda: t_dev.evaluate(pop))
+        kernels, copies = profiled_launches(torch,
+                                            lambda: t_dev.evaluate(pop))
+        row = {"P": P, "ms": wall_ms, "schedules_per_sec": P / wall_ms * 1e3,
+               "peak_gib": peak, "kernels": kernels, "copies": copies,
+               "syncs": syncs}
+        rows.append(row)
+        say_json("fuzz-pop", protocol="otr", n=FUZZ_N, horizon=FUZZ_H, **row)
+    require(len({r["kernels"] for r in rows}) == 1,
+            f"fuzz-pop: kernel launches grow with P: "
+            f"{[r['kernels'] for r in rows]}")
+    # staging in and the outcome out: a few syncs an evaluation, never one
+    # a round
+    require(max(r["syncs"] for r in rows) < FUZZ_H,
+            f"fuzz-pop: host syncs {[r['syncs'] for r in rows]} reach the "
+            f"{FUZZ_H} rounds of an evaluation")
+    out["pop"] = rows
+    return out
+
+
 def main() -> None:
     if not (ROOT / "round_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: round_tpu_torch/csrc is not beside "
@@ -1775,9 +2038,13 @@ def main() -> None:
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
         else None
     if only is not None:
-        require(only in ("sharded", "peers"), f"unknown --only {only}")
+        require(only in ("sharded", "peers", "fuzz"),
+                f"unknown --only {only}")
         if only == "sharded":
             part = sharded_phases(torch, gen)
+        elif only == "fuzz":
+            fuzz_phases(torch, dev)
+            part = []
         else:
             k4_vs_plain(torch, gen)
             part = [ring_peers(torch, gen)]
@@ -2250,6 +2517,9 @@ def main() -> None:
             "a rung of the bench's ladder arm lost parity")
 
     event_models(torch, dev)
+
+    # -- 6b'. the fault-schedule fuzzer (no kernel of its own) ---------------
+    fuzz_phases(torch, dev)
 
     # -- 6b''. the last histogram slice's engines at their users' widths ----
     kset_launches = families_wide(torch, dev)

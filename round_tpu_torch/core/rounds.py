@@ -87,17 +87,24 @@ def _lane_device(ctx: RoundCtx):
     return torch.as_tensor(ctx.id).device
 
 
+def _guard(guard, dev) -> torch.Tensor:
+    """A send guard as a tensor on ``dev``; a Python bool is filled there
+    (no host-to-device copy, which would wait for the device)."""
+    if isinstance(guard, torch.Tensor):
+        return guard.to(dev)
+    return torch.full((), bool(guard), dtype=torch.bool, device=dev)
+
+
 def broadcast(ctx: RoundCtx, payload: Any, guard=True) -> SendSpec:
     """Send ``payload`` to everyone (including self).  Round.scala:102-104."""
-    g = torch.as_tensor(guard, device=_lane_device(ctx))
+    g = _guard(guard, _lane_device(ctx))
     return SendSpec(payload, g.expand((ctx.n,)))
 
 
 def unicast(ctx: RoundCtx, dest, payload: Any, guard=True) -> SendSpec:
     """Send ``payload`` to the single process ``dest`` (e.g. the coordinator)."""
     dev = _lane_device(ctx)
-    mask = (torch.arange(ctx.n, device=dev) == dest) & torch.as_tensor(
-        guard, device=dev)
+    mask = (torch.arange(ctx.n, device=dev) == dest) & _guard(guard, dev)
     return SendSpec(payload, mask)
 
 

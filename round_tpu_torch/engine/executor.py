@@ -1,7 +1,7 @@
 """The round engine: lockstep execution of an Algorithm.
 
-Port of round_tpu/engine/executor.py (the scenario engine; the adversary
-hook and the serving-lane half are later slices).  Execution shape:
+Port of round_tpu/engine/executor.py (the scenario engine with its value-
+adversary hook; the serving-lane half is not ported yet).  Execution shape:
 
   - per-lane user functions are batched over the process axis with
     ``torch.func.vmap`` (``ctx`` is built inside the vmapped function),
@@ -73,12 +73,23 @@ class LocalTopology:
         return _fmix32(z)
 
 
-def run_round(rnd, state, done, r: int, ho, key, topo):
+def run_round(rnd, state, done, r: int, ho, key, topo, adversary=None,
+              adv_class: int = 0, adv_prev=None):
     """Execute one communication-closed round on this device's lane slice
-    (round_tpu/engine/executor.py::run_round without the adversary hook)."""
+    (round_tpu/engine/executor.py::run_round).
+
+    With an ``adversary`` (byz/adversary.py ValueAdversary) the mailbox
+    values each receiver folds are per-receiver substitutions of the
+    truthful payload (equivocation, stale replay), folded by the same
+    vmapped update; ``adv_class`` is the static round-class index (the lie
+    model's dispatch), ``adv_prev`` the class's stale carry, and the
+    return is ``(state, done, new_prev)``.  ``adversary=None`` runs the
+    round without any of it.  Value adversaries run on LocalTopology
+    only."""
     n = topo.n
     ids = topo.lane_ids()
-    r_t = torch.tensor(r, dtype=torch.int32, device=ids.device)
+    # filled on the device: a host-to-device copy would wait for it
+    r_t = torch.full((), r, dtype=torch.int32, device=ids.device)
     active_local = torch.logical_not(done)
 
     # pre (EventRound init slot): runs before send, visible to send+update
@@ -99,6 +110,27 @@ def run_round(rnd, state, done, r: int, ho, key, topo):
     dest = topo.gather(dest_loc)
     active = topo.gather(active_local)
     deliver = topo.ho_rows(ho) & topo.dest_cols(dest) & active[None, :]
+
+    if adversary is not None:
+        # the substitution tensor is [n_recv, n_send, ...]: sharded
+        # receivers would need their slice of it
+        if not isinstance(topo, LocalTopology):
+            raise NotImplementedError(
+                "value adversaries run on LocalTopology only")
+        values, new_prev = adversary.apply(adv_class, r, payload, dest,
+                                           adv_prev)
+
+        def _update_adv(i, s, mbox_mask, k, vals):
+            ctx = RoundCtx(id=i, n=n, r=r_t, rng=k)
+            s2 = rnd.update(ctx, s, Mailbox(vals, mbox_mask))
+            return s2, ctx._exit
+
+        new_state, exit_flags = vmap(_update_adv)(
+            ids, state, deliver, topo.lane_keys(key, r), values)
+        state = tree_where(active_local, new_state, state)
+        done = torch.logical_or(done,
+                                torch.logical_and(active_local, exit_flags))
+        return state, done, new_prev
 
     # update: per-lane fold of the mailbox into the state
     def _update(i, s, mbox_mask, k):
@@ -133,6 +165,25 @@ def init_lanes(algo: Algorithm, io: Any, n: int, topo) -> Any:
     return vmap(_init)(topo.lane_ids(), io)
 
 
+def adversary_prev0(algo: Algorithm, state0, topo, adversary) -> tuple:
+    """The stale carry's start, one per round class: zeros shaped like the
+    class's payload, from a send trace on ``state0`` (round_tpu/engine/
+    executor.py::run_phases' ``_payload_zero``)."""
+    ids = topo.lane_ids()
+
+    def _payload_zero(j, rnd):
+        r_j = torch.full((), j, dtype=torch.int32, device=ids.device)
+
+        def _s(i, s):
+            ctx = RoundCtx(id=i, n=topo.n, r=r_j)
+            return rnd.send(ctx, rnd.pre(ctx, s)).payload
+
+        return tree_map(torch.zeros_like, vmap(_s)(ids, state0))
+
+    return tuple(adversary.init_prev(_payload_zero(j, rnd))
+                 for j, rnd in enumerate(algo.rounds))
+
+
 def run_phases(
     algo: Algorithm,
     state0: Any,
@@ -141,9 +192,15 @@ def run_phases(
     max_phases: int,
     topo,
     record_fn: Optional[Callable[[Any, torch.Tensor, int], Any]] = None,
+    adversary=None,
 ):
     """Run `max_phases` phases over an initialized lane slice.  Returns
-    (state, done, decided_round, recorded)."""
+    (state, done, decided_round, recorded).
+
+    With an ``adversary`` (byz/adversary.py ValueAdversary) every round's
+    mailbox values pass through the value-substitution hook (run_round),
+    and one (ever-sent, last-sent payload) stale carry per round class
+    rides along (round_tpu/engine/executor.py::run_phases)."""
     k_rounds = algo.rounds_per_phase
     if k_rounds < 1:
         raise ValueError("algorithm has no rounds")
@@ -153,12 +210,19 @@ def run_phases(
     state = state0
     done = torch.zeros((n_local,), dtype=torch.bool, device=dev)
     decided_round = torch.full((n_local,), -1, dtype=torch.int32, device=dev)
+    prev = (list(adversary_prev0(algo, state0, topo, adversary))
+            if adversary is not None else None)
     recs = []
     for phase in range(max_phases):
         for j, rnd in enumerate(algo.rounds):
             r = phase * k_rounds + j
             ho = ho_sampler(key, r)
-            state, done = run_round(rnd, state, done, r, ho, key, topo)
+            if adversary is not None:
+                state, done, prev[j] = run_round(
+                    rnd, state, done, r, ho, key, topo, adversary=adversary,
+                    adv_class=j, adv_prev=prev[j])
+            else:
+                state, done = run_round(rnd, state, done, r, ho, key, topo)
             dec = _decided_or_false(algo, state, n_local, dev)
             decided_round = torch.where(dec & (decided_round < 0), r,
                                         decided_round)

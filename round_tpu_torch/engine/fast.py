@@ -62,8 +62,15 @@ class FaultMix:
       p8:           [S] int32 — iid per-link drop threshold (p = p8/256)
       salt0/salt1:  [S] int32 — hash-sampler salts (uint32 bit patterns)
 
-    round_tpu's value-adversary fields (byz_value, equiv_p8, stale_p8) are
-    not ported: no path of the port reads them.
+    The value-adversary fields (optional, None by default; no fast engine
+    reads them, the general engine's adversary hook does —
+    byz/adversary.py, fuzz/search.py):
+
+      byz_value:    [S, n] bool — senders that lie
+      equiv_p8:     [S] int32 — per-(round, src, dst) substitution
+                    threshold (p = equiv_p8/256) under STREAM_BYZ_VAL
+      stale_p8:     [S] int32 — stale-replay threshold under
+                    STREAM_BYZ_STALE
     """
 
     crashed: torch.Tensor
@@ -74,6 +81,9 @@ class FaultMix:
     p8: torch.Tensor
     salt0: torch.Tensor
     salt1: torch.Tensor
+    byz_value: Optional[torch.Tensor] = None
+    equiv_p8: Optional[torch.Tensor] = None
+    stale_p8: Optional[torch.Tensor] = None
 
     @property
     def n(self) -> int:

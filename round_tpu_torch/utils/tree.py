@@ -15,18 +15,27 @@ import torch.utils._pytree as pytree
 
 def struct(cls):
     """Frozen dataclass of tensors with ``replace``, registered as a pytree
-    node (every field is a child; None children are empty subtrees)."""
+    node (every field is a child; a None field is no child at all, so
+    ``tree_map`` never sees it — torch's pytree would take it for a
+    leaf)."""
     cls = dataclasses.dataclass(frozen=True)(cls)
     names = tuple(f.name for f in dataclasses.fields(cls))
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
 
+    def flatten(obj):
+        values = [getattr(obj, k) for k in names]
+        return ([v for v in values if v is not None],
+                tuple(v is not None for v in values))
+
+    def unflatten(children, present):
+        it = iter(children)
+        return cls(*[next(it) if p else None for p in present])
+
     cls.replace = replace
     pytree.register_pytree_node(
-        cls,
-        lambda obj: ([getattr(obj, k) for k in names], None),
-        lambda children, _ctx: cls(*children),
+        cls, flatten, unflatten,
         serialized_type_name=f"{cls.__module__}.{cls.__qualname__}",
     )
     return cls

@@ -8,7 +8,8 @@ of K1 and K2 at n = 1008, in sided rounds, with receivers finishing early
 and with the one-hot in device memory, the probes P1 and P2 (sizes that
 are not a multiple of 4, views off a 16-byte boundary), and K4 over
 shards of one card (its local kernel on both paths, the launches per
-path):
+path); and the fuzzer's batched evaluator and minimizer (no kernel of
+their own) on the card against the CPU:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -514,3 +515,76 @@ def test_lean_route_on_a_side_stream(dev):
     for g_, w_ in zip(got, want):
         for a, b in zip(g_, w_):
             assert torch.equal(a, b)
+
+
+# -- the fault-schedule fuzzer (no kernel of its own): the batched
+# evaluator and the minimizer on the card against the CPU ----------------
+
+_FUZZ_FIELDS = ("decided", "decision", "decided_round", "decide_round",
+                "agreement_viol", "validity_viol", "coverage", "undecided",
+                "score")
+
+
+def _same_fuzz_outcome(got, want, keys):
+    import numpy as np
+
+    for k in keys:
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        if a.dtype.kind == "f":
+            a, b = a.view(np.uint32), b.view(np.uint32)
+        assert (a == b).all(), k
+
+
+@pytest.mark.parametrize("proto", ["otr", "lastvoting", "pbft", "pbft-vc"])
+def test_fuzz_evaluate_on_card_matches_cpu(dev, proto):
+    """FuzzTarget.evaluate (P=256, n=4, liars in play) and
+    evaluate_schedules with plans, on cuda:0 against the CPU, bit for
+    bit (scores in raw bits)."""
+    import numpy as np
+
+    from round_tpu_torch.fuzz import genome
+    from round_tpu_torch.fuzz.search import make_target
+
+    pop = genome.seed_population(1, 256, 4, 12)
+    rng = np.random.default_rng(3)
+    pop.byz_value[:] = rng.random(pop.byz_value.shape) < 0.3
+    pop.equiv_p8[:] = rng.integers(0, 233, 256)
+    pop.stale_p8[:] = rng.integers(0, 233, 256)
+    pop.byz[:] = rng.random(pop.byz.shape) < 0.1
+    on_card = make_target(proto, 4, 12, seed=0, device=dev)
+    on_cpu = make_target(proto, 4, 12, seed=0, device="cpu")
+    _same_fuzz_outcome(on_card.evaluate(pop), on_cpu.evaluate(pop),
+                       _FUZZ_FIELDS + ("severity",))
+    rows = [pop.row(i) for i in range(5)]
+    scheds = np.stack([genome.row_schedule(r, on_card.horizon, device=dev)
+                       for r in rows])
+    plans = np.stack([genome.row_value_plan(r, on_card.horizon,
+                                            on_card.value_domain,
+                                            device=dev) for r in rows])
+    _same_fuzz_outcome(on_card.evaluate_schedules(scheds, plans),
+                       on_cpu.evaluate_schedules(scheds, plans),
+                       _FUZZ_FIELDS[:6])
+
+
+def test_fuzz_minimize_on_card_matches_cpu(dev):
+    import numpy as np
+
+    from round_tpu_torch.fuzz import minimize, objectives
+    from round_tpu_torch.fuzz.search import make_target
+
+    bad = {"crashed": np.zeros(4, bool), "crash_round": np.int32(0),
+           "side": np.array([0, 0, 1, 1], np.int32),
+           "heal_round": np.int32(8), "rotate_down": np.int32(0),
+           "p8": np.int32(128), "salt0": np.int32(77),
+           "salt1": np.int32(88), "byz": np.zeros(4, bool)}
+    pred = objectives.undecided_at_horizon(4)
+    got = minimize.minimize(make_target("otr", 4, 8, device=dev), bad, pred)
+    want = minimize.minimize(make_target("otr", 4, 8, device="cpu"), bad,
+                             pred)
+    assert (got.dropped_initial, got.dropped_final, got.iterations) == (
+        want.dropped_initial, want.dropped_final, want.iterations)
+    assert (got.schedule == want.schedule).all()
+    for f in want.genome_row:
+        assert (np.asarray(got.genome_row[f])
+                == np.asarray(want.genome_row[f])).all(), f

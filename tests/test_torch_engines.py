@@ -197,15 +197,19 @@ def test_round_params_matches_jax():
 
 @pytest.mark.parametrize("field", ["byz_value", "equiv_p8", "stale_p8"])
 def test_interop_refuses_value_adversaries(field):
-    """The value adversaries are not ported: a mix that sets one is refused
-    rather than run without it."""
+    """The value-adversary fields are carried, not refused: a mix that sets
+    one keeps it bit for bit (as bool or int32) and leaves the others
+    None."""
     mix, _ = _mix_and_init()
     d = {k: np.asarray(getattr(mix, k)) for k in MIX_FIELDS}
     d["byz_value"] = d["equiv_p8"] = d["stale_p8"] = None
-    d[field] = np.zeros_like(d["crashed"] if field == "byz_value"
-                             else d["p8"])
-    with pytest.raises(NotImplementedError, match=field):
-        interop.fault_mix_from_numpy(d, device="cpu")
+    rng = np.random.default_rng(1)
+    d[field] = (rng.random(d["crashed"].shape) < 0.5 if field == "byz_value"
+                else rng.integers(0, 256, d["p8"].shape).astype(np.int32))
+    got = interop.fault_mix_from_numpy(d, device="cpu")
+    np.testing.assert_array_equal(getattr(got, field).numpy(), d[field])
+    for other in {"byz_value", "equiv_p8", "stale_p8"} - {field}:
+        assert getattr(got, other) is None
 
 
 def test_benchstat_matches_jax():

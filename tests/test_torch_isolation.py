@@ -59,7 +59,15 @@ def test_port_files_exist():
                  "round_tpu_torch/obs/__init__.py",
                  "round_tpu_torch/obs/metrics.py",
                  "round_tpu_torch/obs/trace.py",
-                 "round_tpu_torch/apps/selector.py", "chip_smoke.py"):
+                 "round_tpu_torch/apps/selector.py",
+                 "round_tpu_torch/byz/__init__.py",
+                 "round_tpu_torch/byz/lies.py",
+                 "round_tpu_torch/byz/adversary.py",
+                 "round_tpu_torch/fuzz/__init__.py",
+                 "round_tpu_torch/fuzz/genome.py",
+                 "round_tpu_torch/fuzz/objectives.py",
+                 "round_tpu_torch/fuzz/search.py",
+                 "round_tpu_torch/fuzz/minimize.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -82,7 +90,10 @@ def test_importing_the_port_loads_no_jax():
         "round_tpu_torch.models.epsilon, round_tpu_torch.engine.epsfast, "
         "round_tpu_torch.models.lastvoting_variants, "
         "round_tpu_torch.models.lastvoting_event, "
-        "round_tpu_torch.models.tpc_event, round_tpu_torch.ops.detsum, sys; "
+        "round_tpu_torch.models.tpc_event, round_tpu_torch.ops.detsum, "
+        "round_tpu_torch.byz, round_tpu_torch.fuzz.minimize, "
+        "round_tpu_torch.fuzz.objectives, round_tpu_torch.utils.byzantine, "
+        "sys; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'round_tpu')); assert not bad, bad"
     )
