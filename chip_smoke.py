@@ -158,10 +158,33 @@ Phases, each printed as one line:
                    (torch.profiler) and host syncs; kernels must not grow
                    with P, syncs stay below one a round
 
+  perftest-otr, perftest-lv
+                   the in-process runtime (round_tpu_torch/runtime, no
+                   kernel of its own): round_tpu_torch.apps.perftest's
+                   run at n=4, a backlog of 4,096 instances at -rt 1,024
+                   and its first 1,024 at -rt 16, omission 0.05, 64
+                   phases: decided of total, wall, decisions/sec, a
+                   window's launch calls, kernels and copies
+                   (torch.profiler) and host syncs, peak GiB; the card's
+                   decision log (rounds and values) equal to the CPU's on
+                   the same keys (the first 256 instances at -rt 16, all
+                   4,096 and the digest at -rt 1,024); launches per
+                   window equal at both rates
+  smr              ReplicatedStateMachine, LastVoting, n=4, batches of 64,
+                   4,096 commands (64 instances), the counter state machine:
+                   decisions, applied state and digest equal to the CPU's; a
+                   checkpoint written on the card restored into a fresh
+                   replica equal to its never-crashed twin; a lagging
+                   replica recovers every gap
+  membership       MembershipManager: one add and one remove decided on the
+                   card, the directory and view numbers equal to the CPU's
+
 With ``--only sharded`` the script builds the kernels and runs the K4 and
 sharded phases alone; with ``--only peers`` just K4-vs-plain and ring-peers
 (for a machine with several cards); with ``--only fuzz`` the five fuzz
-phases.  The fuzz phases print one JSON line each, with a "phase" key.
+phases; with ``--only runtime`` the three runtime phases.  The fuzz and
+runtime phases print one JSON line each, with a "phase" key; an ``--only``
+run prints {"only": ...} before the card's line.
 
 Then the card's name and power limit as nvidia-smi reports them, a
 {"kernels": [...]} line (per kernel: launches on its path — K2's rows
@@ -1785,25 +1808,38 @@ def device_syncs(torch, fn):
     return out, sum("synchronizing" in str(w.message) for w in seen)
 
 
-def profiled_launches(torch, fn):
-    """(kernels, memcpy/memset) the device ran during fn, from
-    torch.profiler's CUDA activity."""
+# the CUDA runtime's launch calls, as torch.profiler records them on the host
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def traced_launches(torch, fn):
+    """(launch calls, kernels, copies) of fn: the host's kernel-launch calls
+    and the device's kernel and memcpy/memset records, from one
+    torch.profiler trace.  The launch calls are the exact count; the
+    device's records can miss a few kernels of a long trace (a LastVoting
+    runtime window read 23,493-23,495 kernels against 23,499 calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = copies = 0
+    calls = kernels = copies = 0
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = evt.name.lower()
-        if "memcpy" in name or "memset" in name:
+            calls += evt.name in LAUNCH_CALLS
+        elif "memcpy" in evt.name.lower() or "memset" in evt.name.lower():
             copies += 1
         else:
             kernels += 1
-    return kernels, copies
+    return calls, kernels, copies
+
+
+def profiled_launches(torch, fn):
+    """(kernels, memcpy/memset) the device ran during fn, from
+    torch.profiler's CUDA activity."""
+    return traced_launches(torch, fn)[1:]
 
 
 def fuzz_phases(torch, dev) -> dict:
@@ -1968,6 +2004,178 @@ def fuzz_phases(torch, dev) -> dict:
     return out
 
 
+# the runtime phase: perftest's deployment (testOTR.sh and PerfTest2, n = 4,
+# Options' default), a backlog of 4,096 instances in flight 16 at a time
+# (the reference's processPool) and 1,024 (the largest lane bucket), under
+# omission at perftest's p_drop 0.05 with Options' 64 phases.  At -rt 16
+# the backlog is cut to its first 1,024 instances: every window is the
+# same work, so the rate does not depend on the backlog, and all 256
+# windows of LastVoting take ~3 minutes of the script's time.  The CPU
+# replays RT_CPU_CHECK instances of each run on the same keys.
+RT_N, RT_RATES, RT_P_DROP, RT_PHASES = 4, (16, 1024), 0.05, 64
+RT_BACKLOG = {16: 1024, 1024: 4096}
+RT_CPU_CHECK = {16: 256, 1024: 4096}
+# SMR: LastVoting, batches of 64 commands, 4,096 commands (64 instances)
+SMR_BATCH, SMR_COMMANDS = 64, 4096
+
+
+def _log_rows(log):
+    return [(i, *log.get(i)) for i in log.instances()]
+
+
+def runtime_phases(torch, dev) -> None:
+    """The in-process runtime (round_tpu_torch/runtime, no kernel of its
+    own) on the card: perftest's windows at two rates, SMR with a
+    checkpoint restore and a gap recovery, and a membership change, each
+    held against the same work on the CPU."""
+    import tempfile
+
+    from round_tpu_torch.apps import perftest
+    from round_tpu_torch.apps.dynamic_membership import MembershipManager
+    from round_tpu_torch.apps.selector import select
+    from round_tpu_torch.engine import scenarios
+    from round_tpu_torch.models.common import consensus_io
+    from round_tpu_torch.runtime import ReplicatedStateMachine
+    from round_tpu_torch.runtime.config import Options
+    from round_tpu_torch.runtime.decisions import DecisionLog
+    from round_tpu_torch.runtime.instances import InstancePool, instance_key
+    from round_tpu_torch.runtime.membership import Directory, local_group
+
+    cpu = torch.device("cpu")
+    gib = 2.0 ** 30
+
+    # -- perftest-otr, perftest-lv --------------------------------------------
+    for algo in ("otr", "lv"):
+        kernels = {}
+        for rt in RT_RATES:
+            opts = Options(n=RT_N, rate=rt, max_phases=RT_PHASES,
+                           algorithm=algo)
+            log = DecisionLog()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            backlog = RT_BACKLOG[rt]
+            out = perftest.run(opts, n_instances=backlog,
+                               p_drop=RT_P_DROP, device=dev, log=log)
+            peak = (torch.cuda.max_memory_allocated() - base) / gib
+            # the CPU on the same keys: the first RT_CPU_CHECK instances
+            # are whole windows, so their keys are the card run's
+            check = RT_CPU_CHECK[rt]
+            cpu_log = DecisionLog()
+            perftest.run(opts, n_instances=check, p_drop=RT_P_DROP,
+                         device=cpu, log=cpu_log)
+            card_rows = [row for row in _log_rows(log) if row[0] < check]
+            require(card_rows == _log_rows(cpu_log),
+                    f"perftest-{algo} rt={rt}: the card's decisions differ "
+                    f"from the CPU's")
+            if check == backlog:
+                require(log.digest() == cpu_log.digest(),
+                        f"perftest-{algo} rt={rt}: digest differs")
+            # windows as perftest runs them: the launches, kernels, copies
+            # and host syncs of one warm window each
+            pool = InstancePool(select(algo), RT_N,
+                                scenarios.omission(RT_N, RT_P_DROP,
+                                                   device=dev),
+                                max_phases=RT_PHASES, window=rt, device=dev)
+            io = consensus_io(torch.arange(RT_N, dtype=torch.int32) % 5)
+
+            def window(step):
+                for i in range(rt):
+                    pool.submit(step * rt + i, io)
+                return pool.run_pending(instance_key((0, 0), step))
+
+            window(0)
+            _, syncs = device_syncs(torch, lambda: window(1))
+            calls, k, copies = traced_launches(torch, lambda: window(2))
+            kernels[rt] = calls
+            say_json(f"perftest-{algo}", n=RT_N, rt=rt,
+                     instances=out["total"], decided=out["decided"],
+                     total=out["total"], max_phases=RT_PHASES,
+                     p_drop=RT_P_DROP, wall_s=out["wall_s"],
+                     metric=f"perftest_{algo}_n{RT_N}_rt{rt}"
+                            "_decisions_per_sec",
+                     decisions_per_sec=out["decisions_per_s"],
+                     windows=-(-backlog // rt),
+                     ms_per_window=out["wall_s"] * 1e3 / -(-backlog // rt),
+                     window_launches=calls, window_kernels=k,
+                     window_copies=copies, window_syncs=syncs,
+                     peak_gib=peak,
+                     cpu_checked_instances=check, cpu_equal=True,
+                     digest=log.digest())
+        require(len(set(kernels.values())) == 1,
+                f"perftest-{algo}: launches per window grow with the "
+                f"window: {kernels}")
+
+    # -- smr ------------------------------------------------------------------
+    def make_rsm(d):
+        return ReplicatedStateMachine(
+            select("lv"), RT_N, lambda s, b: s + b.sum(dtype=torch.int32),
+            torch.tensor(0, dtype=torch.int32),
+            scenarios.omission(RT_N, RT_P_DROP, device=d),
+            batch_size=SMR_BATCH, max_phases=RT_PHASES, device=d)
+
+    cmds = [int(c) for c in
+            torch.randint(0, 1000, (SMR_COMMANDS,),
+                          generator=torch.Generator().manual_seed(SEED))]
+    rsms = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        rsm = make_rsm(d)
+        rsm.propose(cmds)
+        t0 = time.perf_counter()
+        instances = rsm.run((0, 7))
+        state = int(rsm.apply_decided())
+        rsms[name] = (rsm, instances, state, time.perf_counter() - t0)
+
+    def digest(rsm):
+        log = DecisionLog()
+        for i, b in rsm.decided_batches.items():
+            log.record(i, 0, b)
+        return log.digest()
+
+    card, n_inst, card_state, card_s = rsms["card"]
+    cpu_rsm, _, cpu_state, _ = rsms["cpu"]
+    require(card.decided_batches == cpu_rsm.decided_batches
+            and card_state == cpu_state and digest(card) == digest(cpu_rsm),
+            "smr: the card's decisions or applied state differ from the CPU's")
+    require(card.log_gaps() == [] and card_state == sum(cmds),
+            "smr: the card's replica has gaps or a wrong applied state")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        card.checkpoint(tmp)
+        fresh = make_rsm(dev)
+        upto = fresh.restore_checkpoint(tmp)
+    require(upto == card.applied_upto
+            and int(fresh.apply_decided()) == card_state
+            and fresh.next_instance == card.next_instance
+            and fresh.log_gaps() == [],
+            "smr: the restored replica differs from its never-crashed twin")
+    lag = make_rsm(dev)
+    recovered = lag.recover_from(card)
+    require(recovered == n_inst and lag.log_gaps() == []
+            and int(lag.apply_decided()) == card_state,
+            "smr: the lagging replica did not recover every gap")
+    say_json("smr", protocol="lv", n=RT_N, batch=SMR_BATCH,
+             commands=SMR_COMMANDS, instances=n_inst,
+             applied_upto=card.applied_upto, applied_state=card_state,
+             wall_s=card_s, cpu_equal=True, restored_equal=True,
+             recovered=recovered, digest=digest(card))
+
+    # -- membership -----------------------------------------------------------
+    got = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        directory = Directory(local_group(RT_N))
+        mm = MembershipManager(directory, device=d)
+        ops = [mm.propose(1, 4450), mm.propose(2, 1)]
+        got[name] = (ops, mm.view_nbr,
+                       [(r.id, r.address, r.port)
+                        for r in directory.group.replicas])
+    require(got["card"] == got["cpu"],
+            f"membership: the card's directory differs from the CPU's: {got}")
+    require(got["card"][0] == [(1, 4450), (2, 1)],
+            f"membership: undecided or wrong ops {got['card'][0]}")
+    say_json("membership", n=RT_N, ops=got["card"][0],
+             view_nbr=got["card"][1], group=got["card"][2], cpu_equal=True)
+
+
 def main() -> None:
     if not (ROOT / "round_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: round_tpu_torch/csrc is not beside "
@@ -2038,19 +2246,23 @@ def main() -> None:
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
         else None
     if only is not None:
-        require(only in ("sharded", "peers", "fuzz"),
+        require(only in ("sharded", "peers", "fuzz", "runtime"),
                 f"unknown --only {only}")
         if only == "sharded":
             part = sharded_phases(torch, gen)
         elif only == "fuzz":
             fuzz_phases(torch, dev)
             part = []
+        elif only == "runtime":
+            runtime_phases(torch, dev)
+            part = []
         else:
             k4_vs_plain(torch, gen)
             part = [ring_peers(torch, gen)]
+        print(json.dumps({"only": only}), flush=True)
         print(card, flush=True)
         print(json.dumps({"kernels": part}), flush=True)
-        print(json.dumps({"ok": True, "only": only, "device": {
+        print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return
@@ -2520,6 +2732,9 @@ def main() -> None:
 
     # -- 6b'. the fault-schedule fuzzer (no kernel of its own) ---------------
     fuzz_phases(torch, dev)
+
+    # -- 6b'. the in-process runtime (no kernel of its own) ------------------
+    runtime_phases(torch, dev)
 
     # -- 6b''. the last histogram slice's engines at their users' widths ----
     kset_launches = families_wide(torch, dev)

@@ -62,11 +62,16 @@ class LocalTopology:
         return dest.T
 
     def lane_keys(self, key, r: int) -> torch.Tensor:
-        """Per-lane uint32 rng words (int64) for round r."""
+        """Per-lane uint32 rng words (int64) for round r: ``[n]`` for one
+        key, ``[W, n]`` for a pair of ``[W]`` int64 salt tensors (a window
+        of instances, runtime/instances.py), row w the words of key w."""
         from round_tpu_torch.engine.scenarios import _key_salt
         from round_tpu_torch.ops.fused import _GOLD, _RMIX, _fmix32
 
-        k0, k1 = _key_salt(key)
+        if isinstance(key, tuple) and isinstance(key[0], torch.Tensor):
+            k0, k1 = key[0][:, None], key[1][:, None]
+        else:
+            k0, k1 = _key_salt(key)
         lanes = self.lane_ids().to(torch.int64)
         z = (lanes * _GOLD + k0) & _M32
         z = z ^ ((int(r) * _RMIX + k1 + _UPD_STREAM) & _M32)
@@ -74,9 +79,14 @@ class LocalTopology:
 
 
 def run_round(rnd, state, done, r: int, ho, key, topo, adversary=None,
-              adv_class: int = 0, adv_prev=None):
+              adv_class: int = 0, adv_prev=None, lane_words=None):
     """Execute one communication-closed round on this device's lane slice
     (round_tpu/engine/executor.py::run_round).
+
+    ``lane_words`` (``[n_local]`` uint32 words in int64) stands in for
+    ``topo.lane_keys(key, r)`` where the caller drew them already: a
+    window of instances run under ``vmap`` draws its ``[W, n]`` words in
+    one call outside it (runtime/instances.py).
 
     With an ``adversary`` (byz/adversary.py ValueAdversary) the mailbox
     values each receiver folds are per-receiver substitutions of the
@@ -90,6 +100,8 @@ def run_round(rnd, state, done, r: int, ho, key, topo, adversary=None,
     ids = topo.lane_ids()
     # filled on the device: a host-to-device copy would wait for it
     r_t = torch.full((), r, dtype=torch.int32, device=ids.device)
+    if lane_words is None:
+        lane_words = topo.lane_keys(key, r)
     active_local = torch.logical_not(done)
 
     # pre (EventRound init slot): runs before send, visible to send+update
@@ -126,7 +138,7 @@ def run_round(rnd, state, done, r: int, ho, key, topo, adversary=None,
             return s2, ctx._exit
 
         new_state, exit_flags = vmap(_update_adv)(
-            ids, state, deliver, topo.lane_keys(key, r), values)
+            ids, state, deliver, lane_words, values)
         state = tree_where(active_local, new_state, state)
         done = torch.logical_or(done,
                                 torch.logical_and(active_local, exit_flags))
@@ -139,7 +151,7 @@ def run_round(rnd, state, done, r: int, ho, key, topo, adversary=None,
         return s2, ctx._exit
 
     new_state, exit_flags = vmap(_update)(
-        ids, state, deliver, topo.lane_keys(key, r))
+        ids, state, deliver, lane_words)
 
     # frozen lanes keep their state; exits only count for active lanes
     state = tree_where(active_local, new_state, state)

@@ -70,14 +70,29 @@ def link_bernoulli(key, r, n: int, p: float, device=None) -> torch.Tensor:
     for any p > 0), keyed by (key salts, round, link).  True with
     probability p'.  Bit-exact with round_tpu's link_bernoulli for the same
     salts."""
-    dev = resolve_device(device)
-    thresh = (max(1, round(p * 256.0)) if p > 0 else 0)
     k0, k1 = _key_salt(key)
+    return _link_draw(k0, k1, r, n, p, resolve_device(device))
+
+
+def _link_draw(k0, k1, r, n: int, p: float, dev) -> torch.Tensor:
+    """link_bernoulli on salts given as ints, or as int64 tensors that
+    broadcast against the [n, n] link grid (``[W, 1, 1]``: W keys' masks,
+    ``[W, n, n]``, in one call)."""
+    thresh = (max(1, round(p * 256.0)) if p > 0 else 0)
     i = torch.arange(n, dtype=torch.int64, device=dev)
     idx = i[:, None] * n + i[None, :]
     z = (idx * LINK_GOLD + k0) & _M32
     z = z ^ ((int(r) * LINK_RMIX + k1) & _M32)
     return (_mix32(z) & 0xFF) < thresh
+
+
+def _key_free(sample: Callable) -> Callable:
+    """Give a sampler that ignores its key its window form: the masks of W
+    instances for round r are its one mask, expanded
+    (runtime/instances.py::window_masks)."""
+    sample.window = lambda salt0, salt1, r: sample(None, r).expand(
+        salt0.shape[0], -1, -1)
+    return sample
 
 
 def full(n: int, device=None) -> Callable:
@@ -87,7 +102,7 @@ def full(n: int, device=None) -> Callable:
     def sample(key, r):
         return torch.ones((n, n), dtype=torch.bool, device=dev)
 
-    return sample
+    return _key_free(sample)
 
 
 def _lane_hash(key, n: int, stream: int, dev) -> torch.Tensor:
@@ -152,6 +167,14 @@ def omission(n: int, p_drop: float, impl: str = "hash",
     def sample(key, r):
         return _with_self(~link_bernoulli(key, r, n, p_drop, device=dev))
 
+    def window(salt0, salt1, r):
+        """[W, n, n]: the masks of W keys ([W] int64 salt tensors) in one
+        call, row w bit-equal to ``sample`` on key w."""
+        return _with_self(~_link_draw(salt0[:, None, None],
+                                      salt1[:, None, None], r, n, p_drop,
+                                      dev))
+
+    sample.window = window
     return sample
 
 
@@ -278,7 +301,7 @@ def from_fault_params(
         salt1r = (r * LINK_RMIX + salt1) & _M32
         return ho_link_mask(colmask, side_r, salt0, salt1r, p8)
 
-    return sample
+    return _key_free(sample)
 
 
 def from_mix_row(mix, s: int) -> Callable:
@@ -297,7 +320,7 @@ def from_schedule(schedule: torch.Tensor) -> Callable:
     def sample(key, r):
         return schedule[min(int(r), schedule.shape[0] - 1)]
 
-    return sample
+    return _key_free(sample)
 
 
 def sync_k_filter(base: Callable, k_sync: int) -> Callable:

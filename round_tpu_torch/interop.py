@@ -1,12 +1,15 @@
-"""Carry the JAX package's arrays into the port's objects.
+"""Carry the JAX package's arrays and records into the port's objects.
 
 round_tpu hands its arrays over as numpy (``np.asarray`` of each field);
 these functions turn such a dict into the port's dataclasses on an explicit
-device, so both packages can run on the same data and be compared."""
+device, so both packages can run on the same data and be compared.  The
+runtime's durable state crosses too: a decision log as its (instance,
+round, value) triples, and a checkpoint directory that round_tpu wrote
+(``checkpoint_from_round_tpu``, ``smr_from_round_tpu``)."""
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -202,3 +205,53 @@ def cgol_state_from_numpy(d: Mapping[str, np.ndarray],
                           device=None) -> CgolState:
     """A CgolState from a numpy array named alive."""
     return _fields(CgolState, d, resolve_device(device), ("alive",))
+
+
+def decision_log_from_round_tpu(triples: Iterable[Tuple[int, int, int]]):
+    """A port DecisionLog from round_tpu's (instance, round, value)
+    triples (``[(i, *log.get(i)) for i in log.instances()]``): the same
+    ``values_tsv`` bytes and ``digest``."""
+    from round_tpu_torch.runtime.decisions import DecisionLog
+
+    log = DecisionLog()
+    for inst, rnd, val in triples:
+        log.record(int(inst), int(rnd), int(val))
+    return log
+
+
+def checkpoint_from_round_tpu(path: str, like: Any):
+    """Restore a checkpoint directory that round_tpu wrote
+    (round_tpu/runtime/checkpoint.py::save) into the structure of ``like``.
+    Returns (state, step, meta), the leaves numpy arrays.
+
+    round_tpu's manifest records a JAX tree-structure string the port
+    cannot read, so the leaves are held against ``like`` one by one
+    instead: the leaf count, then each leaf's dtype and shape (a
+    zero-length dimension of a ``like`` leaf stands for any length, as in
+    a log of K rows).  A mismatch raises CheckpointError, as a corrupt
+    checkpoint does."""
+    from round_tpu_torch.runtime import checkpoint as ckpt
+    from round_tpu_torch.utils.tree import tree_flatten
+
+    leaves, manifest = ckpt.read_leaves(path)
+    like_leaves, spec = tree_flatten(like)
+    ckpt.check_leaf_count(leaves, like_leaves)
+    for i, (got, want) in enumerate(zip(leaves, like_leaves)):
+        want = ckpt.to_numpy(want)
+        fits = got.ndim == want.ndim and all(
+            w == 0 or g == w for g, w in zip(got.shape, want.shape))
+        if got.dtype != want.dtype or not fits:
+            raise ckpt._corruption(
+                f"checkpoint leaf {i} does not match the restore template: "
+                f"saved {got.dtype}{list(got.shape)}, template "
+                f"{want.dtype}{list(want.shape)}")
+    return ckpt.restored(path, leaves, spec, manifest)
+
+
+def smr_from_round_tpu(rsm, path: str) -> int:
+    """Rebuild a port ReplicatedStateMachine ``rsm`` from an SMR checkpoint
+    that round_tpu wrote (round_tpu/runtime/smr.py::checkpoint), as
+    ``rsm.restore_checkpoint`` does from the port's own.  Returns the
+    applied-upto watermark."""
+    return rsm._adopt_checkpoint(
+        path, *checkpoint_from_round_tpu(path, rsm._checkpoint_like()))

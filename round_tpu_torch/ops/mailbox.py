@@ -34,8 +34,17 @@ _INT_MIN = -(2**31)
 _INT_MAX = 2**31 - 1
 
 
+def _pick(v: torch.Tensor, idx):
+    """``v[idx]`` along the sender axis.  A 0-d index tensor is gathered as
+    a [1] index on the device: indexing with it directly reads it to the
+    host first, a sync per call on the card."""
+    if isinstance(idx, torch.Tensor) and idx.dim() == 0:
+        return v[idx.reshape(1)][0]
+    return v[idx]
+
+
 def _tree_pick(values: Any, idx):
-    return pytree.tree_map(lambda v: v[idx], values)
+    return pytree.tree_map(lambda v: _pick(v, idx), values)
 
 
 def first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -90,14 +99,14 @@ class Mailbox:
 
     def contains(self, pid) -> torch.Tensor:
         """``mailbox contains pid``."""
-        return self.mask[pid]
+        return _pick(self.mask, pid)
 
     def get(self, pid) -> Any:
         """``mailbox(pid)`` — caller guards with ``contains``."""
         return _tree_pick(self.values, pid)
 
     def get_or(self, pid, default: Any) -> Any:
-        present = self.mask[pid]
+        present = _pick(self.mask, pid)
         got = _tree_pick(self.values, pid)
         return pytree.tree_map(
             lambda g, d: torch.where(present, g, d), got, default)

@@ -8,8 +8,9 @@ of K1 and K2 at n = 1008, in sided rounds, with receivers finishing early
 and with the one-hot in device memory, the probes P1 and P2 (sizes that
 are not a multiple of 4, views off a 16-byte boundary), and K4 over
 shards of one card (its local kernel on both paths, the launches per
-path); and the fuzzer's batched evaluator and minimizer (no kernel of
-their own) on the card against the CPU:
+path); the fuzzer's batched evaluator and minimizer, and the runtime's
+batched instance window (no kernel of their own), on the card against the
+CPU:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -588,3 +589,30 @@ def test_fuzz_minimize_on_card_matches_cpu(dev):
     for f in want.genome_row:
         assert (np.asarray(got.genome_row[f])
                 == np.asarray(want.genome_row[f])).all(), f
+
+
+@pytest.mark.parametrize("algo", ["otr", "lv"])
+def test_instance_window_on_card_matches_cpu(dev, algo):
+    """A window of 256 instances under keyed omission on cuda:0, result by
+    result equal to the same window on the CPU."""
+    import numpy as np
+
+    from round_tpu_torch.apps.selector import select
+    from round_tpu_torch.engine import scenarios
+    from round_tpu_torch.models.common import consensus_io
+    from round_tpu_torch.runtime.instances import InstancePool
+
+    n, W = 4, 256
+    inits = np.random.default_rng(0).integers(0, 5, (W, n)).astype(np.int32)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        pool = InstancePool(select(algo), n,
+                            scenarios.omission(n, 0.05, device=d), 16,
+                            window=W, device=d)
+        for i, v in enumerate(inits):
+            pool.submit(i, consensus_io(torch.as_tensor(v)))
+        out.append(pool.run_pending((3, 4)))
+    for got, want in zip(*out):
+        for f in ("decided", "decision", "decided_round"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
+        assert (got.value is None) == (want.value is None)

@@ -10,6 +10,10 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "round_tpu")
+# the in-process runtime's modules
+RUNTIME = ("__init__", "log", "stats", "membership", "decisions", "config",
+           "health", "instances", "oob", "capacity", "checkpoint", "smr",
+           "view")
 
 
 def _port_files():
@@ -67,7 +71,11 @@ def test_port_files_exist():
                  "round_tpu_torch/fuzz/genome.py",
                  "round_tpu_torch/fuzz/objectives.py",
                  "round_tpu_torch/fuzz/search.py",
-                 "round_tpu_torch/fuzz/minimize.py", "chip_smoke.py"):
+                 "round_tpu_torch/fuzz/minimize.py",
+                 *(f"round_tpu_torch/runtime/{m}.py" for m in RUNTIME),
+                 "round_tpu_torch/apps/perftest.py",
+                 "round_tpu_torch/apps/dynamic_membership.py",
+                 "chip_smoke.py"):
         assert want in names
 
 
@@ -93,7 +101,9 @@ def test_importing_the_port_loads_no_jax():
         "round_tpu_torch.models.tpc_event, round_tpu_torch.ops.detsum, "
         "round_tpu_torch.byz, round_tpu_torch.fuzz.minimize, "
         "round_tpu_torch.fuzz.objectives, round_tpu_torch.utils.byzantine, "
-        "sys; "
+        + "".join(f"round_tpu_torch.runtime.{m}, " for m in RUNTIME[1:]) +
+        "round_tpu_torch.runtime, round_tpu_torch.apps.perftest, "
+        "round_tpu_torch.apps.dynamic_membership, sys; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'round_tpu')); assert not bad, bad"
     )
