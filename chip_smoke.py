@@ -179,10 +179,31 @@ Phases, each printed as one line:
   membership       MembershipManager: one add and one remove decided on the
                    card, the directory and view numbers equal to the CPU's
 
+  host-wire        the wire (round_tpu_torch/runtime/codec.py, transport.py,
+                   no kernel): every selector model's round payloads,
+                   sent on cuda:0, encode to the bytes of the same payloads
+                   from the CPU with 0 pickle fallbacks; µs per encode,
+                   decode, device-to-host fetch and recv_many drain
+  host-threads     4 HostRunner threads on cuda:0 over localhost TCP (the
+                   host runner, no kernel): host_perftest.measure, OTR and
+                   LastVoting, 20 instances each, every instance agreed
+                   and the decision logs equal to the same run on the CPU;
+                   decisions/sec, ms per round, copies, host syncs and
+                   kernel launches per round per replica, and the time a
+                   replica's device-to-host copy waits on the shared stream
+  host-processes   host_perftest.measure_processes: 4 host_replica processes
+                   on cuda:0, 100 OTR instances: every log equal, every
+                   instance agreed; decisions/sec, each process's start-up
+                   seconds and peak GiB
+  host-chaos       one thread-mode OTR run on cuda:0 under a seeded drop
+                   plan: agreement and validity hold; the dropped links are
+                   exactly host_link_u32's, and link_bernoulli's on the card
+
 With ``--only sharded`` the script builds the kernels and runs the K4 and
 sharded phases alone; with ``--only peers`` just K4-vs-plain and ring-peers
 (for a machine with several cards); with ``--only fuzz`` the five fuzz
-phases; with ``--only runtime`` the three runtime phases.  The fuzz and
+phases; with ``--only runtime`` the three runtime phases; with ``--only
+host`` the four host phases.  The fuzz and
 runtime phases print one JSON line each, with a "phase" key; an ``--only``
 run prints {"only": ...} before the card's line.
 
@@ -2176,6 +2197,353 @@ def runtime_phases(torch, dev) -> None:
              view_nbr=got["card"][1], group=got["card"][2], cpu_equal=True)
 
 
+# the host runner's deployment (round_tpu_torch/apps/host_perftest.py's
+# defaults, which are round_tpu's: PerfTest2's 4 replicas, 300-ms rounds)
+HOST_N, HOST_TIMEOUT_MS = 4, 300
+HOST_THREAD_INSTANCES, HOST_PROC_INSTANCES = 20, 100
+# the chaos run: 10 % iid drops from a fixed seed, 10 instances (a dropped
+# frame costs its receiver a 300-ms round)
+HOST_CHAOS, HOST_CHAOS_INSTANCES = "drop=0.1,seed=7", 10
+# frames per drain in the recv_many timing
+HOST_DRAIN_FRAMES = 64
+
+
+def _host_lane_io(name: str, lane: int):
+    """One lane's io for a selector model: round_tpu's PerfTest2 value
+    for the scalar models, the analysis registry's io for MultiLastVoting
+    and TwoPhaseCommit (round_tpu/analysis/registry.py)."""
+    import numpy as np
+
+    from round_tpu_torch.models.lastvoting_variants import mlv_io
+    from round_tpu_torch.models.tpc import tpc_io
+    from round_tpu_torch.runtime.host import instance_io
+
+    if name == "mlv":
+        io = mlv_io(HOST_N, {0: 5, 3: 9}, {1: 0})
+    elif name == "tpc":
+        io = tpc_io(0, np.ones(HOST_N, dtype=bool))
+    else:
+        from round_tpu_torch.apps.selector import select
+
+        return instance_io(select(name), 3)
+    return {k: v[lane].numpy() for k, v in io.items()}
+
+
+def _host_threads(algo, instances, device, wrap=None, value_schedule="mixed"):
+    """HOST_N HostRunner threads over localhost TCP on ``device``, every
+    socket bound before any replica starts; ``wrap(i, transport)`` may
+    put a fault layer around replica i's transport.  Returns the
+    decision logs."""
+    import threading
+
+    from round_tpu_torch.apps.selector import select
+    from round_tpu_torch.runtime.chaos import alloc_ports
+    from round_tpu_torch.runtime.host import run_instance_loop
+    from round_tpu_torch.runtime.transport import HostTransport
+
+    ports = alloc_ports(HOST_N)
+    peers = {i: ("127.0.0.1", ports[i]) for i in range(HOST_N)}
+    trs = [HostTransport(i, ports[i]) for i in range(HOST_N)]
+    shared = select(algo)
+    logs, errors = {}, {}
+
+    def run(i):
+        tr = trs[i] if wrap is None else wrap(i, trs[i])
+        try:
+            logs[i] = run_instance_loop(
+                shared, i, peers, tr, instances, timeout_ms=HOST_TIMEOUT_MS,
+                value_schedule=value_schedule, device=device)
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors[i] = repr(e)
+        finally:
+            trs[i].close()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(HOST_N)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    require(not errors and len(logs) == HOST_N
+            and not any(t.is_alive() for t in threads),
+            f"host threads failed: {errors}")
+    return logs
+
+
+def host_phases(torch, dev) -> None:
+    """The wire and the host runner (round_tpu_torch/runtime/codec.py,
+    transport.py, host.py, chaos.py; apps/host_perftest.py, host_replica.py;
+    no kernel of their own) on the card, each held against the CPU."""
+    import threading
+
+    import numpy as np
+
+    from round_tpu_torch.apps import host_perftest
+    from round_tpu_torch.apps.selector import NAMES, select
+    from round_tpu_torch.engine import scenarios
+    from round_tpu_torch.engine.executor import make_host_round_fns
+    from round_tpu_torch.obs.metrics import METRICS
+    from round_tpu_torch.runtime import chaos, codec, host
+    from round_tpu_torch.runtime.oob import Tag
+    from round_tpu_torch.runtime.transport import HostTransport
+
+    cpu = torch.device("cpu")
+
+    # -- host-wire ------------------------------------------------------------
+    fallbacks = METRICS.counter("wire.codec_fallbacks")
+    before = fallbacks.value
+    sent, wires = [], []
+    for name in NAMES:
+        algo = select(name)
+        io = _host_lane_io(name, 1)
+        got = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            st = host.lane_init_state(algo, 1, HOST_N, io, d)
+            got[where] = []
+            for k, rnd in enumerate(algo.rounds):
+                send = make_host_round_fns(rnd, HOST_N, d)[0]
+                _st, payload, _dest = send(k, 1, 0, st)
+                if where == "card":
+                    sent.append(payload)
+                got[where].append(codec.encode(host.to_numpy(payload)))
+        require(got["card"] == got["cpu"],
+                f"host-wire: {name}'s payload bytes from the card differ "
+                f"from the CPU's")
+        wires += got["card"]
+    require(fallbacks.value == before,
+            f"host-wire: {fallbacks.value - before} payload(s) took the "
+            f"pickle fallback")
+    reps = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        arrays = [host.to_numpy(p) for p in sent]
+    fetch_us = (time.perf_counter() - t0) * 1e6 / (reps * len(sent))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for a in arrays:
+            codec.encode(a)
+    encode_us = (time.perf_counter() - t0) * 1e6 / (reps * len(arrays))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for w in wires:
+            codec.decode(w)
+    decode_us = (time.perf_counter() - t0) * 1e6 / (reps * len(wires))
+    drains = []
+    with HostTransport(0) as a, HostTransport(1) as b:
+        a.add_peer(1, "127.0.0.1", b.port)
+        frame = wires[0]
+        for rep in range(21):
+            for r in range(HOST_DRAIN_FRAMES):
+                a.send_buffered(1, Tag(instance=1, round=r), frame)
+            a.flush()
+            time.sleep(0.02)  # let every frame land in the native inbox
+            t0 = time.perf_counter()
+            got = b.recv_many(1000)
+            dt = time.perf_counter() - t0
+            while len(got) < HOST_DRAIN_FRAMES:
+                more = b.recv_many(1000)
+                require(more, "host-wire: the drain lost frames")
+                got += more
+            if rep:  # the first drain connects and warms up
+                drains.append(dt)
+    say_json("host-wire", models=len(NAMES), payloads=len(wires),
+             card_equals_cpu=True, pickle_fallbacks=0,
+             fetch_us=fetch_us, encode_us=encode_us, decode_us=decode_us,
+             drain_frames=HOST_DRAIN_FRAMES,
+             drain_us=1e6 * float(np.median(drains)),
+             drain_us_per_frame=1e6 * float(np.median(drains))
+             / HOST_DRAIN_FRAMES)
+
+    # -- host-threads ---------------------------------------------------------
+    for algo in ("otr", "lastvoting"):
+        host_perftest.measure(n=HOST_N, instances=2, algo=algo,
+                              device=dev)  # loads each kernel once
+        runs = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            runs[where] = host_perftest.measure(
+                n=HOST_N, instances=HOST_THREAD_INSTANCES, algo=algo,
+                timeout_ms=HOST_TIMEOUT_MS, device=d)
+        card, card_logs = runs["card"]
+        cpu_res, cpu_logs = runs["cpu"]
+        for what, res in (("card", card), ("CPU", cpu_res)):
+            require(res["extra"]["agreed_instances"] == HOST_THREAD_INSTANCES,
+                    f"host-threads {algo}: {what} agreed "
+                    f"{res['extra']['agreed_instances']} of "
+                    f"{HOST_THREAD_INSTANCES}")
+        require(card_logs == cpu_logs,
+                f"host-threads {algo}: the card's decisions "
+                f"{card_logs[0]} differ from the CPU's {cpu_logs[0]}")
+        rounds = [st["rounds_run"] for st in card["extra"]["node_stats"].values()]
+        # an instrumented run: METRICS deltas for rounds and copies, the
+        # sync debug mode for host syncs, the host time of each step of a
+        # replica round (the send's and the update's launches, the fetch,
+        # the upload), then one profiled run for the launches
+        names = ("host.rounds", "host.d2h_copies", "host.h2d_copies")
+        c0 = [METRICS.counter(k).value for k in names]
+        spent, lock = {"send": [], "update": [], "fetch": [],
+                       "upload": []}, threading.Lock()
+
+        def timed(fn, what):
+            def run(*a):
+                t = time.perf_counter()
+                out = fn(*a)
+                with lock:
+                    spent[what].append(time.perf_counter() - t)
+                return out
+            return run
+
+        fetch, upload = host.to_numpy, host.to_device
+        round_fns = host.HostRunner._round_fns
+
+        def timed_fns(self, rnd):
+            f_send, f_update, f_go = round_fns(self, rnd)
+            return timed(f_send, "send"), timed(f_update, "update"), f_go
+
+        host.to_numpy, host.to_device = (timed(fetch, "fetch"),
+                                         timed(upload, "upload"))
+        host.HostRunner._round_fns = timed_fns
+        try:
+            t0 = time.perf_counter()
+            _, syncs = device_syncs(torch, lambda: host_perftest.measure(
+                n=HOST_N, instances=3, algo=algo, device=dev))
+            wall = time.perf_counter() - t0
+        finally:
+            host.to_numpy, host.to_device = fetch, upload
+            host.HostRunner._round_fns = round_fns
+        r_n, d2h, h2d = (METRICS.counter(k).value - c for k, c in
+                         zip(names, c0))
+        # ms of host time per replica round in each step, and the rest of
+        # the round (the wire, the pump's wait for peers, the GIL)
+        steps = {k: sum(v) * 1e3 / r_n for k, v in spent.items()}
+        c0 = METRICS.counter("host.rounds").value
+        calls, kernels, copies = traced_launches(
+            torch, lambda: host_perftest.measure(n=HOST_N, instances=3,
+                                                 algo=algo, device=dev))
+        r_p = METRICS.counter("host.rounds").value - c0
+        # the same fetch with the stream idle: one replica's payload alone
+        st = host.lane_init_state(select(algo), 1, HOST_N,
+                              host.instance_io(select(algo), 3), dev)
+        pay = make_host_round_fns(select(algo).rounds[0], HOST_N,
+                                  dev)[0](0, 1, 0, st)[1:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fetch(pay)
+        alone_us = (time.perf_counter() - t0) * 1e6 / reps
+        say_json("host-threads", algo=algo, n=HOST_N,
+                 instances=HOST_THREAD_INSTANCES,
+                 timeout_ms=HOST_TIMEOUT_MS,
+                 metric=card["metric"], decisions_per_sec=card["value"],
+                 wall_basis=card["extra"]["wall_basis"],
+                 wall_s=card["extra"]["wall_s"],
+                 cpu_decisions_per_sec=cpu_res["value"],
+                 agreed=card["extra"]["agreed_instances"],
+                 cpu_equal=True, decisions=card_logs[0],
+                 rounds_per_replica=rounds,
+                 ms_per_round=card["extra"]["wall_s"] * 1e3
+                 / float(np.mean(rounds)),
+                 timeouts={i: st["timeouts"] for i, st in
+                           card["extra"]["node_stats"].items()},
+                 d2h_per_round=d2h / r_n, h2d_per_round=h2d / r_n,
+                 syncs_per_round=syncs / r_n,
+                 launch_calls_per_round=calls / r_p,
+                 kernels_per_round=kernels / r_p,
+                 device_copies_per_round=copies / r_p,
+                 fetch_us_shared_stream=1e6 * float(np.mean(spent["fetch"])),
+                 fetch_us_alone=alone_us,
+                 host_ms_per_replica_round=steps,
+                 other_ms_per_replica_round=wall * 1e3 * HOST_N / r_n
+                 - sum(steps.values()))
+
+    # -- host-processes -------------------------------------------------------
+    # the card, then the same processes on the CPU as the reference (their
+    # start-up skew differs, so their logs are held to agreement only)
+    procs = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        res, logs = host_perftest.measure_processes(
+            n=HOST_N, instances=HOST_PROC_INSTANCES, algo="otr",
+            timeout_ms=HOST_TIMEOUT_MS, device=d)
+        require(res["extra"]["agreed_instances"] == HOST_PROC_INSTANCES
+                and all(logs[i] == logs[0] for i in logs),
+                f"host-processes ({where}): agreed "
+                f"{res['extra']['agreed_instances']} of "
+                f"{HOST_PROC_INSTANCES}, or the replicas' logs differ")
+        procs[where] = res
+    res, cpu_res = procs["card"], procs["cpu"]
+
+    def ms_per_round(r):
+        return r["extra"]["wall_s"] * 1e3 / float(
+            np.mean(list(r["extra"]["rounds_run"].values())))
+
+    say_json("host-processes", algo="otr", n=HOST_N,
+             instances=HOST_PROC_INSTANCES, timeout_ms=HOST_TIMEOUT_MS,
+             metric=res["metric"], decisions_per_sec=res["value"],
+             wall_basis=res["extra"]["wall_basis"],
+             wall_s=res["extra"]["wall_s"],
+             harness_wall_s=res["extra"]["harness_wall_s"],
+             decisions_per_sec_harness_wall=res["extra"][
+                 "decisions_per_sec_harness_wall"],
+             ms_per_round=ms_per_round(res),
+             cpu_decisions_per_sec=cpu_res["value"],
+             cpu_ms_per_round=ms_per_round(cpu_res),
+             startup_s=res["extra"]["startup_s"],
+             cpu_startup_s=cpu_res["extra"]["startup_s"],
+             peak_gib=res["extra"]["peak_gib"],
+             timeouts=res["extra"]["node_timeouts"],
+             agreed=res["extra"]["agreed_instances"], logs_equal=True)
+
+    # -- host-chaos -----------------------------------------------------------
+    plan = chaos.FaultPlan.parse(HOST_CHAOS)
+    attempts, lock = [], threading.Lock()
+
+    def faulty(i, tr):
+        ft = chaos.FaultyTransport(tr, plan, n=HOST_N)
+        inner_faults = ft._send_faults
+
+        def recorded(to, tag, payload):
+            out = inner_faults(to, tag, payload)
+            with lock:
+                attempts.append((i, to, tag.round, tag.instance, not out[0]))
+            return out
+
+        ft._send_faults = recorded
+        return ft
+
+    logs = _host_threads("otr", HOST_CHAOS_INSTANCES, dev, wrap=faulty)
+    decided = 0
+    for inst in range(1, HOST_CHAOS_INSTANCES + 1):
+        vals = {logs[i][inst - 1] for i in logs} - {None}
+        proposals = {host._schedule_value("mixed", 0, i, inst)
+                     for i in range(HOST_N)}
+        require(len(vals) <= 1 and vals <= proposals,
+                f"host-chaos: instance {inst} broke agreement or validity: "
+                f"{[logs[i][inst - 1] for i in sorted(logs)]}")
+        decided += all(logs[i][inst - 1] is not None for i in logs)
+    s0, s1 = scenarios.host_key_salts(plan.seed)
+    p8 = chaos._p8(plan.drop)
+    want = {a[:4] for a in attempts
+            if (scenarios.host_link_u32(s0, s1, a[2], a[0], a[1], HOST_N)
+                & 0xFF) < p8}
+    got = {a[:4] for a in attempts if a[4]}
+    require(got == want and got,
+            f"host-chaos: {len(got)} links dropped, host_link_u32 names "
+            f"{len(want)}")
+    max_r = max(a[2] for a in attempts)
+    card_masks = torch.stack([scenarios.link_bernoulli(
+        (s0, s1), r, HOST_N, plan.drop, device=dev)
+        for r in range(max_r + 1)]).cpu()
+    require(all(bool(card_masks[a[2], a[1], a[0]]) == a[4]
+                for a in attempts),
+            "host-chaos: link_bernoulli on the card disagrees with the "
+            "dropped links")
+    say_json("host-chaos", algo="otr", n=HOST_N, plan=plan.spec(),
+             instances=HOST_CHAOS_INSTANCES, decided=decided,
+             agreement=True, validity=True, sends=len(attempts),
+             dropped=len(got), dropped_equal_host_link_u32=True,
+             link_bernoulli_equal=True, decisions=logs[0])
+
+
 def main() -> None:
     if not (ROOT / "round_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: round_tpu_torch/csrc is not beside "
@@ -2246,7 +2614,7 @@ def main() -> None:
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
         else None
     if only is not None:
-        require(only in ("sharded", "peers", "fuzz", "runtime"),
+        require(only in ("sharded", "peers", "fuzz", "runtime", "host"),
                 f"unknown --only {only}")
         if only == "sharded":
             part = sharded_phases(torch, gen)
@@ -2255,6 +2623,9 @@ def main() -> None:
             part = []
         elif only == "runtime":
             runtime_phases(torch, dev)
+            part = []
+        elif only == "host":
+            host_phases(torch, dev)
             part = []
         else:
             k4_vs_plain(torch, gen)
@@ -2735,6 +3106,9 @@ def main() -> None:
 
     # -- 6b'. the in-process runtime (no kernel of its own) ------------------
     runtime_phases(torch, dev)
+
+    # -- 6b'. the wire and the host runner (no kernel of their own) ----------
+    host_phases(torch, dev)
 
     # -- 6b''. the last histogram slice's engines at their users' widths ----
     kset_launches = families_wide(torch, dev)

@@ -1,7 +1,8 @@
 """The round engine: lockstep execution of an Algorithm.
 
 Port of round_tpu/engine/executor.py (the scenario engine with its value-
-adversary hook; the serving-lane half is not ported yet).  Execution shape:
+adversary hook, and the host runner's per-lane round functions; the
+serving-lane half, ``LaneStep`` and its helpers, is not ported yet).  Execution shape:
 
   - per-lane user functions are batched over the process axis with
     ``torch.func.vmap`` (``ctx`` is built inside the vmapped function),
@@ -25,7 +26,7 @@ import torch
 from torch.func import vmap
 
 from round_tpu_torch.core.algorithm import Algorithm
-from round_tpu_torch.core.rounds import RoundCtx
+from round_tpu_torch.core.rounds import FoldRound, RoundCtx
 from round_tpu_torch.ops.mailbox import Mailbox
 from round_tpu_torch.utils.device import resolve_device
 from round_tpu_torch.utils.tree import (
@@ -339,3 +340,79 @@ def simulate(
         recorded=(tree_stack([res.recorded for res in results])
                   if first.recorded is not None else None),
     )
+
+
+def host_lane_word(salts, r: int, sid: int) -> int:
+    """The rng word ``LocalTopology.lane_keys(salts, r)[sid]``, computed
+    on the host: a replica's draws are then the general engine's on the
+    same key."""
+    from round_tpu_torch.engine.scenarios import mix32_host
+    from round_tpu_torch.ops.fused import _GOLD, _RMIX
+
+    k0, k1 = salts
+    z = (sid * _GOLD + k0) & _M32
+    z ^= (int(r) * _RMIX + k1 + _UPD_STREAM) & _M32
+    return mix32_host(z)
+
+
+def make_host_round_fns(rnd, n: int, device=None):
+    """The per-lane (send, update, go) functions of one Round at group
+    size ``n`` for the host runner (round_tpu/engine/executor.py::
+    make_host_round_fns).  They run one lane, unbatched, on ``device``
+    (the card unless the caller passes another).
+
+    Signatures (``rr``, ``sid`` Python ints, ``seed`` an int seed; state
+    and vals pytrees of tensors on the device):
+      f_send(rr, sid, seed, state)               -> (state', payload, dest)
+      f_update(rr, sid, seed, state, vals, mask) -> (state', exit_flag)
+      f_go(rr, sid, seed, state, vals, mask)     -> go   (FoldRound only,
+                                                          else None)
+
+    round_tpu gives every call the key ``fold_in(fold_in(PRNGKey(seed),
+    rr), sid)``.  Here pre and send get no rng, as in ``run_round``, and
+    update and the go probe get ``host_lane_word(host_key_salts(seed), rr,
+    sid)``, the word the general engine gives lane ``sid`` at round ``rr``
+    under ``host_key_salts(seed)``: a replica's draws equal the general
+    engine's on that key.  Ids, rounds and words are 0-d tensors filled
+    on the device (no host-to-device copy); ids and rounds are kept for
+    reuse."""
+    from round_tpu_torch.engine.scenarios import host_key_salts
+
+    dev = resolve_device(device)
+    consts: dict = {}
+
+    def const(value: int, dtype):
+        t = consts.get((value, dtype))
+        if t is None:
+            t = consts[(value, dtype)] = torch.full((), value, dtype=dtype,
+                                                   device=dev)
+        return t
+
+    def mk_ctx(rr, sid, seed=None):
+        rng = None
+        if seed is not None:
+            rng = torch.full((), host_lane_word(host_key_salts(seed), rr,
+                                                sid),
+                             dtype=torch.int64, device=dev)
+        return RoundCtx(id=const(sid, torch.int32), n=n,
+                        r=const(rr, torch.int32), rng=rng)
+
+    def f_send(rr, sid, seed, state):
+        ctx = mk_ctx(rr, sid)
+        st = rnd.pre(ctx, state)
+        spec = rnd.send(ctx, st)
+        return st, spec.payload, spec.dest_mask
+
+    def f_update(rr, sid, seed, state, vals, mask):
+        ctx = mk_ctx(rr, sid, seed)
+        st2 = rnd.update(ctx, state, Mailbox(vals, mask))
+        return st2, ctx._exit
+
+    f_go = None
+    if isinstance(rnd, FoldRound):
+        def f_go(rr, sid, seed, state, vals, mask):  # noqa: E306
+            ctx = mk_ctx(rr, sid, seed)
+            m, count = rnd.fold(ctx, state, Mailbox(vals, mask))
+            return rnd.go_ahead(ctx, state, m, count)
+
+    return f_send, f_update, f_go

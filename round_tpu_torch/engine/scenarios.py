@@ -65,6 +65,30 @@ def mix32_host(z: int) -> int:
     return int(z)
 
 
+def host_link_u32(salt0: int, salt1: int, r: int, src: int, dst: int,
+                  n: int, stream: int = 0) -> int:
+    """One link's value of the counter-based link hash, with an optional
+    ``stream`` constant for the host chaos layer's independent event
+    families (round_tpu/engine/scenarios.py::host_link_u32).  With
+    stream=0, ``host_link_u32(...) & 0xFF < p8`` is link_bernoulli's
+    ``[dst, src]`` entry for the same salts."""
+    idx = ((dst & _M32) * (n & _M32) + (src & _M32)) & _M32
+    z = (idx * LINK_GOLD + salt0) & _M32
+    z ^= ((r & _M32) * LINK_RMIX + salt1 + stream) & _M32
+    return mix32_host(z)
+
+
+def host_key_salts(seed: int) -> tuple[int, int]:
+    """(salt0, salt1) for the host chaos layer from an integer seed: the
+    salts round_tpu's ``_key_salt(PRNGKey(seed))`` gives
+    (round_tpu/engine/scenarios.py::host_key_salts), computed without
+    jax.  Under JAX's default 32-bit mode ``PRNGKey(seed)`` is the pair
+    (0, seed mod 2^32); a seed outside int64 overflows there too."""
+    if not -(1 << 63) <= seed < (1 << 63):
+        raise OverflowError("Python int too large to convert to C long")
+    return 0, seed & _M32
+
+
 def link_bernoulli(key, r, n: int, p: float, device=None) -> torch.Tensor:
     """[n, n] iid Bernoulli(p') mask, p' = round(p*256)/256 (at least 1/256
     for any p > 0), keyed by (key salts, round, link).  True with

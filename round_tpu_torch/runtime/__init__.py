@@ -22,9 +22,9 @@ top.  Here the same services are tensor-shaped:
 
 Port of round_tpu/runtime/__init__.py, with the same exports.  The port
 has the in-process modules (instances, membership, decisions, config,
-health, oob, capacity, checkpoint, smr, view, log, stats); the wire, the
-host runner and the lanes (codec, transport, host, control, chaos, lanes,
-fleet) are not ported yet.
+health, oob, capacity, checkpoint, smr, view, log, stats), the wire
+(codec, transport) and the host runner (host, control, chaos); the lanes
+and the fleet (lanes, fleet) are not ported yet.
 """
 
 from round_tpu_torch.runtime.checkpoint import restore as restore_checkpoint

@@ -42,13 +42,11 @@ compose — runtime/chaos.py's FaultyTransport schedules are pure functions
 of (seed, src, dst, round) and survive any number of reconnects.
 
 Port of round_tpu/runtime/view.py: the op encoding, ``View`` (its wire form
-pickles to round_tpu's bytes: plain builtins) and ``ViewManager``'s
-in-process surface (``apply_op``, the observers, ``check_epoch``,
-``reply_view``, ``adopt_wire``, the farewells) over any object with
-round_tpu's transport methods (``send``, ``rewire``).  ``propose`` runs
-the membership consensus over the host runner (round_tpu/runtime/host.py
-::HostRunner), which the port has not ported yet (ROADMAP slice 6c): it
-raises NotImplementedError until then.
+pickles to round_tpu's bytes: plain builtins) and ``ViewManager`` over any
+object with round_tpu's transport methods (``send``, ``rewire``).
+``propose`` runs the membership consensus over the port's host runner
+(runtime/host.py::HostRunner) on ``device`` (the card unless the caller
+passes another).
 """
 
 from __future__ import annotations
@@ -260,7 +258,7 @@ class ViewManager:
 
     def propose(self, algo, kind: int, arg: int, *, seed: int = 0,
                 timeout_ms: int = 300, max_rounds: int = 48,
-                adaptive=None, foreign=None, prefill=None,
+                adaptive=None, foreign=None, prefill=None, device=None,
                 ) -> Optional[Tuple[int, int]]:
         """Run ONE consensus instance on ``encode(kind, arg)`` over the
         current view's wire and apply the decision.  All members of the
@@ -268,17 +266,34 @@ class ViewManager:
         (the --view-change script of apps/host_replica.py).  Returns the
         decided (kind, arg), or None when the instance timed out
         undecided — the view is then unchanged and the caller may retry
-        or rely on the FLAG_VIEW catch-up if peers did decide.
+        or rely on the FLAG_VIEW catch-up if peers did decide.  The
+        instance's rounds run on ``device`` (the card when None)."""
+        import numpy as np
 
-        Not in the port yet: the consensus runs over the host runner
-        (round_tpu/runtime/host.py::HostRunner), which comes with ROADMAP
-        slice 6c, and so does its proof gate (``_license_gate``, kept
-        from round_tpu unchanged).  Raises NotImplementedError."""
-        raise NotImplementedError(
-            "ViewManager.propose runs the membership consensus over the "
-            "host runner (round_tpu/runtime/host.py::HostRunner), which the "
-            "port has not ported yet (ROADMAP slice 6c); decide the op "
-            "another way and call apply_op")
+        from round_tpu_torch.runtime.host import HostRunner
+
+        if self.removed:
+            return None
+        if not self._license_gate(kind, arg):
+            return None
+        inst = view_instance(self.epoch)
+        runner = HostRunner(
+            algo, self.my_id, self.view.peers(), self.transport,
+            instance_id=inst, timeout_ms=timeout_ms,
+            seed=seed ^ (0x51E << 8) ^ self.epoch, adaptive=adaptive,
+            foreign=foreign, prefill=prefill, view=self, device=device,
+        )
+        res = runner.run({"initial_value": np.int32(encode(kind, arg))},
+                         max_rounds=max_rounds)
+        if res.stale_view:
+            # a FLAG_VIEW catch-up already moved us past this epoch —
+            # the op (ours or another) was applied by adopt_wire
+            return None
+        if not res.decided:
+            return None
+        kind_d, arg_d = decode(int(np.asarray(res.decision)))
+        self.apply_op(kind_d, arg_d)
+        return kind_d, arg_d
 
     def _license_gate(self, kind: int, arg: int) -> bool:
         """The proof gate of propose(): True = proceed.  A non-licensed

@@ -8,9 +8,10 @@ of K1 and K2 at n = 1008, in sided rounds, with receivers finishing early
 and with the one-hot in device memory, the probes P1 and P2 (sizes that
 are not a multiple of 4, views off a 16-byte boundary), and K4 over
 shards of one card (its local kernel on both paths, the launches per
-path); the fuzzer's batched evaluator and minimizer, and the runtime's
-batched instance window (no kernel of their own), on the card against the
-CPU:
+path); the fuzzer's batched evaluator and minimizer, the runtime's
+batched instance window, and the host runner's payload bytes, a 4-replica
+thread-mode cluster and the lock manager (no kernel of their own), on the
+card against the CPU:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -616,3 +617,52 @@ def test_instance_window_on_card_matches_cpu(dev, algo):
         for f in ("decided", "decision", "decided_round"):
             assert np.array_equal(getattr(got, f), getattr(want, f)), f
         assert (got.value is None) == (want.value is None)
+
+
+@pytest.mark.parametrize("name", ["otr", "lv", "benor", "kset", "pbft-vc"])
+def test_host_payload_bytes_from_card_match_cpu(dev, name):
+    """A replica's round payloads, sent from its state on cuda:0, encode to
+    the bytes of the same send on the CPU."""
+    from round_tpu_torch.apps.selector import select
+    from round_tpu_torch.engine.executor import make_host_round_fns
+    from round_tpu_torch.runtime import codec, host
+
+    algo = select(name)
+    io = host.instance_io(algo, 3)
+    wires = []
+    for d in (dev, torch.device("cpu")):
+        st = host.lane_init_state(algo, 1, 4, io, d)
+        wires.append([codec.encode(host.to_numpy(
+            make_host_round_fns(rnd, 4, d)[0](k, 1, 0, st)[1:]))
+            for k, rnd in enumerate(algo.rounds)])
+    assert wires[0] == wires[1]
+
+
+@pytest.mark.parametrize("algo", ["otr", "lastvoting"])
+def test_host_thread_cluster_on_card_matches_cpu(dev, algo):
+    """host_perftest.measure: 4 HostRunner threads on cuda:0 over localhost
+    TCP agree on every instance and decide the CPU run's log."""
+    from round_tpu_torch.apps import host_perftest
+
+    logs = []
+    for d in (dev, torch.device("cpu")):
+        res, log = host_perftest.measure(instances=3, algo=algo, device=d)
+        assert res["extra"]["agreed_instances"] == 3
+        logs.append(log)
+    assert logs[0] == logs[1]
+
+
+def test_lock_manager_on_card_matches_cpu(dev):
+    from round_tpu_torch.apps import lock_manager as lm
+
+    holders = []
+    for d in (dev, torch.device("cpu")):
+        m = lm.LockManager(n=4, device=d)
+        trail = []
+        for op, client in ((lm.ACQUIRE, 3), (lm.RELEASE, 3),
+                           (lm.ACQUIRE, 5)):
+            m.request(op, client)
+            m.process()
+            trail.append(m.holder())
+        holders.append(trail)
+    assert holders[0] == holders[1] == [3, lm.FREE, 5]

@@ -10,10 +10,12 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "round_tpu")
-# the in-process runtime's modules
+# the runtime's modules: in-process, the wire and the host runner
 RUNTIME = ("__init__", "log", "stats", "membership", "decisions", "config",
            "health", "instances", "oob", "capacity", "checkpoint", "smr",
-           "view")
+           "view", "codec", "transport", "host", "control", "chaos")
+# the apps of the host runner
+HOST_APPS = ("perf_ab", "host_replica", "host_perftest", "lock_manager")
 
 
 def _port_files():
@@ -75,6 +77,7 @@ def test_port_files_exist():
                  *(f"round_tpu_torch/runtime/{m}.py" for m in RUNTIME),
                  "round_tpu_torch/apps/perftest.py",
                  "round_tpu_torch/apps/dynamic_membership.py",
+                 *(f"round_tpu_torch/apps/{m}.py" for m in HOST_APPS),
                  "chip_smoke.py"):
         assert want in names
 
@@ -103,10 +106,24 @@ def test_importing_the_port_loads_no_jax():
         "round_tpu_torch.fuzz.objectives, round_tpu_torch.utils.byzantine, "
         + "".join(f"round_tpu_torch.runtime.{m}, " for m in RUNTIME[1:]) +
         "round_tpu_torch.runtime, round_tpu_torch.apps.perftest, "
-        "round_tpu_torch.apps.dynamic_membership, sys; "
+        "round_tpu_torch.apps.dynamic_membership, "
+        + "".join(f"round_tpu_torch.apps.{m}, " for m in HOST_APPS) +
+        "sys; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'round_tpu')); assert not bad, bad"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_transport_builds_from_the_ports_own_source():
+    """The native transport the port loads is built from
+    round_tpu_torch/native/transport.cpp into round_tpu_torch/_build/,
+    never from or into round_tpu/native/."""
+    from round_tpu_torch.runtime import transport
+
+    assert Path(transport._NATIVE_SRC) == \
+        REPO / "round_tpu_torch/native/transport.cpp"
+    assert Path(transport._NATIVE_SO) == \
+        REPO / "round_tpu_torch/_build/libroundnet.so"

@@ -7,9 +7,9 @@ garbage handling, the mod-256 epoch guard, the view-change script, and
 ViewManager's apply_op / observers / epoch guard / adopt_wire / farewells,
 with every send and rewire the stub records compared between the two
 (FLAG_VIEW payloads byte for byte: ``pickle.dumps(view.wire())`` is plain
-builtins).  ``propose`` needs the host runner, which the port does not
-have yet: it raises.  The socket tests of tests/test_view.py have no
-counterpart here."""
+builtins).  ``propose`` runs over the host runner; its consensus over
+sockets is held in tests/test_torch_host.py.  The socket tests of
+tests/test_view.py have no other counterpart here."""
 
 import pickle
 
@@ -226,7 +226,18 @@ def test_manager_apply_op_farewells_removed_pid():
 
 
 def test_propose_waits_for_the_host_runner():
+    """propose runs its consensus through the host runner
+    (runtime/host.py::HostRunner, tests/test_torch_host.py decides one),
+    on the card by default: with no card it raises before the view
+    moves, and a removed replica returns None without running."""
+    import torch
+
+    from round_tpu_torch.apps.selector import select
+
     mgr, _ = _manager(PKGS[1], 0, 0, [7000, 7001, 7002])
-    with pytest.raises(NotImplementedError, match="HostRunner"):
-        mgr.propose(None, tview.ADD, 7003)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mgr.propose(select("otr"), tview.ADD, 7003)
     assert mgr.epoch == 0 and mgr.history == []
+    mgr.removed = True
+    assert mgr.propose(select("otr"), tview.ADD, 7003, device="cpu") is None
