@@ -199,11 +199,37 @@ Phases, each printed as one line:
                    plan: agreement and validity hold; the dropped links are
                    exactly host_link_u32's, and link_bernoulli's on the card
 
+  lanes-step       the lane driver's mega-step (round_tpu_torch/engine/
+                   executor.py LaneStep, no kernel of its own) at L=64,
+                   n=4 for OTR, LastVoting, LastVotingEvent and
+                   LastVotingBytes at 64 B, random rounds within each round
+                   class, a random active mask: send, update and go probe
+                   on the card bit for bit against the CPU and against the
+                   per-instance trio lane by lane; launch calls of one
+                   send and one update dispatch at L=16 and L=64 (equal)
+  lanes-equiv      round_tpu's tests/test_lanes.py clusters, 3 replica
+                   threads: the lane driver on cuda:0, the per-instance
+                   driver on cuda:0 and the lane driver on the CPU give
+                   one decision log (OTR mixed, LastVotingEvent,
+                   LastVotingBytes, OTR under a drop plan)
+  lanes-ab         host_perftest.measure_lanes_ab at its defaults (n=4, 64
+                   OTR instances, lanes=64, 3 pairs, threads on cuda:0),
+                   then one instrumented lane run: per update wave the
+                   dispatches, instances per dispatch, copies, host syncs,
+                   launches and host ms by step
+  overload         host_perftest.measure_overload_ab at its defaults (4
+                   process clusters on cuda:0): the hardened ratio, every
+                   arm's sheds NACK-accounted
+  fleet-open-loop  host_perftest.measure_open_loop: 4 shard processes on
+                   cuda:0 under 100 proposals/sec, every request decided,
+                   p50/p99, start-up s and peak GiB a shard
+
 With ``--only sharded`` the script builds the kernels and runs the K4 and
 sharded phases alone; with ``--only peers`` just K4-vs-plain and ring-peers
 (for a machine with several cards); with ``--only fuzz`` the five fuzz
 phases; with ``--only runtime`` the three runtime phases; with ``--only
-host`` the four host phases.  The fuzz and
+host`` the four host phases; with ``--only serve`` the five lane and
+fleet phases, the timed ones with the card's name and power limit.  The fuzz and
 runtime phases print one JSON line each, with a "phase" key; an ``--only``
 run prints {"only": ...} before the card's line.
 
@@ -2544,6 +2570,370 @@ def host_phases(torch, dev) -> None:
              link_bernoulli_equal=True, decisions=logs[0])
 
 
+# the lane driver and the fleet (round_tpu_torch/runtime/lanes.py,
+# fleet.py): the mega-step's shape, round_tpu's tests/test_lanes.py
+# cluster shapes, and host_perftest's defaults for the A/Bs
+SERVE_L, SERVE_N = 64, 4
+SERVE_STEP_MODELS = (("otr", 0), ("lastvoting", 0), ("lve", 0), ("lvb", 64))
+# (model, payload bytes, instances, lanes, round ms, schedule, chaos)
+SERVE_EQUIV = (("otr", 0, 6, 4, 2000, "mixed", None),
+               ("lve", 0, 3, 3, 2000, "uniform", None),
+               ("lvb", 64, 3, 3, 200, "mixed", None),
+               ("otr", 0, 4, 4, 900, "uniform", "drop=0.12,seed=5"))
+SERVE_OPEN_LOOP_RATE = 100.0  # run_fleet_bench's default offered rate
+
+
+def _lane_inputs(torch, algo, L, rng, device):
+    """An [L, ...] lane state of L instances (values from ``rng``), their
+    salts, per-lane rounds of one class c (a function), an active mask
+    and a mailbox builder, on ``device``."""
+    import numpy as np
+
+    from round_tpu_torch.engine.scenarios import host_key_salts
+    from round_tpu_torch.runtime import host
+    from round_tpu_torch.utils.tree import tree_stack
+
+    values = rng.integers(0, 5, L)
+    state = tree_stack([host.lane_init_state(
+        algo, 1, SERVE_N, host.instance_io(algo, int(v)), device)
+        for v in values])
+    seeds = [7 + i for i in range(1, L + 1)]
+    salts = torch.tensor([host_key_salts(s)[1] for s in seeds],
+                         dtype=torch.int64, device=device)
+    active = torch.from_numpy(rng.random(L) < 0.7).to(device)
+    mask = torch.from_numpy(rng.random((L, SERVE_N)) < 0.8).to(device)
+    return state, seeds, salts, active, mask
+
+
+def _lane_cluster(driver, algo, device, n=3, instances=6, lanes=4, seed=7,
+                  timeout_ms=2000, schedule="mixed", chaos=None,
+                  linger_ms=0):
+    """round_tpu's tests/test_lanes.py::_cluster on the port: n replica
+    threads, every socket bound before any replica starts, "lanes" (the
+    lane driver) or "seq" (the per-instance loop) on ``device``; with
+    ``linger_ms`` each replica answers laggards after its loop.  Returns
+    the decision logs."""
+    import threading
+
+    from round_tpu_torch.runtime import host
+    from round_tpu_torch.runtime.chaos import (
+        FaultPlan, FaultyTransport, alloc_ports,
+    )
+    from round_tpu_torch.runtime.lanes import run_instance_loop_lanes
+    from round_tpu_torch.runtime.transport import HostTransport
+
+    ports = alloc_ports(n)
+    peers = {i: ("127.0.0.1", ports[i]) for i in range(n)}
+    trs = [HostTransport(i, ports[i]) for i in range(n)]
+    logs, errors = {}, {}
+
+    def node(i):
+        tr = trs[i]
+        if chaos:
+            tr = FaultyTransport(tr, FaultPlan.parse(chaos), n)
+        try:
+            if driver == "lanes":
+                logs[i] = run_instance_loop_lanes(
+                    algo, i, peers, tr, instances, lanes=lanes,
+                    timeout_ms=timeout_ms, seed=seed,
+                    value_schedule=schedule, device=device)
+            else:
+                logs[i] = host.run_instance_loop(
+                    algo, i, peers, tr, instances, timeout_ms=timeout_ms,
+                    seed=seed, value_schedule=schedule, device=device)
+            if linger_ms:
+                host.serve_decisions(tr, logs[i], idle_ms=linger_ms,
+                                     contact_idle_ms=linger_ms // 2)
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors[i] = repr(e)
+        finally:
+            trs[i].close()
+
+    threads = [threading.Thread(target=node, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    require(not errors and len(logs) == n
+            and not any(t.is_alive() for t in threads),
+            f"lane cluster ({driver}) failed: {errors}")
+    return logs
+
+
+def serve_phases(torch, dev, card) -> None:
+    """The lane driver and the fleet (round_tpu_torch/runtime/lanes.py,
+    fleet.py, apps/loadgen.py, apps/fleet.py; no kernel of their own) on
+    the card, each held against the CPU or the per-instance driver."""
+    import threading
+
+    import numpy as np
+
+    from round_tpu_torch.apps import host_perftest
+    from round_tpu_torch.apps.selector import select
+    from round_tpu_torch.engine.executor import LaneStep, make_host_round_fns
+    from round_tpu_torch.obs.metrics import METRICS
+    from round_tpu_torch.runtime import host, lanes
+    from round_tpu_torch.utils.tree import tree_flatten, tree_map
+
+    cpu = torch.device("cpu")
+
+    def algo_of(name, pb):
+        return select(name, {"payload_bytes": pb} if pb else {})
+
+    # -- lanes-step -----------------------------------------------------------
+    def row(tree, lane):
+        return tree_map(lambda x: x[lane], tree)
+
+    def leaves_equal(a, b, flatten=tree_flatten):
+        la, lb = flatten(a)[0], flatten(b)[0]
+        return len(la) == len(lb) and all(
+            x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+            for x, y in zip(la, lb))
+
+    def mailbox(payload):
+        return tree_map(lambda x: torch.stack(
+            [torch.roll(x, j, 0) for j in range(SERVE_N)], 1), payload)
+
+    checked = {}
+    for name, pb in SERVE_STEP_MODELS:
+        algo = algo_of(name, pb)
+        rng = np.random.default_rng(5)
+        places = (("card", dev), ("cpu", cpu))
+        ins = {w: _lane_inputs(torch, algo, SERVE_L,
+                               np.random.default_rng(5), d)
+               for w, d in places}
+        lanes_checked = 0
+        for c, rnd in enumerate(algo.rounds):
+            rr_np = (rng.integers(0, 6, SERVE_L) * len(algo.rounds)
+                     + c).astype(np.int32)
+            step = LaneStep(rnd, SERVE_N, SERVE_L)
+            out = {}
+            for w, d in places:
+                state, seeds, salts, active, mask = ins[w]
+                rr = torch.from_numpy(rr_np).to(d)
+                st1, payload, dest = step.send(rr, 1, salts, state, active)
+                vals = mailbox(payload)
+                st2, ex = step.update(rr, 1, salts, st1, vals, mask, active)
+                go = (step.go(rr, 1, salts, st1, vals, mask)
+                      if step.go is not None else None)
+                out[w] = (st1, payload, dest, vals, st2, ex, go)
+            a, b = out["card"], out["cpu"]
+            require(leaves_equal(a[0], b[0]) and leaves_equal(a[4], b[4])
+                    and leaves_equal(a[1], b[1], host._flatten)
+                    and torch.equal(a[2].cpu(), b[2])
+                    and torch.equal(a[5].cpu(), b[5])
+                    and (a[6] is None or torch.equal(a[6].cpu(), b[6])),
+                    f"lanes-step {name} class {c}: the card differs from "
+                    f"the CPU")
+            # the per-instance trio, lane by lane on the card
+            f_send, f_update, f_go = make_host_round_fns(rnd, SERVE_N, dev)
+            state, seeds, salts, active, mask = ins["card"]
+            st1, payload, dest, vals, st2, ex, go = a
+            for lane in range(SERVE_L):
+                if not bool(active[lane]):
+                    require(leaves_equal(row(st2, lane), row(state, lane)),
+                            f"lanes-step {name}: inactive lane {lane} "
+                            f"changed")
+                    continue
+                r, s = int(rr_np[lane]), seeds[lane]
+                t1, p1, d1 = f_send(r, 1, s, row(state, lane))
+                t2, e2 = f_update(r, 1, s, row(st1, lane), row(vals, lane),
+                                  mask[lane])
+                require(leaves_equal(row(st1, lane), t1)
+                        and leaves_equal(row(payload, lane), p1,
+                                         host._flatten)
+                        and torch.equal(dest[lane], d1)
+                        and leaves_equal(row(st2, lane), t2)
+                        and bool(ex[lane]) == bool(e2)
+                        and (go is None or bool(go[lane]) == bool(f_go(
+                            r, 1, s, row(st1, lane), row(vals, lane),
+                            mask[lane]))),
+                        f"lanes-step {name} class {c} lane {lane}: the "
+                        f"mega-step differs from the per-instance trio")
+                lanes_checked += 1
+            ins["card"] = (st2,) + ins["card"][1:]
+            ins["cpu"] = (b[4],) + ins["cpu"][1:]
+        checked[name] = lanes_checked
+    # launches of one send and one update dispatch at L=16 and L=64
+    launches = {}
+    algo = select("otr")
+    for L in (16, SERVE_L):
+        state, _seeds, salts, active, mask = _lane_inputs(
+            torch, algo, L, np.random.default_rng(1), dev)
+        step = LaneStep(algo.rounds[0], SERVE_N, L)
+        rr = torch.zeros(L, dtype=torch.int32, device=dev)
+        st1, payload, _dest = step.send(rr, 1, salts, state, active)
+        vals = mailbox(payload)
+        step.update(rr, 1, salts, st1, vals, mask, active)
+        torch.cuda.synchronize()
+        launches[L] = {
+            "send": traced_launches(torch, lambda: step.send(
+                rr, 1, salts, state, active))[0],
+            "update": traced_launches(torch, lambda: step.update(
+                rr, 1, salts, st1, vals, mask, active))[0]}
+    require(launches[16] == launches[SERVE_L],
+            f"lanes-step: launches grow with L: {launches}")
+    say_json("lanes-step", n=SERVE_N, lanes=SERVE_L,
+             models=[m for m, _ in SERVE_STEP_MODELS],
+             active_lanes_checked=checked, cpu_equal=True,
+             per_instance_equal=True, inactive_unchanged=True,
+             launches_otr={str(k): v for k, v in launches.items()})
+
+    # -- lanes-equiv ----------------------------------------------------------
+    equiv = {}
+    for name, pb, inst, L, ms, schedule, chaos in SERVE_EQUIV:
+        kw = dict(instances=inst, timeout_ms=ms, schedule=schedule,
+                  chaos=chaos, linger_ms=1500 if chaos else 0)
+        algo = algo_of(name, pb)
+        card_lanes = _lane_cluster("lanes", algo, dev, lanes=L, **kw)
+        card_seq = _lane_cluster("seq", algo, dev, **kw)
+        cpu_lanes = _lane_cluster("lanes", algo, cpu, lanes=L, **kw)
+        what = f"{name}{'-chaos' if chaos else ''}"
+        require(card_lanes == card_seq == cpu_lanes
+                and all(d is not None for log in card_lanes.values()
+                        for d in log),
+                f"lanes-equiv {what}: lanes on the card {card_lanes}, "
+                f"per-instance {card_seq}, lanes on the CPU {cpu_lanes}")
+        equiv[what] = card_lanes[0]
+    say_json("lanes-equiv", replicas=3, workloads=equiv,
+             card_lanes_equal_card_per_instance=True,
+             card_lanes_equal_cpu_lanes=True)
+
+    # -- lanes-ab -------------------------------------------------------------
+    ab = host_perftest.measure_lanes_ab(device=dev)
+    # one instrumented lane run: METRICS deltas per update dispatch (a
+    # wave of one round class), host syncs from the sync debug mode, the
+    # host time of each step, then one profiled run for the launches
+    names = ("lanes.dispatches", "lanes.update_dispatches",
+             "lanes.send_dispatches", "lanes.go_dispatches",
+             "host.rounds", "host.d2h_copies", "host.h2d_copies")
+    spent, lock = {k: [] for k in ("send", "update", "fetch", "upload",
+                                   "ingest")}, threading.Lock()
+    exit_waves = [0]
+
+    def timed(fn, what):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            with lock:
+                spent[what].append(time.perf_counter() - t)
+            return out
+        return run
+
+    class TimedStep:
+        def __init__(self, step):
+            self.send = timed(step.send, "send")
+            self.update = timed(step.update, "update")
+            self.go = None if step.go is None else timed(step.go, "update")
+
+    inner = (lanes.to_numpy, lanes.to_device, lanes.lane_step,
+             lanes.lane_decide, lanes.LaneDriver._drain)
+
+    def counted_decide(algo, L):
+        fn = inner[3](algo, L)
+
+        def run(state):
+            exit_waves[0] += 1
+            return fn(state)
+        return run
+
+    lanes.to_numpy = timed(inner[0], "fetch")
+    lanes.to_device = timed(inner[1], "upload")
+    lanes.lane_step = lambda *a, **kw: TimedStep(inner[2](*a, **kw))
+    lanes.lane_decide = counted_decide
+    lanes.LaneDriver._drain = timed(inner[4], "ingest")
+    c0 = [METRICS.counter(k).value for k in names]
+    h_ipd = lanes._H_IPD
+    h0 = (h_ipd.count, h_ipd.sum)
+    try:
+        t0 = time.perf_counter()
+        (res, logs), syncs = device_syncs(torch, lambda: host_perftest.measure(
+            n=HOST_N, instances=SERVE_L, algo="otr", lanes=SERVE_L,
+            device=dev))
+        wall = time.perf_counter() - t0
+    finally:
+        (lanes.to_numpy, lanes.to_device, lanes.lane_step,
+         lanes.lane_decide, lanes.LaneDriver._drain) = inner
+    d = {k: METRICS.counter(k).value - v for k, v in zip(names, c0)}
+    waves = d["lanes.update_dispatches"]
+    require(res["extra"]["agreed_instances"] == SERVE_L,
+            f"lanes-ab: the instrumented run agreed "
+            f"{res['extra']['agreed_instances']} of {SERVE_L}")
+    steps = {k: sum(v) * 1e3 / waves for k, v in spent.items()}
+    c0 = METRICS.counter("lanes.update_dispatches").value
+    calls, kernels, copies = traced_launches(
+        torch, lambda: host_perftest.measure(
+            n=HOST_N, instances=SERVE_L, algo="otr", lanes=SERVE_L,
+            device=dev))
+    waves_p = METRICS.counter("lanes.update_dispatches").value - c0
+    say_json("lanes-ab", metric=ab["metric"], speedup=ab["value"],
+             dps_per_instance=ab["extra"]["dps_per_instance"],
+             dps_lanes=ab["extra"]["dps_lanes"],
+             samples_per_instance=ab["extra"]["samples_per_instance"],
+             samples_lanes=ab["extra"]["samples_lanes"],
+             n=HOST_N, instances=SERVE_L, lanes=SERVE_L,
+             timeout_ms=HOST_TIMEOUT_MS, pairs=ab["extra"]["pairs"],
+             agreed=res["extra"]["agreed_instances"],
+             waves=waves, waves_with_exits=exit_waves[0],
+             dispatches_per_wave=d["lanes.dispatches"] / waves,
+             send_dispatches=d["lanes.send_dispatches"],
+             go_dispatches=d["lanes.go_dispatches"],
+             instances_per_dispatch=(h_ipd.sum - h0[1])
+             / max(1, h_ipd.count - h0[0]),
+             d2h_per_wave=d["host.d2h_copies"] / waves,
+             h2d_per_wave=d["host.h2d_copies"] / waves,
+             syncs_per_wave=syncs / waves,
+             launch_calls_per_wave=calls / waves_p,
+             kernels_per_wave=kernels / waves_p,
+             device_copies_per_wave=copies / waves_p,
+             host_ms_per_wave=steps,
+             other_ms_per_wave=wall * 1e3 * HOST_N / waves
+             - sum(steps.values()),
+             card=card)
+
+    # -- overload -------------------------------------------------------------
+    ov = host_perftest.measure_overload_ab(device=dev)
+    runs = ov["extra"]["runs"]
+    for arm, r in runs.items():
+        o = r.get("overload", {})
+        require(o.get("shed_frames", 0) == o.get("nacks_sent", 0)
+                + o.get("nacks_suppressed", 0),
+                f"overload {arm}: shed frames are not NACK-accounted: {o}")
+    require(ov["extra"]["shed_accounting_ok"], "overload: shed accounting")
+    say_json("overload", metric=ov["metric"], ratio=ov["value"],
+             baseline_ratio=ov["extra"]["baseline_ratio"],
+             shedding_ratio=ov["extra"]["shedding_ratio"],
+             dps={k: r["dps"] for k, r in runs.items()},
+             wall_s={k: r["wall_s"] for k, r in runs.items()},
+             sheds=ov["extra"]["sheds"], shed_accounting_ok=True,
+             rss_ratio_hardened=ov["extra"]["rss_ratio_hardened"],
+             lanes_slow=ov["extra"]["lanes_slow"],
+             overload=ov["extra"]["overload"],
+             instances=ov["extra"]["instances"],
+             timeout_ms=ov["extra"]["timeout_ms"], card=card)
+
+    # -- fleet-open-loop ------------------------------------------------------
+    fl = host_perftest.measure_open_loop(SERVE_OPEN_LOOP_RATE, device=dev)
+    rep, ol = fl["extra"], fl["extra"]["open_loop"]
+    require(ol["decided"] == ol["instances"] and ol["unresolved"] == 0
+            and ol["undecided"] == 0 and ol["give_ups"] == 0,
+            f"fleet-open-loop: decided {ol['decided']} of "
+            f"{ol['instances']}, unresolved {ol['unresolved']}")
+    require(rep["shed_accounting_ok"],
+            f"fleet-open-loop: shed {rep['shed_frames']} != NACKs "
+            f"{rep['nacks_accounted']}")
+    say_json("fleet-open-loop", metric=fl["metric"], achieved_dps=fl["value"],
+             offered_rate=ol["offered_rate"], decided=ol["decided"],
+             instances=ol["instances"], p50_ms=ol["p50_ms"],
+             p95_ms=ol["p95_ms"], p99_ms=ol["p99_ms"],
+             wall_s=ol["wall_s"], drivers=rep["drivers"], n=rep["n"],
+             lanes=rep["lanes"], timeout_ms=rep["timeout_ms"],
+             startup_s=rep["startup_s"], peak_gib=rep["peak_gib"],
+             reproposals=ol["reproposals"],
+             dup_decisions=ol["dup_decisions"],
+             shed_accounting_ok=True, card=card)
+
+
 def main() -> None:
     if not (ROOT / "round_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: round_tpu_torch/csrc is not beside "
@@ -2614,8 +3004,8 @@ def main() -> None:
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
         else None
     if only is not None:
-        require(only in ("sharded", "peers", "fuzz", "runtime", "host"),
-                f"unknown --only {only}")
+        require(only in ("sharded", "peers", "fuzz", "runtime", "host",
+                         "serve"), f"unknown --only {only}")
         if only == "sharded":
             part = sharded_phases(torch, gen)
         elif only == "fuzz":
@@ -2626,6 +3016,9 @@ def main() -> None:
             part = []
         elif only == "host":
             host_phases(torch, dev)
+            part = []
+        elif only == "serve":
+            serve_phases(torch, dev, card)
             part = []
         else:
             k4_vs_plain(torch, gen)
@@ -3109,6 +3502,9 @@ def main() -> None:
 
     # -- 6b'. the wire and the host runner (no kernel of their own) ----------
     host_phases(torch, dev)
+
+    # -- 6b'. the lane driver and the fleet (no kernel of their own) ---------
+    serve_phases(torch, dev, card)
 
     # -- 6b''. the last histogram slice's engines at their users' widths ----
     kset_launches = families_wide(torch, dev)

@@ -14,13 +14,14 @@ the engines simulate, and the harness reports decisions/sec.
 Port of round_tpu/apps/host_perftest.py: the result dict (``_score``),
 ``measure`` (a thread per replica), ``measure_processes`` (a
 ``host_replica`` process per replica), the wire and pump A/Bs and the CLI
-for them.  Every replica's rounds run on ``device`` (``--device``; the
-card by default, raising where there is none), where round_tpu pins its
-replicas to the CPU; thread-mode replicas share the card and its default
-stream.  The lane, runtime-verification, snapshot, overload, open-loop
-and fleet arms (``--lanes``, ``--ab-lanes``, ``--ab-overload``,
-``--open-loop``, ``--ab-fleet``) need ROADMAP slices 6d and 5b and exit
-with an error that names the slice.
+for them, the lane driver (``--lanes``) and its A/B (``--ab-lanes``),
+the overload A/B (``--ab-overload``), open-loop fleet serving
+(``--open-loop``) and the fleet A/B (``--ab-fleet``).  Every replica's
+rounds run on ``device`` (``--device``; the card by default, raising
+where there is none), where round_tpu pins its replicas to the CPU;
+thread-mode replicas share the card and its default stream, and each
+fleet shard process opens its own CUDA context on it.  The runtime-
+verification and snapshot A/Bs come with ROADMAP slice 5b.
 """
 
 from __future__ import annotations
@@ -42,8 +43,8 @@ from round_tpu_torch.utils.device import resolve_device
 
 def run_node(my_id, peers, algo_name, instances, timeout_ms, results, seed,
              errors=None, proto="tcp", stats=None, algo=None, rate=1,
-             adaptive_cap_ms=0, wire="binary", pump=True, device=None,
-             tr=None):
+             adaptive_cap_ms=0, wire="binary", lanes=0, pump=True,
+             device=None, tr=None):
     """One replica's instance loop; closes its transport (``tr``, or one
     bound here) when done."""
     if tr is None:
@@ -60,7 +61,18 @@ def run_node(my_id, peers, algo_name, instances, timeout_ms, results, seed,
                                     seed=seed * 31 + my_id)
                     if adaptive_cap_ms > 0 else None)
         node_stats: dict = {}
-        if rate > 1:
+        if lanes > 1:
+            # the lane-batched driver (runtime/lanes.py): `lanes`
+            # concurrent instances advanced by one vmapped mega-step per
+            # round class instead of one Python round loop per instance
+            from round_tpu_torch.runtime.lanes import run_instance_loop_lanes
+
+            results[my_id] = run_instance_loop_lanes(
+                algo, my_id, peers, tr, instances, lanes=lanes,
+                timeout_ms=timeout_ms, seed=seed, stats_out=node_stats,
+                adaptive=adaptive, wire=wire, use_pump=pump, device=device,
+            )
+        elif rate > 1:
             # the in-flight window (PerfTest2 -rt): `rate` concurrent
             # instances over one InstanceMux
             results[my_id] = run_instance_loop_pipelined(
@@ -127,8 +139,11 @@ def _algo_opts(payload_bytes):
     return {"payload_bytes": payload_bytes} if payload_bytes > 0 else {}
 
 
-def _mode(base, rate, adaptive_cap_ms, wire, pump, payload_bytes, device):
+def _mode(base, rate, adaptive_cap_ms, wire, pump, payload_bytes, device,
+          lanes=0):
     mode = base
+    if lanes > 1:
+        mode += f" lanes={lanes}"
     if rate > 1:
         mode += f" rate={rate}"
     if adaptive_cap_ms > 0:
@@ -143,7 +158,7 @@ def _mode(base, rate, adaptive_cap_ms, wire, pump, payload_bytes, device):
 
 def measure(n=4, instances=20, algo="otr", timeout_ms=300, seed=0,
             proto="tcp", rate=1, adaptive_cap_ms=0, wire="binary",
-            payload_bytes=0, pump=True, device=None):
+            lanes=0, payload_bytes=0, pump=True, device=None):
     """Run `instances` consecutive consensus instances over `n` replicas
     (threads, each with its own transport+sockets, all on ``device``; see
     measure_processes for the reference's exact multi-process shape).
@@ -172,7 +187,7 @@ def measure(n=4, instances=20, algo="otr", timeout_ms=300, seed=0,
             target=run_node,
             args=(i, peers, algo, instances, timeout_ms, results, seed,
                   errors, proto, stats, shared_algo, rate, adaptive_cap_ms,
-                  wire, pump, device, trs[i]),
+                  wire, lanes, pump, device, trs[i]),
         )
         for i in range(n)
     ]
@@ -199,7 +214,7 @@ def measure(n=4, instances=20, algo="otr", timeout_ms=300, seed=0,
             f"errors: {errors}"
         )
     mode = _mode("thread-per-replica", rate, adaptive_cap_ms, wire, pump,
-                 payload_bytes, device)
+                 payload_bytes, device, lanes)
     score = _score(results, instances, wall, n, algo, timeout_ms,
                    mode, proto=proto)
     # per-node diagnostics: timeouts is the throughput killer (each one
@@ -210,7 +225,7 @@ def measure(n=4, instances=20, algo="otr", timeout_ms=300, seed=0,
 
 def measure_processes(n=4, instances=100, algo="otr", timeout_ms=300,
                       proto="tcp", adaptive_cap_ms=0, trace=None,
-                      metrics_json=None, wire="binary", rate=1,
+                      metrics_json=None, wire="binary", lanes=0, rate=1,
                       payload_bytes=0, pump=True, device=None):
     """One OS PROCESS per replica (the reference's exact shape: 4 JVMs on
     localhost) via the host_replica CLI's --instances loop, each on
@@ -242,6 +257,8 @@ def measure_processes(n=4, instances=100, algo="otr", timeout_ms=300,
     if adaptive_cap_ms > 0:
         base_argv += ["--adaptive-timeout",
                       "--timeout-cap-ms", str(adaptive_cap_ms)]
+    if lanes > 1:
+        base_argv += ["--lanes", str(lanes)]
     if rate > 1:
         base_argv += ["--rate", str(rate)]
     if payload_bytes > 0:
@@ -294,7 +311,7 @@ def measure_processes(n=4, instances=100, algo="otr", timeout_ms=300,
     )
     logs = {i: outs[i]["decisions"] for i in outs}
     mode = _mode("process-per-replica", rate, adaptive_cap_ms, wire, pump,
-                 payload_bytes, device)
+                 payload_bytes, device, lanes)
     result = _score(logs, instances, wall, n, algo, timeout_ms,
                     mode, wall_basis="slowest-replica-loop",
                     proto=proto)
@@ -368,20 +385,21 @@ def measure_wire_ab(n=4, instances=20, algo="otr", timeout_ms=300,
 
 
 def measure_pump_ab(n=4, instances=20, algo="otr", timeout_ms=300,
-                    proto="tcp", rate=1, pairs=9, warmup=1,
+                    proto="tcp", rate=1, lanes=0, pairs=9, warmup=1,
                     processes=False, payload_bytes=0, seed=0, device=None):
     """The NATIVE-ROUND-PUMP interleaved A/B: arm A is the Python pump
     (the per-message recv loop), arm B the native pump
     (native/transport.cpp rt_pump_*: round state machine in the transport
     event loop, one blocking wait + one flush crossing per round wave).
     Same binary wire, same schedules and seeds in both arms — the A/B
-    isolates the PUMP."""
+    isolates the PUMP.  ``lanes`` > 1 runs both arms through the lane-
+    batched driver."""
     from round_tpu_torch.apps.perf_ab import interleaved_ab
 
     def arm(pump):
         def run():
             kw = dict(n=n, instances=instances, algo=algo,
-                      timeout_ms=timeout_ms, proto=proto,
+                      timeout_ms=timeout_ms, proto=proto, lanes=lanes,
                       payload_bytes=payload_bytes, pump=pump, device=device)
             if processes:
                 res, _ = measure_processes(rate=rate, **kw)
@@ -405,13 +423,351 @@ def measure_pump_ab(n=4, instances=20, algo="otr", timeout_ms=300,
             "pairs": pairs,
             "warmup": warmup,
             "instances": instances,
+            "lanes": lanes,
             "rate": rate,
             "n": n,
             "timeout_ms": timeout_ms,
             "payload_bytes": payload_bytes,
             "mode": (("process-per-replica" if processes
                       else "thread-per-replica")
+                     + (f" lanes={lanes}" if lanes > 1 else "")
                      + (f" rate={rate}" if rate > 1 else "")),
+        },
+    }
+
+
+def measure_lanes_ab(n=4, instances=64, algo="otr", timeout_ms=300,
+                     proto="tcp", lanes=64, rate=1, pairs=3, warmup=1,
+                     processes=False, payload_bytes=0, seed=0, device=None):
+    """The driver A/B (round_tpu/apps/host_perftest.py::measure_lanes_ab):
+    arm A is the per-instance driver (the sequential loop, or the
+    pipelined InstanceMux window when ``rate`` > 1), arm B the lane-
+    batched driver (runtime/lanes.py) with ``lanes`` instances on the
+    mega-step's lane axis.  Same ports discipline, same schedules and
+    seeds, interleaved pairs (apps/perf_ab.py); the warmup pair absorbs
+    first-call costs so the pairs measure the DRIVER."""
+    from round_tpu_torch.apps.perf_ab import interleaved_ab
+
+    if lanes < 2:
+        # lanes<=1 selects the per-instance driver in run_node: arm B
+        # would silently re-measure arm A
+        raise ValueError(f"lanes must be >= 2 for the driver A/B, "
+                         f"got {lanes}")
+
+    def arm(use_lanes):
+        def run():
+            kw = dict(n=n, instances=instances, algo=algo,
+                      timeout_ms=timeout_ms, proto=proto,
+                      payload_bytes=payload_bytes,
+                      lanes=lanes if use_lanes else 0, device=device)
+            if processes:
+                res, _ = measure_processes(
+                    rate=1 if use_lanes else rate, **kw)
+            else:
+                res, _ = measure(seed=seed,
+                                 rate=1 if use_lanes else rate, **kw)
+            return res["value"]
+        return run
+
+    ab = interleaved_ab(arm(False), arm(True), pairs=pairs, warmup=warmup)
+    return {
+        "metric": f"host_{algo}_n{n}_lanes_ab_speedup",
+        "value": ab["ratio"],
+        "unit": "x (lane-batched/per-instance decisions-per-sec)",
+        "extra": {
+            "dps_per_instance": ab["mean_a"],
+            "dps_lanes": ab["mean_b"],
+            "median_per_instance": ab["median_a"],
+            "median_lanes": ab["median_b"],
+            "samples_per_instance": ab["a"],
+            "samples_lanes": ab["b"],
+            "pairs": pairs,
+            "warmup": warmup,
+            "instances": instances,
+            "lanes": lanes,
+            "rate": rate,
+            "n": n,
+            "timeout_ms": timeout_ms,
+            "payload_bytes": payload_bytes,
+            "mode": ("process-per-replica" if processes
+                     else "thread-per-replica"),
+            "device": str(resolve_device(device)),
+        },
+    }
+
+
+def _overload_cluster(n, instances, algo, timeout_ms, lanes_by_id,
+                      hardened_ids, quarantine_ids, seed,
+                      admission_bytes_per_lane, shed_deadline_ms=250,
+                      hung_ids=frozenset(), device=None):
+    """One degraded-capacity process cluster for the overload A/B
+    (round_tpu/apps/host_perftest.py::_overload_cluster): per-replica
+    lane counts, --admission on ``hardened_ids``, --quarantine on
+    ``quarantine_ids``, peers lingering so the strapped replica catches
+    up via decision replies.  ``hung_ids`` replicas run only the first
+    two instances, then hold their port and linger — live on the wire,
+    silent in every later round wave.  Every replica runs on ``device``.
+    Returns (participant summaries, wall_s, replica0_peak_rss_kb)."""
+    import subprocess
+
+    ports = alloc_ports(n)
+    peer_arg = ",".join(f"127.0.0.1:{p}" for p in ports)
+    env = cluster_env()
+    dev = str(resolve_device(device))
+
+    def argv_for(i):
+        hung = i in hung_ids
+        a = [sys.executable, "-m", "round_tpu_torch.apps.host_replica",
+             "--id", str(i), "--peers", peer_arg, "--algo", algo,
+             "--instances", "2" if hung else str(instances),
+             "--timeout-ms", str(timeout_ms),
+             "--max-rounds", "32", "--value-schedule", "uniform",
+             "--seed", str(seed), "--lanes",
+             "1" if hung else str(lanes_by_id[i]),
+             # adaptive deadlines: a stray expiry costs the EWMA
+             # estimate, not the full configured timeout
+             "--adaptive-timeout", "--timeout-cap-ms", str(timeout_ms),
+             # peers must outlive the strapped replica's deferred tail
+             "--linger-ms", "180000" if hung else "6000",
+             "--device", dev]
+        if i in hardened_ids:
+            a += ["--admission", "--admission-bytes-per-lane",
+                  str(admission_bytes_per_lane),
+                  "--shed-deadline-ms", str(shed_deadline_ms)]
+        if i in quarantine_ids:
+            # two evidence rounds suffice against a HUNG peer, and the
+            # probe backoff starts past the run tail
+            a += ["--quarantine", "--quarantine-after", "2",
+                  "--probe-backoff-ms", "15000"]
+        return a
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv_for(i), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for i in range(n)]
+    # peak RSS of the STRAPPED replica, polled (VmHWM is absent on some
+    # stripped /proc implementations)
+    peak_kb = [0]
+    stop = threading.Event()
+
+    def poll_rss():
+        path = f"/proc/{procs[0].pid}/status"
+        while not stop.is_set():
+            try:
+                with open(path) as f:
+                    for line in f:
+                        if line.startswith(("VmHWM:", "VmRSS:")):
+                            peak_kb[0] = max(peak_kb[0],
+                                             int(line.split()[1]))
+                            break
+            except OSError:
+                return
+            stop.wait(0.05)
+
+    poller = threading.Thread(target=poll_rss, daemon=True)
+    poller.start()
+    join_timeout = max(180.0, instances * n * timeout_ms / 1000.0)
+    outs = {}
+    try:
+        # participants first: the hung replicas linger past the run and
+        # are reaped by the kill below
+        for i, p in enumerate(procs):
+            if i in hung_ids:
+                continue
+            stdout, stderr = p.communicate(timeout=join_timeout)
+            if p.returncode != 0:
+                raise RuntimeError(f"replica {i} failed: {stderr[-2000:]}")
+            outs[i] = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        stop.set()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                try:
+                    p.communicate(timeout=10)
+                except Exception:  # noqa: BLE001 - best-effort reap
+                    pass
+    wall = max((o["wall_s"] for o in outs.values() if "wall_s" in o),
+               default=time.perf_counter() - t0)
+    return outs, wall, peak_kb[0]
+
+
+def measure_overload_ab(n=4, algo="otr", timeout_ms=150, lanes_slow=2,
+                        overload=3, instances=432, seed=0,
+                        admission_bytes_per_lane=2048, device=None):
+    """The overload degradation A/B
+    (round_tpu/apps/host_perftest.py::measure_overload_ab): replica
+    ``n-1`` is HUNG (live on the wire, silent in every round wave) and
+    the surviving peers run ``overload x lanes_slow`` lanes against
+    replica 0's ``lanes_slow``.  Four process clusters, same seeds:
+    capacity (every replica healthy at lanes_slow, the denominator),
+    baseline (hung peer + lane flood, no hardening), hardened (the same
+    with --quarantine on the survivors and --admission on replica 0) and
+    shedding (the lane flood without the hung peer, admission budget
+    tightened so replica 0 SHEDS).  Throughput = decided entries per
+    participating replica per second.  Every arm's shed frames must be
+    NACK-accounted (``shed_accounting_ok``)."""
+    fast = max(2, overload * lanes_slow)
+    hung = frozenset({n - 1})
+    lanes_cap = {i: lanes_slow for i in range(n)}
+    lanes_over = {0: lanes_slow, **{i: fast for i in range(1, n)}}
+    shed_bytes_per_lane = 64
+
+    def dps(outs, wall):
+        decided = sum(o.get("decided_instances", 0) for o in outs.values())
+        return decided / wall / max(1, len(outs)) if wall > 0 else 0.0
+
+    runs = {}
+    for name, lanes_by_id, hardened_ids, quar_ids, hung_ids, bpl, inst in (
+            ("capacity", lanes_cap, frozenset(), frozenset(), frozenset(),
+             admission_bytes_per_lane, instances),
+            # the baseline arm burns a deadline per round: a third of the
+            # instances measures the same degraded RATE
+            ("baseline", lanes_over, frozenset(), frozenset(), hung,
+             admission_bytes_per_lane, max(24, instances // 3)),
+            ("hardened", lanes_over, frozenset({0}),
+             frozenset(range(n)) - hung, hung, admission_bytes_per_lane,
+             instances),
+            ("shedding", lanes_over, frozenset({0}),
+             frozenset(range(n)), frozenset(), shed_bytes_per_lane,
+             instances)):
+        outs, wall, rss_kb = _overload_cluster(
+            n, inst, algo, timeout_ms, lanes_by_id, hardened_ids,
+            quar_ids, seed, bpl, hung_ids=hung_ids, device=device)
+        entry = {
+            "dps": round(dps(outs, wall), 2),
+            "wall_s": round(wall, 3),
+            "decided": {i: outs[i].get("decided_instances", 0)
+                        for i in outs},
+            "timeouts": {i: outs[i].get("timeouts", 0) for i in outs},
+            "replica0_peak_rss_kb": rss_kb,
+        }
+        if "overload" in outs.get(0, {}):
+            entry["overload"] = outs[0]["overload"]
+        if "quarantine" in outs.get(0, {}):
+            entry["quarantine_r0"] = {
+                k: outs[0]["quarantine"][k]
+                for k in ("quarantines", "probes", "rejoins")}
+        runs[name] = entry
+    accounted = True
+    for r in runs.values():
+        ov = r.get("overload", {})
+        if ov.get("shed_frames", 0) != ov.get("nacks_sent", 0) \
+                + ov.get("nacks_suppressed", 0):
+            accounted = False
+    sheds = runs["shedding"].get("overload", {})
+    cap_dps = runs["capacity"]["dps"] or 1e-9
+    # RSS ratios only where /proc yielded samples in EVERY arm
+    cap_rss = runs["capacity"]["replica0_peak_rss_kb"]
+    rss_ok = all(runs[a]["replica0_peak_rss_kb"] > 0 for a in runs)
+
+    def _rss_ratio(arm: str):
+        if not rss_ok:
+            return None
+        return round(runs[arm]["replica0_peak_rss_kb"] / cap_rss, 3)
+
+    return {
+        "metric": f"host_{algo}_n{n}_overload{overload}x_hardened_ratio",
+        "value": round(runs["hardened"]["dps"] / cap_dps, 3),
+        "unit": "x (hardened-at-overload / at-capacity decided-per-sec)",
+        "extra": {
+            "runs": runs,
+            "baseline_ratio": round(runs["baseline"]["dps"] / cap_dps, 3),
+            "shedding_ratio": round(runs["shedding"]["dps"] / cap_dps, 3),
+            "rss_ratio_hardened": _rss_ratio("hardened"),
+            "rss_ratio_baseline": _rss_ratio("baseline"),
+            "rss_ratio_shedding": _rss_ratio("shedding"),
+            "rss_unavailable": not rss_ok,
+            "shed_accounting_ok": accounted,
+            "sheds": sheds,
+            "lanes_slow": lanes_slow,
+            "overload": overload,
+            "instances": instances,
+            "n": n,
+            "timeout_ms": timeout_ms,
+            "mode": "process-per-replica hung-peer + asymmetric-lanes",
+            "device": str(resolve_device(device)),
+        },
+    }
+
+
+def measure_open_loop(rate, drivers=4, instances=400, n=3, lanes=16,
+                      algo="otr", timeout_ms=300, skew=0.0,
+                      payload_bytes=0, seed=0, warmup=8,
+                      deadline_s=180.0, admission_bytes_per_lane=0,
+                      device=None):
+    """Open-loop serving (round_tpu/apps/host_perftest.py::
+    measure_open_loop): a ``drivers``-shard fleet (apps/fleet.py, one OS
+    process per shard, each on ``device``) under Poisson arrivals at
+    ``rate``/s, reported as per-request p50/p99 decision latency and
+    offered-vs-achieved throughput."""
+    from round_tpu_torch.apps.fleet import run_fleet_bench
+
+    rep = run_fleet_bench(
+        drivers=drivers, rate=rate, instances=instances, n=n,
+        lanes=lanes, algo=algo, timeout_ms=timeout_ms, skew=skew,
+        payload_bytes=payload_bytes, seed=seed, warmup=warmup,
+        deadline_s=deadline_s,
+        admission_bytes_per_lane=admission_bytes_per_lane, device=device)
+    ol = rep["open_loop"]
+    return {
+        "metric": f"fleet_{algo}_d{drivers}_open_loop_dps",
+        "value": ol["achieved_dps"],
+        "unit": "decisions/sec (achieved, open-loop)",
+        "extra": rep,
+    }
+
+
+def measure_fleet_ab(drivers=4, rate=1e9, instances=1024, n=3, lanes=16,
+                     algo="lvb", timeout_ms=150, pairs=2, warmup=0,
+                     seed=0, payload_bytes=1024, deadline_s=420.0,
+                     device=None):
+    """The fleet scale-out A/B (round_tpu/apps/host_perftest.py::
+    measure_fleet_ab): arm A is ONE driver, arm B a ``drivers``-shard
+    fleet, both offered the SAME open-loop load (``rate`` defaults to an
+    instantaneous blast, so both arms run saturated and achieved dps
+    measures serving capacity).  Interleaved pairs; every arm's shed
+    accounting must hold.  Default workload: LastVotingBytes at 1 KiB
+    with deadline-paced rounds at lanes=16."""
+    from round_tpu_torch.apps.fleet import run_fleet_bench
+    from round_tpu_torch.apps.perf_ab import interleaved_ab
+
+    def arm(d):
+        def run():
+            rep = run_fleet_bench(
+                drivers=d, rate=rate, instances=instances, n=n,
+                lanes=lanes, algo=algo, timeout_ms=timeout_ms,
+                seed=seed, warmup=8, payload_bytes=payload_bytes,
+                deadline_s=deadline_s, device=device)
+            if not rep["shed_accounting_ok"]:
+                raise RuntimeError(
+                    f"shed accounting broke in the d={d} arm: "
+                    f"{rep['shed_frames']} != {rep['nacks_accounted']}")
+            return rep["open_loop"]["achieved_dps"]
+        return run
+
+    ab = interleaved_ab(arm(1), arm(drivers), pairs=pairs, warmup=warmup)
+    return {
+        "metric": f"fleet_{algo}_d{drivers}_ab_speedup",
+        "value": ab["ratio"],
+        "unit": f"x ({drivers}-driver fleet / single driver "
+                f"decisions-per-sec)",
+        "extra": {
+            "dps_single": ab["mean_a"],
+            "dps_fleet": ab["mean_b"],
+            "median_single": ab["median_a"],
+            "median_fleet": ab["median_b"],
+            "samples_single": ab["a"],
+            "samples_fleet": ab["b"],
+            "pairs": pairs,
+            "instances": instances,
+            "drivers": drivers,
+            "n": n,
+            "lanes": lanes,
+            "timeout_ms": timeout_ms,
+            "payload_bytes": payload_bytes,
+            "mode": "process-per-shard open-loop blast",
+            "device": str(resolve_device(device)),
         },
     }
 
@@ -437,8 +793,11 @@ def main(argv=None) -> int:
                          "networks (per-instance driver; one thread per "
                          "in-flight instance)")
     ap.add_argument("--lanes", type=int, default=0, metavar="L",
-                    help="lane-batched driver (runtime/lanes.py, ROADMAP "
-                         "slice 6d: not ported, an error)")
+                    help="lane-batched driver (runtime/lanes.py): L "
+                         "concurrent instances multiplexed onto the "
+                         "engine's lane axis, ONE vmapped mega-step per "
+                         "round class instead of one Python round loop "
+                         "per instance; 0/1 = per-instance driver")
     ap.add_argument("--payload-bytes", type=int, default=0, metavar="B",
                     help="with --algo lvb: consensus over opaque uint8[B] "
                          "payloads (the KB-scale wire-fraction workload; "
@@ -480,31 +839,90 @@ def main(argv=None) -> int:
                     help="run the interleaved wire A/B (pickle vs binary, "
                          "apps/perf_ab.py) and report the speedup instead "
                          "of a single measurement")
+    ap.add_argument("--ab-lanes", action="store_true",
+                    help="run the interleaved DRIVER A/B (per-instance vs "
+                         "lane-batched with --lanes, apps/perf_ab.py) and "
+                         "report the speedup instead of a single "
+                         "measurement")
     ap.add_argument("--ab-pairs", type=int, default=9,
-                    help="interleaved pairs for --ab-wire/--ab-pump")
-    for flag, what in (("--ab-lanes", "the lane driver A/B (slice 6d)"),
-                       ("--ab-overload", "the overload A/B (slice 6d)"),
-                       ("--ab-fleet", "the fleet A/B (slice 6d)")):
-        ap.add_argument(flag, action="store_true",
-                        help=f"{what}: not ported, an error")
+                    help="interleaved pairs for --ab-wire/--ab-pump/"
+                         "--ab-lanes/--ab-fleet")
+    ap.add_argument("--ab-overload", action="store_true",
+                    help="run the overload degradation A/B (at-capacity "
+                         "vs ~3x offered load, pre- vs post-hardening — "
+                         "measure_overload_ab; process mode always)")
+    ap.add_argument("--overload", type=int, default=3, metavar="X",
+                    help="offered-load multiple for --ab-overload "
+                         "(peers run X*--lanes lanes; default 3)")
     ap.add_argument("--open-loop", type=float, default=None, metavar="RATE",
-                    help="open-loop fleet serving (slice 6d): not ported, "
-                         "an error")
+                    help="open-loop serving measurement: a --drivers "
+                         "shard fleet (apps/fleet.py) under Poisson "
+                         "arrivals at RATE/s, reporting p50/p99 decision "
+                         "latency + offered-vs-achieved throughput "
+                         "(apps/loadgen.py; --instances arrivals)")
+    ap.add_argument("--drivers", type=int, default=4, metavar="D",
+                    help="fleet size for --open-loop/--ab-fleet (one "
+                         "shard process per driver; default 4)")
+    ap.add_argument("--skew", type=float, default=0.0,
+                    help="hot-shard Zipf exponent for --open-loop")
+    ap.add_argument("--ab-fleet", action="store_true",
+                    help="run the interleaved FLEET A/B (single driver "
+                         "vs --drivers shards at equal offered load, "
+                         "measure_fleet_ab) and report the speedup")
     args = ap.parse_args(argv)
-    if args.lanes > 1 or args.ab_lanes or args.ab_overload \
-            or args.ab_fleet or args.open_loop is not None:
-        ap.error("the lane, overload, fleet and open-loop arms need "
-                 "runtime/lanes.py and runtime/fleet.py, which come with "
-                 "ROADMAP slice 6d")
     cap = args.timeout_cap_ms if args.adaptive_timeout else 0
     if args.algo in ("lvb", "lastvoting-bytes", "lastvotingbytes") \
             and args.payload_bytes <= 0:
         args.payload_bytes = 1024
+    if args.open_loop is not None:
+        result = measure_open_loop(
+            args.open_loop, drivers=args.drivers,
+            instances=args.instances, algo=args.algo,
+            lanes=args.lanes if args.lanes > 1 else 16,
+            timeout_ms=args.timeout_ms, skew=args.skew,
+            payload_bytes=args.payload_bytes, device=args.device,
+        )
+        print(json.dumps(result))
+        return 0
+    if args.ab_fleet:
+        result = measure_fleet_ab(
+            drivers=args.drivers, instances=args.instances,
+            algo=args.algo, timeout_ms=args.timeout_ms,
+            lanes=args.lanes if args.lanes > 1 else 16,
+            pairs=args.ab_pairs, payload_bytes=args.payload_bytes,
+            device=args.device,
+        )
+        print(json.dumps(result))
+        return 0
+    if args.ab_overload:
+        result = measure_overload_ab(
+            n=args.n, algo=args.algo, timeout_ms=args.timeout_ms,
+            lanes_slow=args.lanes if args.lanes > 1 else 4,
+            overload=args.overload, instances=args.instances,
+            device=args.device,
+        )
+        print(json.dumps(result))
+        return 0
+    if args.ab_lanes:
+        if args.lanes == 1:
+            # lanes<=1 routes run_node to the per-instance driver
+            ap.error("--ab-lanes needs --lanes >= 2 (1 IS the "
+                     "per-instance driver)")
+        result = measure_lanes_ab(
+            n=args.n, instances=args.instances, algo=args.algo,
+            timeout_ms=args.timeout_ms, proto=args.proto,
+            lanes=args.lanes if args.lanes > 1 else 64, rate=args.rate,
+            pairs=args.ab_pairs, processes=args.processes,
+            payload_bytes=args.payload_bytes, device=args.device,
+        )
+        print(json.dumps(result))
+        return 0
     if args.ab_pump:
         result = measure_pump_ab(
             n=args.n, instances=args.instances, algo=args.algo,
             timeout_ms=args.timeout_ms, proto=args.proto, rate=args.rate,
-            pairs=args.ab_pairs, processes=args.processes,
+            lanes=args.lanes, pairs=args.ab_pairs,
+            processes=args.processes,
             payload_bytes=args.payload_bytes, device=args.device,
         )
         print(json.dumps(result))
@@ -524,8 +942,9 @@ def main(argv=None) -> int:
             timeout_ms=args.timeout_ms, proto=args.proto,
             adaptive_cap_ms=cap, trace=args.trace,
             metrics_json=args.metrics_json, wire=args.wire,
-            rate=args.rate, payload_bytes=args.payload_bytes,
-            pump=args.pump, device=args.device,
+            lanes=args.lanes, rate=args.rate,
+            payload_bytes=args.payload_bytes, pump=args.pump,
+            device=args.device,
         )
     else:
         if args.trace:
@@ -537,7 +956,7 @@ def main(argv=None) -> int:
         result, _logs = measure(
             n=args.n, instances=args.instances, algo=args.algo,
             timeout_ms=args.timeout_ms, proto=args.proto, rate=args.rate,
-            adaptive_cap_ms=cap, wire=args.wire,
+            adaptive_cap_ms=cap, wire=args.wire, lanes=args.lanes,
             payload_bytes=args.payload_bytes, pump=args.pump,
             device=args.device,
         )

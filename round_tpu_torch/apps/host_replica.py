@@ -15,14 +15,13 @@ decision — the shape the shell harness (and tests/test_host.py) collect.
 Port of round_tpu/apps/host_replica.py.  A replica's rounds run on
 ``--device`` (default ``cuda``; where there is no card the replica
 raises, it never carries on on the CPU), where round_tpu pins its
-replicas to the CPU.  The lane driver (``--lanes`` > 1, ROADMAP slice 6d)
-and runtime verification, snapshots, proof-licensed views and
-fuzz-artifact replays (``--rv``, ``--snap``, ``--view-license``,
-``--chaos-schedule``, slice 5b) are not ported yet: each exits with an
-error that names its slice, and their tuning flags (``--rv-dir``,
-``--snap-every``, ``--license-cache`` ...) and the lane loop's admission
-budgets (``--admission-slo-ms``, ``--admission-bytes-per-lane``,
-``--shed-deadline-ms``) come with them.
+replicas to the CPU; the lane driver (``--lanes`` > 1) keeps its ``[L,
+...]`` state there.  Runtime verification, snapshots, proof-licensed
+views and fuzz-artifact replays (``--rv``, ``--snap``,
+``--view-license``, ``--chaos-schedule``, ROADMAP slice 5b) are not
+ported yet: each exits with an error that names its slice, and their
+tuning flags (``--rv-dir``, ``--snap-every``, ``--license-cache`` ...)
+come with them.
 """
 
 from __future__ import annotations
@@ -234,6 +233,18 @@ def main(argv=None) -> int:
                     help="fitted capacity-model artifact (apps/fleet.py "
                          "fit / bench --capacity-out) consumed by "
                          "--admission auto")
+    ap.add_argument("--admission-slo-ms", type=float, default=1000.0,
+                    help="latency SLO the auto-derived admission "
+                         "watermark budgets for (Little's-law queue "
+                         "bound; ignored without --admission auto)")
+    ap.add_argument("--admission-bytes-per-lane", type=int,
+                    default=256 << 10, metavar="BYTES",
+                    help="admission high watermark per live lane "
+                         "(default 256 KiB; shedding clears at half)")
+    ap.add_argument("--shed-deadline-ms", type=int, default=2000,
+                    metavar="MS",
+                    help="how long an admission may stay deferred before "
+                         "the instance is shed outright (default 2000)")
     ap.add_argument("--quarantine", action="store_true",
                     help="peer quarantine (runtime/health.py): score "
                          "peers by timeout contribution / malformed-frame "
@@ -319,9 +330,6 @@ def main(argv=None) -> int:
             print(f"warning: ignoring config params not used by "
                   f"host_replica: {unknown}", file=sys.stderr)
     configure_from_args(args)
-    if args.lanes > 1:
-        ap.error("--lanes needs the lane driver (runtime/lanes.py), which "
-                 "comes with ROADMAP slice 6d")
     for flag, on in (("--rv", args.rv), ("--snap", args.snap),
                      ("--view-license", args.view_license),
                      ("--chaos-schedule", args.chaos_schedule)):
@@ -407,22 +415,42 @@ def main(argv=None) -> int:
 
             tr = FaultyTransport(raw_tr, FaultPlan.parse(args.chaos),
                                  n=len(peers))
+        admission = None
         health = None
         if args.admission:
-            # admission control rides the lane loop (round_tpu's
-            # AdmissionControl is built only for it), which comes with
-            # ROADMAP slice 6d: here, as in round_tpu at --lanes <= 1, the
-            # flag only warns
-            if args.admission == "auto" and not args.capacity_model:
-                ap.error("--admission auto needs --capacity-model "
-                         "(fit one with apps/fleet.py bench --sweep "
-                         "--capacity-samples/--capacity-out)")
-            print("warning: --admission applies to the lane loop "
-                  "(--lanes L) only; the sequential loop admits one "
-                  "instance at a time and cannot overload itself",
-                  file=sys.stderr)
+            from round_tpu_torch.runtime.instances import AdmissionControl
+
+            bytes_per_lane = args.admission_bytes_per_lane
+            if args.admission == "auto":
+                # model-derived admission: the watermark is the byte depth
+                # one lane can drain within the SLO, and the lane count
+                # (when not forced) the model's recommendation
+                if not args.capacity_model:
+                    ap.error("--admission auto needs --capacity-model "
+                             "(fit one with apps/fleet.py bench --sweep "
+                             "--capacity-samples/--capacity-out)")
+                from round_tpu_torch.runtime.capacity import derive_admission
+
+                derived = derive_admission(
+                    args.capacity_model, len(peers), args.lanes,
+                    payload_bytes=args.payload_bytes,
+                    slo_ms=args.admission_slo_ms)
+                bytes_per_lane = derived["bytes_per_lane"]
+                if args.lanes <= 1:
+                    args.lanes = derived["lanes"]
+                print(f"admission auto: bytes_per_lane={bytes_per_lane} "
+                      f"lanes={args.lanes} "
+                      f"(model {args.capacity_model})", file=sys.stderr)
+            admission = AdmissionControl(
+                high_bytes_per_lane=bytes_per_lane,
+                shed_deadline_ms=args.shed_deadline_ms)
+            if args.lanes <= 1:
+                print("warning: --admission applies to the lane loop "
+                      "(--lanes L) only; the sequential loop admits one "
+                      "instance at a time and cannot overload itself",
+                      file=sys.stderr)
         if args.quarantine:
-            if args.rate > 1:
+            if args.lanes <= 1 and args.rate > 1:
                 # the pipelined mux has no health hook yet; a silent
                 # all-zero quarantine summary would read as "ran,
                 # nothing happened" rather than "not active"
@@ -563,7 +591,31 @@ def main(argv=None) -> int:
         started_at = time.time()
         t0 = time.perf_counter()
         stats: dict = {}
-        if args.rate > 1:
+        if args.lanes > 1:
+            from round_tpu_torch.runtime.lanes import run_instance_loop_lanes
+
+            if manager is not None:
+                print("warning: --view-change/--view-epoch apply to the "
+                      "sequential loop only (ignored with --lanes)",
+                      file=sys.stderr)
+            if (not args.send_when_catching_up
+                    or args.delay_first_send_ms > 0):
+                print("warning: --no-send-when-catching-up / "
+                      "--delay-first-send apply to the sequential loop "
+                      "only (ignored with --lanes)", file=sys.stderr)
+            decisions = run_instance_loop_lanes(
+                algo, args.id, peers, tr, args.instances,
+                lanes=args.lanes, timeout_ms=args.timeout_ms,
+                seed=args.seed, base_value=args.value,
+                max_rounds=args.max_rounds,
+                nbr_byzantine=args.nbr_byzantine,
+                value_schedule=args.value_schedule,
+                adaptive=adaptive, stats_out=stats,
+                checkpoint_dir=args.checkpoint_dir, wire=args.wire,
+                use_pump=args.pump, admission=admission,
+                health=health, device=device,
+            )
+        elif args.rate > 1:
             if (not args.send_when_catching_up
                     or args.delay_first_send_ms > 0):
                 print("warning: --no-send-when-catching-up / "
@@ -628,6 +680,14 @@ def main(argv=None) -> int:
         }
         if args.chaos:
             summary["chaos_injected"] = tr.injected
+        if admission is not None:
+            summary["overload"] = {
+                "shed_instances": stats.get("shed_instances", 0),
+                "shed_frames": stats.get("shed_frames", 0),
+                "nacks_sent": stats.get("nacks_sent", 0),
+                "nacks_suppressed": stats.get("nacks_suppressed", 0),
+                "backpressure_events": raw_tr.backpressure_events,
+            }
         if health is not None:
             summary["quarantine"] = stats.get(
                 "quarantine", health.summary())

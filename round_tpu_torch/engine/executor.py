@@ -1,8 +1,9 @@
 """The round engine: lockstep execution of an Algorithm.
 
 Port of round_tpu/engine/executor.py (the scenario engine with its value-
-adversary hook, and the host runner's per-lane round functions; the
-serving-lane half, ``LaneStep`` and its helpers, is not ported yet).  Execution shape:
+adversary hook, the host runner's per-lane round functions, and the
+serving-lane half: ``LaneStep``, ``lane_step``, ``lane_sample_rows`` and
+``lane_decide``).  Execution shape:
 
   - per-lane user functions are batched over the process axis with
     ``torch.func.vmap`` (``ctx`` is built inside the vmapped function),
@@ -20,8 +21,10 @@ on a stream of its own.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 from torch.func import vmap
 
@@ -355,6 +358,56 @@ def host_lane_word(salts, r: int, sid: int) -> int:
     return mix32_host(z)
 
 
+def lane_words(salt0, salt1, rr: torch.Tensor, sid: int) -> torch.Tensor:
+    """``host_lane_word`` over tensors, on their device: the words of
+    replica ``sid`` for per-lane salts ``salt0``/``salt1`` (ints or
+    ``[L]`` int64 tensors) at per-lane rounds ``rr`` (``[L]`` int32),
+    as ``[L]`` uint32 words held in int64.  Bit for bit the host
+    function's, lane by lane (the lane driver's update and go probe draw
+    from these)."""
+    from round_tpu_torch.ops.fused import _GOLD, _RMIX, _fmix32
+
+    z = (int(sid) * _GOLD + salt0) & _M32
+    z = z ^ ((rr.to(torch.int64) * _RMIX + salt1 + _UPD_STREAM) & _M32)
+    return _fmix32(z)
+
+
+def make_lane_round_fns(rnd, n: int):
+    """The per-lane (send, update, go) functions of one Round at group
+    size ``n`` with the context built from tensors: the single source of
+    truth of the host runner's trio (``make_host_round_fns``) and of the
+    lane driver's mega-step (``LaneStep``), as round_tpu keeps one
+    (round_tpu/engine/executor.py::make_host_round_fns).
+
+    Signatures (``rr``, ``sid`` int32 tensors, ``word`` the int64 rng
+    word; state and vals pytrees of tensors):
+      t_send(rr, sid, state)                     -> (state', payload, dest)
+      t_update(rr, sid, word, state, vals, mask) -> (state', exit_flag)
+      t_go(rr, sid, word, state, vals, mask)     -> go   (FoldRound only,
+                                                          else None)
+    Pre and send get no rng, as in ``run_round``."""
+
+    def t_send(rr, sid, state):
+        ctx = RoundCtx(id=sid, n=n, r=rr)
+        st = rnd.pre(ctx, state)
+        spec = rnd.send(ctx, st)
+        return st, spec.payload, spec.dest_mask
+
+    def t_update(rr, sid, word, state, vals, mask):
+        ctx = RoundCtx(id=sid, n=n, r=rr, rng=word)
+        st2 = rnd.update(ctx, state, Mailbox(vals, mask))
+        return st2, ctx._exit
+
+    t_go = None
+    if isinstance(rnd, FoldRound):
+        def t_go(rr, sid, word, state, vals, mask):  # noqa: E306
+            ctx = RoundCtx(id=sid, n=n, r=rr, rng=word)
+            m, count = rnd.fold(ctx, state, Mailbox(vals, mask))
+            return rnd.go_ahead(ctx, state, m, count)
+
+    return t_send, t_update, t_go
+
+
 def make_host_round_fns(rnd, n: int, device=None):
     """The per-lane (send, update, go) functions of one Round at group
     size ``n`` for the host runner (round_tpu/engine/executor.py::
@@ -375,11 +428,12 @@ def make_host_round_fns(rnd, n: int, device=None):
     under ``host_key_salts(seed)``: a replica's draws equal the general
     engine's on that key.  Ids, rounds and words are 0-d tensors filled
     on the device (no host-to-device copy); ids and rounds are kept for
-    reuse."""
+    reuse.  The math is ``make_lane_round_fns``'s."""
     from round_tpu_torch.engine.scenarios import host_key_salts
 
     dev = resolve_device(device)
     consts: dict = {}
+    t_send, t_update, t_go = make_lane_round_fns(rnd, n)
 
     def const(value: int, dtype):
         t = consts.get((value, dtype))
@@ -388,31 +442,144 @@ def make_host_round_fns(rnd, n: int, device=None):
                                                    device=dev)
         return t
 
-    def mk_ctx(rr, sid, seed=None):
-        rng = None
-        if seed is not None:
-            rng = torch.full((), host_lane_word(host_key_salts(seed), rr,
-                                                sid),
-                             dtype=torch.int64, device=dev)
-        return RoundCtx(id=const(sid, torch.int32), n=n,
-                        r=const(rr, torch.int32), rng=rng)
+    def word(rr, sid, seed):
+        return torch.full((), host_lane_word(host_key_salts(seed), rr, sid),
+                          dtype=torch.int64, device=dev)
 
     def f_send(rr, sid, seed, state):
-        ctx = mk_ctx(rr, sid)
-        st = rnd.pre(ctx, state)
-        spec = rnd.send(ctx, st)
-        return st, spec.payload, spec.dest_mask
+        return t_send(const(rr, torch.int32), const(sid, torch.int32), state)
 
     def f_update(rr, sid, seed, state, vals, mask):
-        ctx = mk_ctx(rr, sid, seed)
-        st2 = rnd.update(ctx, state, Mailbox(vals, mask))
-        return st2, ctx._exit
+        return t_update(const(rr, torch.int32), const(sid, torch.int32),
+                        word(rr, sid, seed), state, vals, mask)
 
     f_go = None
-    if isinstance(rnd, FoldRound):
+    if t_go is not None:
         def f_go(rr, sid, seed, state, vals, mask):  # noqa: E306
-            ctx = mk_ctx(rr, sid, seed)
-            m, count = rnd.fold(ctx, state, Mailbox(vals, mask))
-            return rnd.go_ahead(ctx, state, m, count)
+            return t_go(const(rr, torch.int32), const(sid, torch.int32),
+                        word(rr, sid, seed), state, vals, mask)
 
     return f_send, f_update, f_go
+
+
+# ---------------------------------------------------------------------------
+# The lane half: many live instances of one replica as ONE vmapped lane axis
+# ---------------------------------------------------------------------------
+
+# serializes LaneStep and lane_decide builds: thread-mode replicas share
+# Round objects and reach a round class within milliseconds of each other
+_LANE_BUILD_LOCK = threading.Lock()
+
+
+class LaneStep:
+    """One Round's lane-axis mega-step at (n, lanes)
+    (round_tpu/engine/executor.py::LaneStep): ``torch.func.vmap`` of
+    ``make_lane_round_fns`` over a ``[L, ...]`` state pytree with a
+    ragged lane mask.  Launches do not grow with L.
+
+    Arguments, all on the state's device: ``rr`` ``[L]`` int32 per-lane
+    rounds, ``seeds`` ``[L]`` int64 per-lane salts (lane l's seed s_l
+    gives ``host_key_salts(s_l)[1]``; its salt0 is 0), ``active`` ``[L]``
+    bool; ``sid`` is this replica's id (an int, shared by every lane).
+    Lane l draws ``host_lane_word(host_key_salts(s_l), rr[l], sid)``,
+    computed on the device by ``lane_words``: the word the host runner
+    gives the same instance.  Inactive lanes keep their state bit for bit
+    (``tree_where``), and their ``dest`` and exit flags are masked off.
+
+      send(rr, sid, seeds, state, active)              -> (state', payload,
+                                                           dest)
+      update(rr, sid, seeds, state, vals, mask, active) -> (state', exit)
+      go(rr, sid, seeds, state, vals, mask)             -> go  (FoldRound)
+
+    ``vals``/``mask`` are the ``[L, n, ...]`` / ``[L, n]`` mailbox."""
+
+    __slots__ = ("rnd", "n", "lanes", "send", "update", "go", "_ids")
+
+    def __init__(self, rnd, n: int, lanes: int):
+        self.rnd, self.n, self.lanes = rnd, n, lanes
+        t_send, t_update, t_go = make_lane_round_fns(rnd, n)
+        self._ids: dict = {}
+        ids = self._id
+        v_send = vmap(t_send, in_dims=(0, None, 0))
+        v_update = vmap(t_update, in_dims=(0, None, 0, 0, 0, 0))
+
+        def send(rr, sid, seeds, state, active):
+            st, payload, dest = v_send(rr, ids(sid, rr.device), state)
+            return (tree_where(active, st, state), payload,
+                    dest & active[:, None])
+
+        def update(rr, sid, seeds, state, vals, mask, active):
+            st2, ex = v_update(rr, ids(sid, rr.device),
+                               lane_words(0, seeds, rr, sid), state, vals,
+                               mask)
+            return tree_where(active, st2, state), ex & active
+
+        self.send, self.update, self.go = send, update, None
+        if t_go is not None:
+            v_go = vmap(t_go, in_dims=(0, None, 0, 0, 0, 0))
+
+            def go(rr, sid, seeds, state, vals, mask):
+                return v_go(rr, ids(sid, rr.device),
+                            lane_words(0, seeds, rr, sid), state, vals, mask)
+
+            self.go = go
+
+    def _id(self, sid: int, device) -> torch.Tensor:
+        """This replica's id as a 0-d int32 tensor filled on ``device``
+        (no host-to-device copy), kept for reuse."""
+        key = (int(sid), device)
+        t = self._ids.get(key)
+        if t is None:
+            t = self._ids[key] = torch.full((), int(sid), dtype=torch.int32,
+                                            device=device)
+        return t
+
+
+def lane_step(rnd, n: int, lanes: int, monitor=None) -> LaneStep:
+    """The LaneStep of ``rnd`` at (n, lanes), cached on the round object
+    under a lock (round_tpu/engine/executor.py::lane_step).  There is no
+    compile step and no warm-up call: the first dispatch runs eagerly.
+    Runtime-verification monitors come with ROADMAP slice 5b."""
+    if monitor is not None:
+        raise NotImplementedError(
+            "lane_step(monitor=) fuses rv/ monitors, which come with "
+            "ROADMAP slice 5b")
+    key = (n, lanes)
+    cache = getattr(rnd, "_lane_steps", None)
+    if cache is not None and key in cache:
+        return cache[key]
+    with _LANE_BUILD_LOCK:
+        cache = getattr(rnd, "_lane_steps", None)
+        if cache is None:
+            cache = rnd._lane_steps = {}
+        if key not in cache:
+            cache[key] = LaneStep(rnd, n, lanes)
+        return cache[key]
+
+
+def lane_sample_rows(leaves, lane: int):
+    """One lane's rows of the ``[L, ...]`` state leaves as owning host
+    arrays, shapes kept (a 0-d row stays 0-d), in ONE device-to-host copy
+    (round_tpu/engine/executor.py::lane_sample_rows, where the rows are
+    already on the host)."""
+    from round_tpu_torch.runtime.host import to_numpy
+
+    return [np.array(row) for row in to_numpy([leaf[lane] for leaf in leaves])]
+
+
+def lane_decide(algo: Algorithm, lanes: int):
+    """``state[L, ...] -> (decided[L], decision[L, ...])`` under vmap,
+    cached on the algorithm per lane width
+    (round_tpu/engine/executor.py::lane_decide): the lane driver's
+    retire path, one dispatch per update wave that had exits."""
+    cache = getattr(algo, "_lane_decide", None)
+    if cache is not None and lanes in cache:
+        return cache[lanes]
+    with _LANE_BUILD_LOCK:
+        cache = getattr(algo, "_lane_decide", None)
+        if cache is None:
+            cache = algo._lane_decide = {}
+        if lanes not in cache:
+            cache[lanes] = vmap(
+                lambda s: (algo.decided(s), algo.decision(s)))
+        return cache[lanes]

@@ -435,7 +435,7 @@ def test_entry_points_raise_without_a_card():
         host_replica.main(["--id", "0", "--peers", "127.0.0.1:1"])
 
 
-@pytest.mark.parametrize("flag", [["--lanes", "4"], ["--rv", "log"],
+@pytest.mark.parametrize("flag", [["--snap"], ["--rv", "log"],
                                   ["--snap", "log"], ["--view-license"],
                                   ["--chaos-schedule", "x.json"]])
 def test_replica_refuses_later_slices(flag, capsys):

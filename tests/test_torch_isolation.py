@@ -10,12 +10,15 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "round_tpu")
-# the runtime's modules: in-process, the wire and the host runner
+# the runtime's modules: in-process, the wire, the host runner, the lane
+# driver and the fleet
 RUNTIME = ("__init__", "log", "stats", "membership", "decisions", "config",
            "health", "instances", "oob", "capacity", "checkpoint", "smr",
-           "view", "codec", "transport", "host", "control", "chaos")
-# the apps of the host runner
-HOST_APPS = ("perf_ab", "host_replica", "host_perftest", "lock_manager")
+           "view", "codec", "transport", "host", "control", "chaos",
+           "lanes", "fleet")
+# the apps of the host runner and the fleet
+HOST_APPS = ("perf_ab", "host_replica", "host_perftest", "lock_manager",
+             "loadgen", "fleet")
 
 
 def _port_files():
