@@ -224,12 +224,39 @@ Phases, each printed as one line:
                    cuda:0 under 100 proposals/sec, every request decided,
                    p50/p99, start-up s and peak GiB a shard
 
+  rv-step          the monitored mega-step (LaneStep reading the decision
+                   plane in its update's vmap, the rv/compile.py verdicts
+                   over the lanes) at L=64, n=4 for OTR and LastVoting:
+                   state, exits, verdicts and the decision plane on the
+                   card bit for bit against the CPU,
+                   inactive lanes unchanged; launch calls of one update
+                   with monitors off and on; a one-replica loopback lane
+                   run with monitors off and on: the same log, dispatches
+                   and copies each way per update wave
+  rv-cluster       rv-broken-validity and rv-broken-agreement under halt,
+                   shed and log in the lane and sequential drivers on
+                   cuda:0 (validity against the CPU's logs, verdicts and
+                   errors); one dumped artifact through fuzz_cli replay
+  replay-bank      every tests/regressions/ artifact through check_engine
+                   on the card against its recorded expected.engine
+  rv-ab            host_perftest.measure_rv_ab at its defaults:
+                   host_otr_n4_rv_overhead with round_tpu's gate verdict
+  snap-ab          host_perftest.measure_snap_ab at its defaults:
+                   host_lvb_n4_snap_overhead with the gate verdict; then
+                   snap-broken-conservation caught by the collector's
+                   audit on the card with the rv monitors silent
+  hostile          fuzz/hostile.py run_gate over 10,000 frames
+  crosscheck       byz/crosscheck.py for otr, lastvoting and pbft at n=4
+                   and 10,000 in-envelope schedules on the card; at 1,024
+                   the card's records equal the CPU's
+
 With ``--only sharded`` the script builds the kernels and runs the K4 and
 sharded phases alone; with ``--only peers`` just K4-vs-plain and ring-peers
 (for a machine with several cards); with ``--only fuzz`` the five fuzz
 phases; with ``--only runtime`` the three runtime phases; with ``--only
 host`` the four host phases; with ``--only serve`` the five lane and
-fleet phases, the timed ones with the card's name and power limit.  The fuzz and
+fleet phases; with ``--only verify`` the eight verification phases, the
+timed ones with the card's name and power limit.  The fuzz and
 runtime phases print one JSON line each, with a "phase" key; an ``--only``
 run prints {"only": ...} before the card's line.
 
@@ -255,6 +282,7 @@ import io
 import json
 import math
 import re
+import os
 import subprocess
 import sys
 import time
@@ -2934,6 +2962,338 @@ def serve_phases(torch, dev, card) -> None:
              shed_accounting_ok=True, card=card)
 
 
+# the verification plane (round_tpu_torch/rv, fuzz/{replay,hostile},
+# byz/crosscheck.py): the monitored mega-step's shape, the broken fixtures
+# under each policy, the crosscheck's acceptance scale
+VERIFY_MODELS = ("otr", "lastvoting")
+VERIFY_FIXTURES = ("rv-broken-validity", "rv-broken-agreement")
+VERIFY_POLICIES = ("halt", "shed", "log")
+VERIFY_CROSSCHECK = ("otr", "lastvoting", "pbft")
+VERIFY_SCHEDULES = 10_000   # round_tpu's tests/test_byz.py acceptance scale
+VERIFY_SMALL = 1_024        # the card-against-CPU crosscheck comparison
+
+
+def _rv_cluster(driver, name, device, rv, n=3, instances=2, lanes=4,
+                snap=None):
+    """round_tpu's tests/test_rv.py::_cluster on the port: n replica
+    threads of the fixture ``name`` under ``rv`` (and ``snap``) on
+    ``device``.  Returns (logs, per-replica violated formulas,
+    per-replica error type, the formulas the snapshot audit tripped)."""
+    import threading
+
+    from round_tpu_torch.apps.selector import select
+    from round_tpu_torch.runtime import host
+    from round_tpu_torch.runtime.chaos import alloc_ports
+    from round_tpu_torch.runtime.lanes import run_instance_loop_lanes
+    from round_tpu_torch.runtime.transport import HostTransport
+
+    algo = select(name)
+    ports = alloc_ports(n)
+    peers = {i: ("127.0.0.1", ports[i]) for i in range(n)}
+    trs = [HostTransport(i, ports[i]) for i in range(n)]
+    logs, stats, errors = {}, {}, {}
+
+    def node(i):
+        st: dict = {}
+        kw = dict(timeout_ms=2000, seed=7, value_schedule="mixed",
+                  max_rounds=12, stats_out=st, rv=rv, snap=snap,
+                  device=device)
+        try:
+            if driver == "lanes":
+                logs[i] = run_instance_loop_lanes(
+                    algo, i, peers, trs[i], instances, lanes=lanes, **kw)
+            else:
+                logs[i] = host.run_instance_loop(algo, i, peers, trs[i],
+                                                 instances, **kw)
+        except Exception as e:  # noqa: BLE001 — compared below
+            errors[i] = type(e).__name__
+        finally:
+            stats[i] = st
+            trs[i].close()
+
+    threads = [threading.Thread(target=node, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=150)
+    require(not any(t.is_alive() for t in threads),
+            f"rv-cluster {name} ({driver}): a replica wedged")
+    formulas = {i: sorted({v["formula"]
+                           for v in stats[i].get("rv_violations", [])})
+                for i in range(n)}
+    snapped = sorted({v["formula"] for i in range(n)
+                      for v in stats[i].get("snap_violations", [])})
+    return ({i: logs.get(i) for i in range(n)}, formulas,
+            {i: errors.get(i) for i in range(n)}, snapped)
+
+
+def verify_phases(torch, dev, card) -> None:
+    """The verification plane (no kernel of its own): the monitored
+    mega-step, the broken fixtures under each policy in both drivers, the
+    regression bank's replays, the monitor and snapshot A/Bs, the
+    hostile-wire gate and the proof/fuzzer crosscheck, each on the card
+    against the CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from round_tpu_torch.apps import fuzz_cli, host_perftest
+    from round_tpu_torch.apps.selector import select
+    from round_tpu_torch.byz.crosscheck import crosscheck
+    from round_tpu_torch.engine.executor import LaneStep
+    from round_tpu_torch.fuzz import replay
+    from round_tpu_torch.fuzz.hostile import run_gate
+    from round_tpu_torch.obs.metrics import METRICS
+    from round_tpu_torch.runtime.chaos import alloc_ports
+    from round_tpu_torch.runtime.lanes import run_instance_loop_lanes
+    from round_tpu_torch.runtime.transport import HostTransport
+    from round_tpu_torch.rv.compile import monitor_program
+    from round_tpu_torch.rv.dump import RvConfig
+    from round_tpu_torch.snap import SnapConfig
+    from round_tpu_torch.utils.tree import tree_flatten, tree_map
+
+    cpu = torch.device("cpu")
+
+    def same(a, b):
+        la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+        return len(la) == len(lb) and all(
+            x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+            for x, y in zip(la, lb))
+
+    def mailbox(payload):
+        return tree_map(lambda x: torch.stack(
+            [torch.roll(x, j, 0) for j in range(SERVE_N)], 1), payload)
+
+    # -- rv-step --------------------------------------------------------------
+    launches = {}
+    for name in VERIFY_MODELS:
+        algo = select(name)
+        prog = monitor_program(algo, SERVE_N)
+        rng = np.random.default_rng(9)
+        ins = {w: _lane_inputs(torch, algo, SERVE_L,
+                               np.random.default_rng(9), d)
+               for w, d in (("card", dev), ("cpu", cpu))}
+        mon_np = (rng.random(SERVE_L) < 0.5,
+                  rng.integers(-1, 5, SERVE_L).astype(prog.decision_dtype),
+                  rng.random(SERVE_L) < 0.5,
+                  rng.integers(-1, 5, SERVE_L).astype(prog.decision_dtype),
+                  rng.integers(0, 5, (SERVE_L, SERVE_N)).astype(
+                      prog.init_dtype))
+        mon = {w: [torch.from_numpy(np.array(m)).to(d) for m in mon_np]
+               for w, d in (("card", dev), ("cpu", cpu))}
+        for c, rnd in enumerate(algo.rounds):
+            rr_np = (rng.integers(0, 6, SERVE_L) * len(algo.rounds)
+                     + c).astype(np.int32)
+            step = LaneStep(rnd, SERVE_N, SERVE_L, monitor=prog)
+            out = {}
+            for w, d in (("card", dev), ("cpu", cpu)):
+                state, _seeds, salts, active, mask = ins[w]
+                rr = torch.from_numpy(rr_np).to(d)
+                st1, payload, _dest = step.send(rr, 1, salts, state, active)
+                vals = mailbox(payload)
+                out[w] = step.update(rr, 1, salts, st1, vals, mask, active,
+                                     *mon[w])
+                if w == "card" and c == 0:
+                    plain = LaneStep(rnd, SERVE_N, SERVE_L)
+                    plain.update(rr, 1, salts, st1, vals, mask, active)
+                    torch.cuda.synchronize()
+                    launches[name] = {
+                        "off": traced_launches(torch, lambda: plain.update(
+                            rr, 1, salts, st1, vals, mask, active))[0],
+                        "on": traced_launches(torch, lambda: step.update(
+                            rr, 1, salts, st1, vals, mask, active,
+                            *mon[w]))[0]}
+            a, b = out["card"], out["cpu"]
+            require(same(a[0], b[0]) and all(
+                torch.equal(x.cpu(), y) for x, y in zip(a[1:], b[1:])),
+                f"rv-step {name} class {c}: the card differs from the CPU")
+            act = ins["card"][3]
+            for lane in np.nonzero(~act.cpu().numpy())[0]:
+                require(same(tree_map(lambda x: x[lane], a[0]),
+                             tree_map(lambda x: x[lane], ins["card"][0]))
+                        and bool(a[2][lane].all()),
+                        f"rv-step {name}: inactive lane {lane} changed")
+            ins["card"] = (a[0],) + ins["card"][1:]
+            ins["cpu"] = (b[0],) + ins["cpu"][1:]
+            for w in ("card", "cpu"):
+                # the lane driver's merge: the wave's lanes carry their
+                # post-update plane forward
+                active = ins[w][3]
+                mon[w][:2] = [torch.where(active, out[w][3], mon[w][0]),
+                              torch.where(active, out[w][4], mon[w][1])]
+    # copies and dispatches per update wave, monitors on against off: a
+    # one-replica loopback run (lockstep lanes) is deterministic
+    names = ("lanes.dispatches", "lanes.update_dispatches",
+             "host.d2h_copies", "host.h2d_copies")
+
+    def loopback(rv):
+        port = alloc_ports(1)[0]
+        tr = HostTransport(0, port)
+        try:
+            c0 = [METRICS.counter(k).value for k in names]
+            log = run_instance_loop_lanes(
+                select("otr"), 0, {0: ("127.0.0.1", port)}, tr, SERVE_L,
+                lanes=16, timeout_ms=2000, seed=3, max_rounds=12, rv=rv,
+                device=dev)
+            return log, {k: METRICS.counter(k).value - v
+                         for k, v in zip(names, c0)}
+        finally:
+            tr.close()
+
+    log_off, d_off = loopback(None)
+    log_on, d_on = loopback(RvConfig(policy="log"))
+    require(log_on == log_off and d_on == d_off,
+            f"rv-step: monitors changed the loopback run: {d_on} vs {d_off}")
+    waves = max(1, d_on["lanes.update_dispatches"])
+    say_json("rv-step", n=SERVE_N, lanes=SERVE_L, models=VERIFY_MODELS,
+             cpu_equal=True, inactive_unchanged=True,
+             update_launch_calls=launches,
+             loopback_waves=d_on["lanes.update_dispatches"],
+             d2h_per_wave={"off": d_off["host.d2h_copies"] / waves,
+                           "on": d_on["host.d2h_copies"] / waves},
+             h2d_per_wave={"off": d_off["host.h2d_copies"] / waves,
+                           "on": d_on["host.h2d_copies"] / waves},
+             logs_equal=True)
+
+    # -- rv-cluster -----------------------------------------------------------
+    seen = {}
+    dump_dir = tempfile.mkdtemp(prefix="rv-")
+    for fixture in VERIFY_FIXTURES:
+        for policy in VERIFY_POLICIES:
+            for driver in ("lanes", "seq"):
+                kw = dict(policy=policy)
+                if fixture == "rv-broken-agreement":
+                    kw.update(gossip=True)
+                if policy == "log":
+                    kw.update(protocol=fixture, dump_dir=dump_dir)
+                got = _rv_cluster(driver, fixture, dev, RvConfig(**kw))
+                what = f"{fixture} {policy} {driver}"
+                if fixture == "rv-broken-validity":
+                    # a local violation: every replica trips it, on the
+                    # card as on the CPU, with the same logs and errors
+                    want = _rv_cluster(driver, fixture, cpu, RvConfig(
+                        **{k: v for k, v in kw.items() if k != "dump_dir"}))
+                    require(got == want, f"rv-cluster {what}: card {got} "
+                                         f"!= CPU {want}")
+                    require(all("property 'Validity'" in f
+                                for f in got[1].values()),
+                            f"rv-cluster {what}: a replica missed it")
+                    if policy == "shed":
+                        require(all(all(d is None for d in log)
+                                    for log in got[0].values()),
+                                f"rv-cluster {what}: a violating decision "
+                                f"was logged: {got[0]}")
+                else:
+                    # gossip timing decides which replicas observe the
+                    # split: the monitor must trip somewhere
+                    require(any("property 'Agreement'" in f
+                                for f in got[1].values()),
+                            f"rv-cluster {what}: agreement not tripped: "
+                            f"{got[1]}")
+                if policy == "halt":
+                    require(all(e == "RvViolation" for e in got[2].values()
+                                if e is not None) and any(got[2].values()),
+                            f"rv-cluster {what}: no halt: {got[2]}")
+                seen[what] = {"logs": got[0], "formulas": got[1],
+                              "errors": got[2]}
+    arts = sorted(p for p in os.listdir(dump_dir) if p.endswith(".json"))
+    require(arts, "rv-cluster: no artifact dumped")
+    rc = fuzz_cli.main(["replay", "--artifact",
+                        os.path.join(dump_dir, arts[0]), "--device", str(dev)])
+    require(rc == 0, f"rv-cluster: fuzz_cli replay of {arts[0]} exited {rc}")
+    say_json("rv-cluster", fixtures=VERIFY_FIXTURES,
+             policies=VERIFY_POLICIES, drivers=["lanes", "seq"],
+             runs=seen, artifacts=arts, replayed=arts[0],
+             validity_card_equal_cpu=True, card=card)
+
+    # -- replay-bank ----------------------------------------------------------
+    bank = {}
+    for path in sorted((ROOT / "tests" / "regressions").glob("*.json")):
+        art = replay.load_artifact(str(path))
+        ok, got = replay.check_engine(art, device=dev)
+        require(ok, f"replay-bank {path.name}: {got} != "
+                    f"{art['expected'].get('engine')}")
+        bank[path.name] = got
+    require(bank, "replay-bank: no banked artifact")
+    say_json("replay-bank", artifacts=sorted(bank), engine_ok=True,
+             outcomes=bank)
+
+    # -- rv-ab ----------------------------------------------------------------
+    # the run fails on what must hold on a clean run (checks counted, no
+    # violation, identical logs); the overhead ratio is a measurement,
+    # printed with round_tpu's gate verdict on it
+    t0 = time.perf_counter()
+    ab = host_perftest.measure_rv_ab(device=dev)
+    ex = ab["extra"]
+    require(ex["rv_checks"] > 0 and ex["rv_violations"] == 0
+            and ex["logs_identical"], f"rv-ab: clean run failed: {ex}")
+    say_json("rv-ab", metric=ab["metric"], value=ab["value"],
+             gate=ab["gate"], card=card, wall_s=time.perf_counter() - t0,
+             **{k: ex[k] for k in (
+                 "dps_off", "dps_on", "median_off", "median_on",
+                 "samples_off", "samples_on", "pairs", "instances", "lanes",
+                 "n", "rv_checks", "rv_violations", "logs_identical")})
+
+    # -- snap-ab --------------------------------------------------------------
+    t0 = time.perf_counter()
+    ab = host_perftest.measure_snap_ab(device=dev)
+    ex = ab["extra"]
+    require(ex["snap_cuts_audited"] > 0 and ex["snap_violations"] == 0
+            and ex["snap_divergences"] == 0 and ex["logs_identical"],
+            f"snap-ab: clean run failed: {ex}")
+    wall = time.perf_counter() - t0
+    # the broken-conservation fixture: the rv monitors stay silent, the
+    # collector's audit on the card trips the invariant chain
+    got = _rv_cluster("lanes", "snap-broken-conservation", dev,
+                      RvConfig(policy="log"), snap=SnapConfig(
+                          policy="log", every_k=1))
+    require(all(f == [] for f in got[1].values())
+            and "invariants (chain)" in got[3],
+            f"snap-ab: snap-broken-conservation not caught: {got}")
+    say_json("snap-ab", metric=ab["metric"], value=ab["value"],
+             gate=ab["gate"], card=card, wall_s=wall,
+             broken_caught=got[3],
+             **{k: ex[k] for k in (
+                 "dps_off", "dps_on", "median_off", "median_on",
+                 "samples_off", "samples_on", "pairs", "instances", "lanes",
+                 "n", "every_k", "payload_bytes", "snap_samples",
+                 "snap_cuts_audited", "snap_violations", "snap_divergences",
+                 "logs_identical")})
+
+    # -- hostile --------------------------------------------------------------
+    gate = run_gate(10_000, seed=0)
+    require(gate["ok"], f"hostile: gate failed: {gate}")
+    say_json("hostile", frames=10_000, ok=True,
+             **{s: {k: v for k, v in gate[s].items() if k != "by_op"}
+                for s in ("codec", "split", "pump")},
+             hostile_rejected=gate["hostile_rejected"])
+
+    # -- crosscheck -----------------------------------------------------------
+    rec = {}
+    timing = ("schedules_per_sec", "wall_s")
+    for proto in VERIFY_CROSSCHECK:
+        t0 = time.perf_counter()
+        res = crosscheck(proto, 4, min_schedules=VERIFY_SCHEDULES, seed=3,
+                         bank_dir=dump_dir, device=dev)
+        wall = time.perf_counter() - t0
+        require(res.in_ok and res.inside.evaluated >= VERIFY_SCHEDULES
+                and not res.inside.violation and res.past_ok,
+                f"crosscheck {proto}: {res.record()}")
+        small = [crosscheck(proto, 4, min_schedules=VERIFY_SMALL,
+                            pop_size=256, seed=5, device=d).record()
+                 for d in (dev, cpu)]
+        for r in small:
+            for arm in ("inside", "past"):
+                for k in timing:
+                    r[arm].pop(k)
+        require(small[0] == small[1],
+                f"crosscheck {proto}: card {small[0]} != CPU {small[1]}")
+        rec[proto] = {**res.record(), "wall_s": wall,
+                      "small_card_equal_cpu": True}
+    say_json("crosscheck", n=4, min_schedules=VERIFY_SCHEDULES,
+             small_schedules=VERIFY_SMALL, results=rec)
+
+
 def main() -> None:
     if not (ROOT / "round_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: round_tpu_torch/csrc is not beside "
@@ -3005,7 +3365,7 @@ def main() -> None:
         else None
     if only is not None:
         require(only in ("sharded", "peers", "fuzz", "runtime", "host",
-                         "serve"), f"unknown --only {only}")
+                         "serve", "verify"), f"unknown --only {only}")
         if only == "sharded":
             part = sharded_phases(torch, gen)
         elif only == "fuzz":
@@ -3019,6 +3379,9 @@ def main() -> None:
             part = []
         elif only == "serve":
             serve_phases(torch, dev, card)
+            part = []
+        elif only == "verify":
+            verify_phases(torch, dev, card)
             part = []
         else:
             k4_vs_plain(torch, gen)
@@ -3505,6 +3868,9 @@ def main() -> None:
 
     # -- 6b'. the lane driver and the fleet (no kernel of their own) ---------
     serve_phases(torch, dev, card)
+
+    # -- 6b'. the verification plane (no kernel of its own) ------------------
+    verify_phases(torch, dev, card)
 
     # -- 6b''. the last histogram slice's engines at their users' widths ----
     kset_launches = families_wide(torch, dev)

@@ -23,11 +23,14 @@ spawns one shard process per driver, each with its own CUDA context on
 the card.  A shard opens that context before it serves, so its start-up
 time (``startup_s``, launch to ready) includes it; its summary carries
 its peak GiB on the card.  A bench routes to a shard only once the shard
-says it is serving (a ``{"ready": ...}`` line); round_tpu routes at once.  ``serve``'s ``--rv``/``--snap`` (runtime
-verification and snapshots, ROADMAP slice 5b) and ``--kv`` (the
-replicated key-value store, slice 6e) exit with an error naming their
-slice; ``autoscale`` needs an explicit ``license_registry`` until slice
-5b (runtime/control.py FleetSupervisor).
+says it is serving (a ``{"ready": ...}`` line); round_tpu routes at once.
+``serve --rv``/``--snap`` run every replica under runtime verification
+and snapshot audits (a halt exits 3 with the shard's summary);
+``serve --kv`` (the replicated key-value store, ROADMAP slice 6e) exits
+with an error naming its slice.  ``autoscale``'s default
+proof gate is ``rv/license.py``'s registry, whose default prover comes
+with slice 7: until then it denies every resize, and a caller passes a
+``license_registry`` of its own.
 """
 
 from __future__ import annotations
@@ -89,6 +92,20 @@ def serve_main(args) -> int:
         torch.zeros((), device=device)
     algo, payload_bytes = _select_algo(args.algo, args.payload_bytes)
     ports = [int(p) for p in args.ports.split(",")]
+    rv = None
+    if args.rv:
+        from round_tpu_torch.rv.dump import RvConfig
+
+        rv = RvConfig(policy=args.rv, protocol=args.algo,
+                      dump_dir=args.rv_dir or "rv_dumps")
+    snap = None
+    if args.snap:
+        from round_tpu_torch.snap import SnapConfig
+
+        snap = SnapConfig(
+            policy=args.snap, protocol=args.algo,
+            dump_dir=args.snap_dir or "snap_dumps",
+            every_k=args.snap_every, bank_dir=args.snap_bank)
     # fixed ports: the bench parent announced them to the router
     srv = DriverServer(
         algo, n=len(ports), lanes=args.lanes,
@@ -98,7 +115,8 @@ def serve_main(args) -> int:
         use_pump=not args.no_pump,
         admission_bytes_per_lane=args.admission_bytes_per_lane,
         shed_deadline_ms=args.shed_deadline_ms,
-        adaptive_cap_ms=args.adaptive_cap_ms, ports=ports,
+        adaptive_cap_ms=args.adaptive_cap_ms, ports=ports, rv=rv,
+        snap=snap,
         tenants=_parse_tenant_weights(args.tenant_weights),
         tenant_bytes_per_lane=args.tenant_bytes_per_lane, device=device)
     srv.start()
@@ -106,8 +124,20 @@ def serve_main(args) -> int:
     # the bench parent waits for this line before it routes to the shard
     print(json.dumps({"ready": args.shard, "ready_at": ready_at}),
           flush=True)
+    rc = 0
     try:
-        srv.join(timeout_s=args.max_ms / 1000.0 + 30.0)
+        try:
+            srv.join(timeout_s=args.max_ms / 1000.0 + 30.0)
+        except RuntimeError:
+            # an rv- or snap-halted replica surfaces through its summary
+            # below; anything else keeps the loud failure
+            if not ((rv is not None or snap is not None)
+                    and srv.errors and all(
+                        type(e).__name__ in ("RvViolation",
+                                             "SnapViolation")
+                        for e in srv.errors.values())):
+                raise
+            rc = 3
     finally:
         served = sorted(set().union(*[set(r) for r in srv.results]))
         agg = _aggregate_server_stats(srv.stats)
@@ -131,8 +161,12 @@ def serve_main(args) -> int:
         }
         if args.tenant_weights:
             summary["tenants"] = srv.tenant_summary()
+        if rv is not None:
+            summary["rv"] = srv.rv_summary()
+        if snap is not None:
+            summary["snap"] = srv.snap_summary()
         print(json.dumps(summary))
-    return 0
+    return rc
 
 
 def _spawn_fleet(drivers: int, n: int, lanes: int, algo: str,
@@ -402,8 +436,8 @@ def run_autoscale_bench(*, algo: str = "lvb", n: int = 3,
                         device=None,
                         ) -> Dict[str, Any]:
     """(round_tpu/apps/fleet.py::run_autoscale_bench; the port's shards
-    run on ``device``, and ``license_registry`` must be given until
-    ROADMAP slice 5b.)  The autoscale trajectory bench: an IN-PROCESS
+    run on ``device``; the default ``license_registry`` denies every
+    resize until ROADMAP slice 7 brings its prover.)  The autoscale trajectory bench: an IN-PROCESS
     fleet under a
     FleetSupervisor, load swept as MULTIPLES of the fitted knee for the
     minimum fleet (0.3x -> 3x), every resize decision banked.
@@ -663,14 +697,28 @@ def main(argv=None) -> int:
     sv.add_argument("--device", type=str, default=None,
                     help="where the shard's lanes run (default: cuda; "
                          "raises where there is no card)")
-    for flag, what in (("--rv", "runtime verification (rv/, ROADMAP "
-                                "slice 5b)"),
-                       ("--snap", "round-consistent snapshots (snap/, "
-                                  "ROADMAP slice 5b)"),
-                       ("--kv", "the replicated key-value store (kv/, "
-                                "ROADMAP slice 6e)")):
-        sv.add_argument(flag, nargs="?", const="on", default=None,
-                        help=f"{what}: not ported, an error")
+    sv.add_argument("--rv", choices=["halt", "shed", "log"], default=None,
+                    help="runtime verification for this shard's drivers "
+                         "(rv/, docs/RUNTIME_VERIFICATION.md); a 'halt' "
+                         "violation stops the shard (exit 3) with "
+                         "clients failed fast via FLAG_TOO_LATE")
+    sv.add_argument("--rv-dir", type=str, default=None, metavar="DIR",
+                    help="violation dump directory (default rv_dumps/)")
+    sv.add_argument("--snap", nargs="?", const="log", default=None,
+                    choices=["halt", "shed", "log"], metavar="POLICY",
+                    help="round-consistent snapshots for this shard "
+                         "(snap/, docs/SNAPSHOTS.md): replica 0 "
+                         "assembles and audits the cuts")
+    sv.add_argument("--snap-every", type=int, default=4, metavar="K")
+    sv.add_argument("--snap-dir", type=str, default=None, metavar="DIR",
+                    help="snap violation dump directory (default "
+                         "snap_dumps/)")
+    sv.add_argument("--snap-bank", type=str, default=None, metavar="DIR",
+                    help="bank assembled cuts as .snapcut files "
+                         "(apps/snap_cli.py audits them offline)")
+    sv.add_argument("--kv", nargs="?", const="on", default=None,
+                    help="the replicated key-value store (kv/, ROADMAP "
+                         "slice 6e): not ported, an error")
 
     bn = sub.add_parser("bench", help="spawn a fleet + open-loop loadgen")
     bn.add_argument("--drivers", type=int, default=4)
@@ -752,11 +800,8 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
     if args.cmd == "serve":
-        for flag, on, slice_ in (("--rv", args.rv, "5b"),
-                                 ("--snap", args.snap, "5b"),
-                                 ("--kv", args.kv, "6e")):
-            if on:
-                sv.error(f"{flag} comes with ROADMAP slice {slice_}")
+        if args.kv:
+            sv.error("--kv comes with ROADMAP slice 6e")
         return serve_main(args)
     if args.cmd == "autoscale":
         from round_tpu_torch.apps.loadgen import parse_tenant_specs

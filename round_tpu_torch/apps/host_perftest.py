@@ -21,7 +21,9 @@ rounds run on ``device`` (``--device``; the card by default, raising
 where there is none), where round_tpu pins its replicas to the CPU;
 thread-mode replicas share the card and its default stream, and each
 fleet shard process opens its own CUDA context on it.  The runtime-
-verification and snapshot A/Bs come with ROADMAP slice 5b.
+verification A/B (``--ab-rv``, measure_rv_ab) runs the lane driver with
+and without the fused monitor term, the snapshot A/B (``--ab-snap``,
+measure_snap_ab) with and without sampling, cut assembly and the audit.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from round_tpu_torch.utils.device import resolve_device
 def run_node(my_id, peers, algo_name, instances, timeout_ms, results, seed,
              errors=None, proto="tcp", stats=None, algo=None, rate=1,
              adaptive_cap_ms=0, wire="binary", lanes=0, pump=True,
-             device=None, tr=None):
+             device=None, tr=None, rv=None, snap=None):
     """One replica's instance loop; closes its transport (``tr``, or one
     bound here) when done."""
     if tr is None:
@@ -70,7 +72,8 @@ def run_node(my_id, peers, algo_name, instances, timeout_ms, results, seed,
             results[my_id] = run_instance_loop_lanes(
                 algo, my_id, peers, tr, instances, lanes=lanes,
                 timeout_ms=timeout_ms, seed=seed, stats_out=node_stats,
-                adaptive=adaptive, wire=wire, use_pump=pump, device=device,
+                adaptive=adaptive, wire=wire, use_pump=pump, rv=rv,
+                snap=snap, device=device,
             )
         elif rate > 1:
             # the in-flight window (PerfTest2 -rt): `rate` concurrent
@@ -84,7 +87,7 @@ def run_node(my_id, peers, algo_name, instances, timeout_ms, results, seed,
             results[my_id] = run_instance_loop(
                 algo, my_id, peers, tr, instances, timeout_ms=timeout_ms,
                 seed=seed, stats_out=node_stats, adaptive=adaptive,
-                wire=wire, pump=pump, device=device,
+                wire=wire, pump=pump, rv=rv, snap=snap, device=device,
             )
         if stats is not None:
             stats[my_id] = node_stats
@@ -158,14 +161,18 @@ def _mode(base, rate, adaptive_cap_ms, wire, pump, payload_bytes, device,
 
 def measure(n=4, instances=20, algo="otr", timeout_ms=300, seed=0,
             proto="tcp", rate=1, adaptive_cap_ms=0, wire="binary",
-            lanes=0, payload_bytes=0, pump=True, device=None):
+            lanes=0, payload_bytes=0, pump=True, device=None, rv=None,
+            snap=None, algo_obj=None):
     """Run `instances` consecutive consensus instances over `n` replicas
     (threads, each with its own transport+sockets, all on ``device``; see
     measure_processes for the reference's exact multi-process shape).
     Every replica's socket is bound before any replica starts, so no
     first-round frame is lost to a peer still starting (round_tpu binds
     each inside its thread).  Returns (result dict, per-node decision
-    logs)."""
+    logs).  ``rv`` runs every replica under runtime verification, and
+    ``snap`` under snapshot sampling and audits;
+    ``algo_obj`` lets a repeated-measurement harness (measure_rv_ab)
+    share one algorithm object, and so its cached steps, across runs."""
     device = resolve_device(device)
     # thread-mode scheduling: n replicas in lockstep rounds over ONE GIL —
     # with CPython's default 5 ms switch interval, a replica waiting for
@@ -180,14 +187,15 @@ def measure(n=4, instances=20, algo="otr", timeout_ms=300, seed=0,
     results: dict = {}
     errors: dict = {}
     stats: dict = {}
-    shared_algo = select(algo, _algo_opts(payload_bytes))
+    shared_algo = (algo_obj if algo_obj is not None
+                   else select(algo, _algo_opts(payload_bytes)))
     trs = [HostTransport(i, ports[i], proto=proto) for i in range(n)]
     threads = [
         threading.Thread(
             target=run_node,
             args=(i, peers, algo, instances, timeout_ms, results, seed,
                   errors, proto, stats, shared_algo, rate, adaptive_cap_ms,
-                  wire, lanes, pump, device, trs[i]),
+                  wire, lanes, pump, device, trs[i], rv, snap),
         )
         for i in range(n)
     ]
@@ -494,6 +502,194 @@ def measure_lanes_ab(n=4, instances=64, algo="otr", timeout_ms=300,
             "device": str(resolve_device(device)),
         },
     }
+
+
+def measure_rv_ab(n=4, instances=64, algo="otr", timeout_ms=300,
+                  proto="tcp", lanes=16, pairs=3, warmup=1, seed=0,
+                  payload_bytes=0, device=None):
+    """The monitor-overhead A/B (round_tpu/apps/host_perftest.py::
+    measure_rv_ab): arm A is the lane driver with monitors OFF, arm B the
+    same driver with the monitor term fused into its update mega-step
+    (policy 'log', no dumps), interleaved pairs on ``device``.  The gate
+    (``rv_gate``): checks counted, zero violations on the clean run,
+    byte-identical decision logs, and no decisive overhead regression."""
+    from round_tpu_torch.apps.perf_ab import interleaved_ab
+    from round_tpu_torch.rv.dump import RvConfig
+
+    logs = {"off": None, "on": None}
+    violations = {"count": 0, "checks": 0}
+    shared = select(algo, _algo_opts(payload_bytes))
+
+    def arm(monitors_on):
+        def run():
+            rv = RvConfig(policy="log") if monitors_on else None
+            res, res_logs = measure(
+                n=n, instances=instances, algo=algo,
+                timeout_ms=timeout_ms, proto=proto, lanes=lanes,
+                payload_bytes=payload_bytes, seed=seed, rv=rv,
+                algo_obj=shared, device=device)
+            logs["on" if monitors_on else "off"] = res_logs
+            if monitors_on:
+                for st in res["extra"]["node_stats"].values():
+                    violations["count"] += len(
+                        st.get("rv_violations", []))
+                    violations["checks"] += st.get("rv_checks", 0)
+            return res["value"]
+        return run
+
+    ab = interleaved_ab(arm(False), arm(True), pairs=pairs,
+                        warmup=warmup)
+    out = {
+        "metric": f"host_{algo}_n{n}_rv_overhead",
+        "value": ab["ratio"],
+        "unit": "x (monitors-on/monitors-off decisions-per-sec)",
+        "extra": {
+            "dps_off": ab["mean_a"],
+            "dps_on": ab["mean_b"],
+            "median_off": ab["median_a"],
+            "median_on": ab["median_b"],
+            "samples_off": ab["a"],
+            "samples_on": ab["b"],
+            "pairs": pairs,
+            "warmup": warmup,
+            "instances": instances,
+            "lanes": lanes,
+            "n": n,
+            "rv_checks": violations["checks"],
+            "rv_violations": violations["count"],
+            # the last pair's logs, same seeds both arms: the fused
+            # monitor must be a pure observer
+            "logs_identical": logs["off"] == logs["on"],
+            "device": str(resolve_device(device)),
+        },
+    }
+    out["gate"] = rv_gate(out)
+    return out
+
+
+def rv_gate(res) -> dict:
+    """round_tpu's gate on the monitor A/B (tools/soak.py check_host_rv):
+    the monitors ran (checks > 0), zero violations and byte-identical
+    logs on the clean run, and not both the mean and median ratios under
+    0.85 (a decisive regression; ``acceptance_ok`` is the idle-box
+    number, on/off >= 0.95)."""
+    ex = res["extra"]
+    med = ex["median_on"] / max(ex["median_off"], 1e-9)
+    fails = []
+    if ex["rv_checks"] <= 0:
+        fails.append("rv_checks == 0: the monitors-on arm ran unmonitored")
+    if ex["rv_violations"]:
+        fails.append(f"{ex['rv_violations']} violation(s) on a clean run")
+    if not ex["logs_identical"]:
+        fails.append("decision logs differ monitors-on vs off")
+    if res["value"] < 0.85 and med < 0.85:
+        fails.append(f"overhead regression: mean {res['value']} and "
+                     f"median {round(med, 3)} both < 0.85")
+    return {"ok": not fails, "fails": fails,
+            "median_ratio": round(med, 3),
+            "acceptance_ok": res["value"] >= 0.95}
+
+
+def measure_snap_ab(n=4, instances=64, algo="lvb", timeout_ms=300,
+                    proto="tcp", lanes=16, pairs=3, warmup=1, seed=0,
+                    payload_bytes=1024, every_k=2, device=None):
+    """The snapshot-audit overhead A/B (round_tpu/apps/host_perftest.py::
+    measure_snap_ab): arm A is the lane driver with snapshots OFF, arm B
+    the same driver with sampling, cut assembly and the batched audit
+    live (policy 'log', no dumps, collector replica 0), interleaved pairs
+    on ``device``.  The gate (``snap_gate``): cuts audited, zero
+    violations and divergences on the clean run, byte-identical logs and
+    no decisive overhead regression.  lvb's spec=None exercises the whole
+    sampling, assembly and digest path with an empty formula dispatch."""
+    from round_tpu_torch.apps.perf_ab import interleaved_ab
+    from round_tpu_torch.snap import SnapConfig
+
+    logs = {"off": None, "on": None}
+    counts = {"violations": 0, "divergences": 0, "cuts_audited": 0,
+              "samples": 0}
+    shared = select(algo, _algo_opts(payload_bytes))
+
+    def arm(snap_on):
+        def run():
+            snap = (SnapConfig(policy="log", every_k=every_k)
+                    if snap_on else None)
+            res, res_logs = measure(
+                n=n, instances=instances, algo=algo,
+                timeout_ms=timeout_ms, proto=proto, lanes=lanes,
+                payload_bytes=payload_bytes, seed=seed, snap=snap,
+                algo_obj=shared, device=device)
+            logs["on" if snap_on else "off"] = res_logs
+            if snap_on:
+                for st in res["extra"]["node_stats"].values():
+                    counts["violations"] += len(
+                        st.get("snap_violations", []))
+                    counts["divergences"] += len(
+                        st.get("snap_divergences", []))
+                    counts["cuts_audited"] += st.get(
+                        "snap_cuts_audited", 0)
+                    counts["samples"] += st.get("snap_samples", 0)
+            return res["value"]
+        return run
+
+    ab = interleaved_ab(arm(False), arm(True), pairs=pairs,
+                        warmup=warmup)
+    out = {
+        "metric": f"host_{algo}_n{n}_snap_overhead",
+        "value": ab["ratio"],
+        "unit": "x (snap-on/snap-off decisions-per-sec)",
+        "extra": {
+            "dps_off": ab["mean_a"],
+            "dps_on": ab["mean_b"],
+            "median_off": ab["median_a"],
+            "median_on": ab["median_b"],
+            "samples_off": ab["a"],
+            "samples_on": ab["b"],
+            "pairs": pairs,
+            "warmup": warmup,
+            "instances": instances,
+            "lanes": lanes,
+            "n": n,
+            "every_k": every_k,
+            "payload_bytes": payload_bytes,
+            "snap_samples": counts["samples"],
+            "snap_cuts_audited": counts["cuts_audited"],
+            "snap_violations": counts["violations"],
+            "snap_divergences": counts["divergences"],
+            # the last pair's logs, same seeds both arms: sampling must
+            # be a pure observer
+            "logs_identical": logs["off"] == logs["on"],
+            "device": str(resolve_device(device)),
+        },
+    }
+    out["gate"] = snap_gate(out)
+    return out
+
+
+def snap_gate(res) -> dict:
+    """round_tpu's gate on the snapshot A/B (tools/soak.py
+    check_host_snap): cuts audited (> 0), zero violations and
+    divergences and byte-identical logs on the clean run, and not both
+    the mean and median ratios under 0.85 (``acceptance_ok`` is the
+    idle-box number, on/off >= 0.95)."""
+    ex = res["extra"]
+    med = ex["median_on"] / max(ex["median_off"], 1e-9)
+    fails = []
+    if ex["snap_cuts_audited"] <= 0:
+        fails.append("snap.cuts_audited == 0: a dead collector")
+    if ex["snap_violations"]:
+        fails.append(f"{ex['snap_violations']} violation(s) on a clean "
+                     "run")
+    if ex["snap_divergences"]:
+        fails.append(f"{ex['snap_divergences']} divergence(s) on a clean "
+                     "run")
+    if not ex["logs_identical"]:
+        fails.append("decision logs differ snapshots-on vs off")
+    if res["value"] < 0.85 and med < 0.85:
+        fails.append(f"overhead regression: mean {res['value']} and "
+                     f"median {round(med, 3)} both < 0.85")
+    return {"ok": not fails, "fails": fails,
+            "median_ratio": round(med, 3),
+            "acceptance_ok": res["value"] >= 0.95}
 
 
 def _overload_cluster(n, instances, algo, timeout_ms, lanes_by_id,
@@ -847,6 +1043,16 @@ def main(argv=None) -> int:
     ap.add_argument("--ab-pairs", type=int, default=9,
                     help="interleaved pairs for --ab-wire/--ab-pump/"
                          "--ab-lanes/--ab-fleet")
+    ap.add_argument("--ab-rv", action="store_true",
+                    help="run the interleaved monitor-overhead A/B (the "
+                         "lane driver with and without the fused rv "
+                         "term, measure_rv_ab; --lanes, default 16) and "
+                         "exit nonzero unless its gate holds")
+    ap.add_argument("--ab-snap", action="store_true",
+                    help="run the interleaved snapshot-overhead A/B (the "
+                         "lane driver with and without sampling and cut "
+                         "audits, measure_snap_ab: lvb 1 KiB, every_k=2) "
+                         "and exit nonzero unless its gate holds")
     ap.add_argument("--ab-overload", action="store_true",
                     help="run the overload degradation A/B (at-capacity "
                          "vs ~3x offered load, pre- vs post-hardening — "
@@ -903,6 +1109,22 @@ def main(argv=None) -> int:
         )
         print(json.dumps(result))
         return 0
+    if args.ab_rv:
+        result = measure_rv_ab(
+            n=args.n, instances=args.instances, algo=args.algo,
+            timeout_ms=args.timeout_ms, proto=args.proto,
+            lanes=args.lanes if args.lanes > 1 else 16,
+            pairs=args.ab_pairs, payload_bytes=args.payload_bytes,
+            device=args.device)
+        print(json.dumps(result))
+        return 0 if result["gate"]["ok"] else 1
+    if args.ab_snap:
+        result = measure_snap_ab(
+            n=args.n, instances=args.instances,
+            lanes=args.lanes if args.lanes > 1 else 16,
+            pairs=args.ab_pairs, device=args.device)
+        print(json.dumps(result))
+        return 0 if result["gate"]["ok"] else 1
     if args.ab_lanes:
         if args.lanes == 1:
             # lanes<=1 routes run_node to the per-instance driver

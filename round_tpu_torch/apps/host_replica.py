@@ -16,12 +16,13 @@ Port of round_tpu/apps/host_replica.py.  A replica's rounds run on
 ``--device`` (default ``cuda``; where there is no card the replica
 raises, it never carries on on the CPU), where round_tpu pins its
 replicas to the CPU; the lane driver (``--lanes`` > 1) keeps its ``[L,
-...]`` state there.  Runtime verification, snapshots, proof-licensed
-views and fuzz-artifact replays (``--rv``, ``--snap``,
-``--view-license``, ``--chaos-schedule``, ROADMAP slice 5b) are not
-ported yet: each exits with an error that names its slice, and their
-tuning flags (``--rv-dir``, ``--snap-every``, ``--license-cache`` ...)
-come with them.
+...]`` state there.  Runtime verification (``--rv``, ``--rv-dir``,
+``--rv-gossip``; a halt exits 3), proof-licensed views
+(``--view-license``; the registry's default prover comes with ROADMAP
+slice 7, so until then every licensed resize is refused unless
+``--view-unlicensed-ok``), fuzz-artifact replays
+(``--chaos-schedule``) and round-consistent snapshots (``--snap`` and
+its tuning flags; a halt exits 3) run as round_tpu's do.
 """
 
 from __future__ import annotations
@@ -269,6 +270,17 @@ def main(argv=None) -> int:
                          "in the summary), 'shed' retires the violating "
                          "instance undecided, 'log' records and keeps "
                          "serving")
+    ap.add_argument("--rv-dir", type=str, default=None, metavar="DIR",
+                    help="violation dump directory (default: "
+                         "rv_dumps/ beside the cwd); artifacts are "
+                         "fuzz/replay.py schedule JSON, replayable via "
+                         "fuzz_cli replay")
+    ap.add_argument("--rv-gossip", dest="rv_gossip",
+                    action="store_true", default=False,
+                    help="broadcast FLAG_DECISION on every local decide "
+                         "so decided replicas cross-check each other's "
+                         "values (adversarial posture; costs an n^2 "
+                         "decision fan-out)")
     ap.add_argument("--snap", nargs="?", const="log", default=None,
                     choices=["halt", "shed", "log"], metavar="POLICY",
                     help="round-consistent snapshots (round_tpu/snap, "
@@ -279,12 +291,47 @@ def main(argv=None) -> int:
                          "violation: halt (exit 3, artifact path in the "
                          "summary) | shed (violating instance retired "
                          "undecided) | log (default)")
+    ap.add_argument("--snap-every", type=int, default=4, metavar="K",
+                    help="sample every Kth round per instance "
+                         "(deterministically jittered; default 4)")
+    ap.add_argument("--snap-collector", type=int, default=0,
+                    metavar="PID",
+                    help="replica that assembles and audits cuts "
+                         "(default 0)")
+    ap.add_argument("--snap-dir", type=str, default=None, metavar="DIR",
+                    help="violation dump directory (default: "
+                         "snap_dumps/); artifacts are fuzz/replay.py "
+                         "schedule JSON, replayable via fuzz_cli replay")
+    ap.add_argument("--snap-bank", type=str, default=None, metavar="DIR",
+                    help="bank every assembled cut as a .snapcut file "
+                         "for offline audit (apps/snap_cli.py)")
+    ap.add_argument("--snap-budget", type=int, default=256 << 10,
+                    metavar="BYTES",
+                    help="sample-traffic byte budget per second (token "
+                         "bucket; 0 = unbudgeted; default 256 KiB/s)")
+    ap.add_argument("--snap-deadline-ms", type=int, default=3000,
+                    metavar="MS",
+                    help="how long a part-cut waits for missing "
+                         "contributors before the fault-envelope "
+                         "tolerance resolves it (default 3000)")
     ap.add_argument("--view-license", action="store_true",
                     help="proof-licensed reconfiguration (rv/license.py "
                          "+ docs/MEMBERSHIP.md): membership ops are "
                          "proposed only when the parameterized-proof "
                          "registry licenses the target group size — "
                          "refused otherwise")
+    ap.add_argument("--view-unlicensed-ok", action="store_true",
+                    help="escape hatch: an unlicensed membership op "
+                         "proceeds anyway, with this replica flagged "
+                         "DEGRADED (obs event + summary JSON)")
+    ap.add_argument("--license-cache", type=str, default=None,
+                    metavar="DIR",
+                    help="VC-hash proof cache directory (verifier_cli "
+                         "--cache)")
+    ap.add_argument("--no-license-solve", dest="license_solve",
+                    action="store_false", default=True,
+                    help="never run the solver from the license gate — "
+                         "cache hits only (a cold cache then refuses)")
     ap.add_argument("--linger-ms", type=int, default=0, metavar="MS",
                     help="after the loop completes, keep answering peers' "
                          "traffic with decision replies until the wire is "
@@ -330,12 +377,6 @@ def main(argv=None) -> int:
             print(f"warning: ignoring config params not used by "
                   f"host_replica: {unknown}", file=sys.stderr)
     configure_from_args(args)
-    for flag, on in (("--rv", args.rv), ("--snap", args.snap),
-                     ("--view-license", args.view_license),
-                     ("--chaos-schedule", args.chaos_schedule)):
-        if on:
-            ap.error(f"{flag} needs rv/, snap/ or fuzz/replay.py, which "
-                     "come with ROADMAP slice 5b")
     import torch
 
     from round_tpu_torch.utils.device import resolve_device
@@ -369,6 +410,7 @@ def main(argv=None) -> int:
         AdaptiveTimeout, HostRunner, decision_scalar, instance_io,
     )
     from round_tpu_torch.runtime.transport import HostTransport
+    from round_tpu_torch.rv.dump import RvViolation
 
     peers = {}
     if args.peers:
@@ -408,6 +450,9 @@ def main(argv=None) -> int:
             DecisionLog.from_values(decisions).dump_values_tsv(
                 args.decision_log)
 
+    if args.chaos and args.chaos_schedule:
+        ap.error("--chaos and --chaos-schedule are mutually exclusive "
+                 "(an explicit schedule replaces the hash families)")
     with HostTransport(args.id, peers[args.id][1], proto=args.proto) as raw_tr:
         tr = raw_tr
         if args.chaos:
@@ -415,6 +460,16 @@ def main(argv=None) -> int:
 
             tr = FaultyTransport(raw_tr, FaultPlan.parse(args.chaos),
                                  n=len(peers))
+        elif args.chaos_schedule:
+            from round_tpu_torch.runtime.chaos import FaultyTransport
+
+            tr = FaultyTransport.from_schedule_file(
+                raw_tr, args.chaos_schedule)
+            if tr.n != len(peers):
+                ap.error(f"--chaos-schedule artifact is for n={tr.n} "
+                         f"but the cluster has {len(peers)} replicas — "
+                         "a partial replay would silently diverge from "
+                         "the engine finding")
         admission = None
         health = None
         if args.admission:
@@ -485,7 +540,17 @@ def main(argv=None) -> int:
 
             group = Group([Replica(i, h, p)
                            for i, (h, p) in sorted(peers.items())])
-            manager = ViewManager(args.id, View(args.view_epoch, group), tr)
+            license = None
+            if args.view_license:
+                from round_tpu_torch.rv.license import ProofLicenseRegistry
+
+                license = ProofLicenseRegistry(
+                    cache_dir=args.license_cache,
+                    solve=args.license_solve)
+            manager = ViewManager(
+                args.id, View(args.view_epoch, group), tr,
+                license=license, license_model=args.algo,
+                unlicensed_ok=args.view_unlicensed_ok)
             if health is not None:
                 # quarantine composes with membership changes: per-peer
                 # scores remap through the renames, the (n-1)//3 envelope
@@ -530,7 +595,80 @@ def main(argv=None) -> int:
                 print(f"warning: --join-wait saw no epoch-"
                       f"{args.view_epoch} traffic in {args.join_wait_ms} "
                       f"ms; joining anyway", file=sys.stderr)
+        rv_cfg = None
+        if args.rv:
+            from round_tpu_torch.rv.dump import RvConfig
+
+            if args.lanes <= 1 and args.rate > 1:
+                print("warning: --rv applies to the sequential and lane "
+                      "loops only (ignored with --rate > 1)",
+                      file=sys.stderr)
+            else:
+                rv_cfg = RvConfig(
+                    policy=args.rv, protocol=args.algo,
+                    dump_dir=args.rv_dir or "rv_dumps",
+                    schedule_path=args.chaos_schedule,
+                    gossip=args.rv_gossip)
+        snap_cfg = None
+        if args.snap:
+            if args.instances <= 1 or (args.lanes <= 1 and args.rate > 1):
+                # the snapshot driver rides the loop drivers; a single
+                # instance has no derivable proposal row
+                print("warning: --snap applies to the sequential and "
+                      "lane --instances loops only (ignored here)",
+                      file=sys.stderr)
+            elif not 0 <= args.snap_collector < len(peers):
+                ap.error(f"--snap-collector {args.snap_collector} is "
+                         f"not a replica id of this n={len(peers)} "
+                         "cluster")
+            else:
+                from round_tpu_torch.snap import SnapConfig
+
+                snap_cfg = SnapConfig(
+                    policy=args.snap, protocol=args.algo,
+                    dump_dir=args.snap_dir or "snap_dumps",
+                    schedule_path=args.chaos_schedule,
+                    every_k=args.snap_every,
+                    collector=args.snap_collector,
+                    budget_bytes_per_s=args.snap_budget,
+                    cut_deadline_ms=args.snap_deadline_ms,
+                    bank_dir=args.snap_bank)
         if args.instances <= 1:
+            inst_rv = None
+            rv_runtime = None
+            if rv_cfg is not None and args.chaos_schedule:
+                # a schedule artifact names every replica's proposal, the
+                # validity witness set, so a single-instance artifact
+                # replay can run the monitors
+                import numpy as np
+
+                from round_tpu_torch.fuzz.replay import load_artifact
+                from round_tpu_torch.rv.compile import (
+                    HostRv, monitor_program,
+                )
+                from round_tpu_torch.rv.dump import RvRuntime
+
+                program = monitor_program(algo, len(peers))
+                if program is None:
+                    print(f"warning: --rv requested but {args.algo} has "
+                          "no decision plane to monitor; rv disabled",
+                          file=sys.stderr)
+                else:
+                    values = [int(v) for v in
+                              load_artifact(args.chaos_schedule)["values"]]
+                    rv_runtime = RvRuntime(
+                        rv_cfg, node=args.id, n=len(peers),
+                        seed=args.seed, max_rounds=args.max_rounds,
+                        device=device)
+                    inst_rv = HostRv(
+                        rv_runtime, program, args.instance,
+                        np.asarray(values, dtype=np.int32), values,
+                        gossip=rv_cfg.gossip)
+            elif rv_cfg is not None:
+                print("warning: --rv applies to the --instances loops "
+                      "or a --chaos-schedule replay (ignored for a "
+                      "plain single-instance run)",
+                      file=sys.stderr)
             if args.checkpoint_dir:
                 print("warning: --checkpoint-dir applies to the "
                       "sequential --instances loop only (ignored for a "
@@ -543,13 +681,20 @@ def main(argv=None) -> int:
                 delay_first_send_ms=args.delay_first_send_ms,
                 nbr_byzantine=args.nbr_byzantine,
                 adaptive=adaptive, wire=args.wire, health=health,
-                device=device,
+                rv=inst_rv, device=device,
             )
-            res = runner.run(
-                instance_io(algo, args.value),
-                max_rounds=args.max_rounds,
-            )
-            d = decision_scalar(res.decision) if res.decided else None
+            halt = None
+            try:
+                res = runner.run(
+                    instance_io(algo, args.value),
+                    max_rounds=args.max_rounds,
+                )
+            except RvViolation as e:
+                if inst_rv is None:
+                    raise
+                halt, res = e, None
+            d = (decision_scalar(res.decision)
+                 if res is not None and res.decided else None)
             dump_decision_log([d])
             if args.linger_ms > 0:
                 from round_tpu_torch.runtime.host import serve_decisions
@@ -559,20 +704,28 @@ def main(argv=None) -> int:
                     adoptable=getattr(algo, "payload_bytes", None) is None)
             summary = {
                 "id": args.id,
-                "decided": res.decided,
+                "decided": res is not None and res.decided,
                 "decision": d,  # null when undecided (never state garbage)
                 # list form so harnesses consume single- and multi-instance
                 # runs uniformly (host_perftest.measure_processes)
                 "decisions": [d],
                 "decided_instances": 1 if d is not None else 0,
-                "rounds": res.rounds_run,
-                "dropped": res.dropped_messages,
-                "timeouts": res.timeouts,
-                "timeout_trajectory": res.timeout_trajectory,
+                "rounds": res.rounds_run if res is not None else 0,
+                "dropped": (res.dropped_messages
+                            if res is not None else tr.dropped),
+                "timeouts": res.timeouts if res is not None else 0,
+                "timeout_trajectory": (res.timeout_trajectory
+                                       if res is not None else []),
                 # the RESOLVED catch-up send policy (conf + CLI override),
                 # so deployments and tests can audit boolean precedence
                 "send_when_catching_up": args.send_when_catching_up,
             }
+            if args.chaos_schedule:
+                summary["chaos_injected"] = tr.injected
+            if rv_runtime is not None:
+                rv_stats: dict = {}
+                rv_runtime.fill_stats(rv_stats)
+                summary["rv"] = _rv_summary(rv_cfg, rv_stats, halt)
             print(json.dumps(summary))
             return 0
 
@@ -591,6 +744,7 @@ def main(argv=None) -> int:
         started_at = time.time()
         t0 = time.perf_counter()
         stats: dict = {}
+        halt = None
         if args.lanes > 1:
             from round_tpu_torch.runtime.lanes import run_instance_loop_lanes
 
@@ -603,18 +757,22 @@ def main(argv=None) -> int:
                 print("warning: --no-send-when-catching-up / "
                       "--delay-first-send apply to the sequential loop "
                       "only (ignored with --lanes)", file=sys.stderr)
-            decisions = run_instance_loop_lanes(
-                algo, args.id, peers, tr, args.instances,
-                lanes=args.lanes, timeout_ms=args.timeout_ms,
-                seed=args.seed, base_value=args.value,
-                max_rounds=args.max_rounds,
-                nbr_byzantine=args.nbr_byzantine,
-                value_schedule=args.value_schedule,
-                adaptive=adaptive, stats_out=stats,
-                checkpoint_dir=args.checkpoint_dir, wire=args.wire,
-                use_pump=args.pump, admission=admission,
-                health=health, device=device,
-            )
+            try:
+                decisions = run_instance_loop_lanes(
+                    algo, args.id, peers, tr, args.instances,
+                    lanes=args.lanes, timeout_ms=args.timeout_ms,
+                    seed=args.seed, base_value=args.value,
+                    max_rounds=args.max_rounds,
+                    nbr_byzantine=args.nbr_byzantine,
+                    value_schedule=args.value_schedule,
+                    adaptive=adaptive, stats_out=stats,
+                    checkpoint_dir=args.checkpoint_dir, wire=args.wire,
+                    use_pump=args.pump, admission=admission,
+                    health=health, rv=rv_cfg, snap=snap_cfg,
+                    device=device,
+                )
+            except RvViolation as e:
+                halt, decisions = e, [None] * args.instances
         elif args.rate > 1:
             if (not args.send_when_catching_up
                     or args.delay_first_send_ms > 0):
@@ -635,20 +793,23 @@ def main(argv=None) -> int:
                 pump=args.pump, device=device,
             )
         else:
-            decisions = run_instance_loop(
-                algo, args.id, peers, tr, args.instances,
-                timeout_ms=args.timeout_ms, seed=args.seed,
-                base_value=args.value, max_rounds=args.max_rounds,
-                send_when_catching_up=args.send_when_catching_up,
-                delay_first_send_ms=args.delay_first_send_ms,
-                nbr_byzantine=args.nbr_byzantine,
-                value_schedule=args.value_schedule,
-                adaptive=adaptive, stats_out=stats,
-                checkpoint_dir=args.checkpoint_dir,
-                view=manager, view_schedule=view_schedule,
-                wire=args.wire, pump=args.pump, health=health,
-                device=device,
-            )
+            try:
+                decisions = run_instance_loop(
+                    algo, args.id, peers, tr, args.instances,
+                    timeout_ms=args.timeout_ms, seed=args.seed,
+                    base_value=args.value, max_rounds=args.max_rounds,
+                    send_when_catching_up=args.send_when_catching_up,
+                    delay_first_send_ms=args.delay_first_send_ms,
+                    nbr_byzantine=args.nbr_byzantine,
+                    value_schedule=args.value_schedule,
+                    adaptive=adaptive, stats_out=stats,
+                    checkpoint_dir=args.checkpoint_dir,
+                    view=manager, view_schedule=view_schedule,
+                    wire=args.wire, pump=args.pump, health=health,
+                    rv=rv_cfg, snap=snap_cfg, device=device,
+                )
+            except RvViolation as e:
+                halt, decisions = e, [None] * args.instances
         wall = time.perf_counter() - t0
         dump_decision_log(decisions)
         if args.linger_ms > 0 and not (manager is not None
@@ -678,8 +839,33 @@ def main(argv=None) -> int:
             "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
                          if device.type == "cuda" else None),
         }
-        if args.chaos:
+        if args.chaos or args.chaos_schedule:
             summary["chaos_injected"] = tr.injected
+        snap_halt = halt if type(halt).__name__ == "SnapViolation" else None
+        if rv_cfg is not None:
+            summary["rv"] = _rv_summary(
+                rv_cfg, stats, None if snap_halt is not None else halt)
+        if snap_cfg is not None:
+            summary["snap"] = {
+                "policy": snap_cfg.policy,
+                "collector": snap_cfg.collector,
+                "samples": stats.get("snap_samples", 0),
+                "sample_bytes": stats.get("snap_sample_bytes", 0),
+                "skipped": stats.get("snap_skipped", 0),
+                "cuts": stats.get("snap_cuts", 0),
+                "partial_cuts": stats.get("snap_partial_cuts", 0),
+                "cuts_audited": stats.get("snap_cuts_audited", 0),
+                "checks": stats.get("snap_checks", 0),
+                "violations": stats.get("snap_violations", []),
+                "divergences": stats.get("snap_divergences", []),
+                "artifacts": stats.get("snap_artifacts", []),
+            }
+            if snap_halt is not None:
+                summary["snap"]["halted"] = str(snap_halt)
+                if snap_halt.artifact:
+                    summary["snap"]["artifacts"] = sorted(
+                        set(summary["snap"]["artifacts"])
+                        | {snap_halt.artifact})
         if admission is not None:
             summary["overload"] = {
                 "shed_instances": stats.get("shed_instances", 0),
@@ -705,8 +891,31 @@ def main(argv=None) -> int:
                 "removed": manager.removed,
                 "reconnects": raw_tr.reconnects,
             })
+            if manager.license is not None:
+                # the licensing verdict surface: refused ops and whether
+                # this replica serves DEGRADED
+                summary["view_refused"] = manager.refusals
+                summary["view_degraded"] = manager.degraded
         print(json.dumps(summary))
+        if halt is not None:
+            return 3
     return 0
+
+
+def _rv_summary(rv_cfg, stats: dict, halt) -> dict:
+    """The summary's ``rv`` block from the drivers' fill_stats shape."""
+    out = {
+        "policy": rv_cfg.policy,
+        "checks": stats.get("rv_checks", 0),
+        "violations": stats.get("rv_violations", []),
+        "artifacts": stats.get("rv_artifacts", []),
+    }
+    if halt is not None:
+        out["halted"] = str(halt)
+        if halt.artifact:
+            out["artifacts"] = sorted(set(out["artifacts"])
+                                      | {halt.artifact})
+    return out
 
 
 if __name__ == "__main__":

@@ -4,8 +4,8 @@ Port of round_tpu/apps/selector.py (example/ConsensusSelector.scala:14-31:
 otr | lv | lve | slv by name, with per-algorithm option handling).  Every
 name round_tpu's selector takes, with the same options and defaults.  Its
 runtime-verification and snapshot-audit test fixtures (``rv-broken-*``,
-``snap-broken-*``) come with the slice that ports those packages; until
-then a name with either prefix raises a ValueError that says so.
+``snap-broken-*``) load from ``rv/fixtures.py`` and ``snap/fixtures.py``
+as round_tpu's do.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ from round_tpu_torch.core.algorithm import Algorithm
 
 NAMES = ("otr", "lv", "lvb", "lve", "slv", "mlv", "benor", "floodmin",
          "kset", "tpc", "pbft", "pbft-vc")
-_FIXTURE_PREFIXES = ("rv-broken-", "snap-broken-")
 
 
 def select(name: str, options: Optional[Dict[str, Any]] = None) -> Algorithm:
@@ -80,10 +79,19 @@ def select(name: str, options: Optional[Dict[str, Any]] = None) -> Algorithm:
         from round_tpu_torch.models.pbft import PbftViewChange
 
         return PbftViewChange()
-    if name.startswith(_FIXTURE_PREFIXES):
-        raise ValueError(
-            f"{name!r} names a runtime-verification or snapshot-audit test "
-            "fixture of round_tpu (rv/fixtures.py, snap/fixtures.py); the "
-            "port has not ported those packages yet")
+    if name.startswith("rv-broken-"):
+        # runtime-verification test fixtures: deliberately broken rounds
+        # whose violation dumps replay through fuzz_cli; never deployed
+        from round_tpu_torch.rv.fixtures import FIXTURES, select_fixture
+
+        if name in FIXTURES:
+            return select_fixture(name)
+    if name.startswith("snap-broken-"):
+        # snapshot-audit test fixtures: full-state invariant breaches
+        # invisible to every per-lane monitor
+        from round_tpu_torch.snap.fixtures import FIXTURES, select_fixture
+
+        if name in FIXTURES:
+            return select_fixture(name)
     raise ValueError(
         f"unknown algorithm {name!r} (expected {'|'.join(NAMES)})")

@@ -491,12 +491,27 @@ class LaneStep:
       update(rr, sid, seeds, state, vals, mask, active) -> (state', exit)
       go(rr, sid, seeds, state, vals, mask)             -> go  (FoldRound)
 
-    ``vals``/``mask`` are the ``[L, n, ...]`` / ``[L, n]`` mailbox."""
+    ``vals``/``mask`` are the ``[L, n, ...]`` / ``[L, n]`` mailbox.
 
-    __slots__ = ("rnd", "n", "lanes", "send", "update", "go", "_ids")
+    With a ``monitor`` (rv/compile.py MonitorProgram) the update also
+    reads every lane's post-update decision plane inside its vmap and
+    evaluates the monitor verdicts on it, given the carried monitor
+    state:
 
-    def __init__(self, rnd, n: int, lanes: int):
+      update(..., active, prev_dec, prev_val, ext_dec, ext_val, init_vals)
+          -> (state', exit, ok[L, F], decided[L], decision[L, ...])
+
+    Inactive lanes are vacuously ok; the caller carries the plane
+    forward for the active lanes only (round_tpu's update returns it
+    already merged).  The update math is unchanged, so decision logs are
+    the same with monitors on and off."""
+
+    __slots__ = ("rnd", "n", "lanes", "monitor", "send", "update", "go",
+                 "_ids")
+
+    def __init__(self, rnd, n: int, lanes: int, monitor=None):
         self.rnd, self.n, self.lanes = rnd, n, lanes
+        self.monitor = monitor
         t_send, t_update, t_go = make_lane_round_fns(rnd, n)
         self._ids: dict = {}
         ids = self._id
@@ -513,6 +528,31 @@ class LaneStep:
                                lane_words(0, seeds, rr, sid), state, vals,
                                mask)
             return tree_where(active, st2, state), ex & active
+
+        if monitor is not None:
+            decided_fn, decision_fn = monitor.algo.decided, \
+                monitor.algo.decision
+            verdicts = monitor.verdicts
+
+            def t_update_plane(rr, sid, word, state, vals, mask):
+                st2, ex = t_update(rr, sid, word, state, vals, mask)
+                return (st2, ex, decided_fn(st2).reshape(()),
+                        decision_fn(st2))
+
+            # the decision plane read inside the update's own vmap; the
+            # verdicts over all lanes at once, in the same mega-step
+            v_update_plane = vmap(t_update_plane,
+                                  in_dims=(0, None, 0, 0, 0, 0))
+
+            def update(rr, sid, seeds, state, vals, mask, active,  # noqa: F811
+                       prev_dec, prev_val, ext_dec, ext_val, init_vals):
+                st2, ex, dec, val = v_update_plane(
+                    rr, ids(sid, rr.device), lane_words(0, seeds, rr, sid),
+                    state, vals, mask)
+                ok = verdicts(dec, val, prev_dec, prev_val, ext_dec,
+                              ext_val, init_vals, active=active)
+                return tree_where(active, st2, state), ex & active, ok, \
+                    dec, val
 
         self.send, self.update, self.go = send, update, None
         if t_go is not None:
@@ -536,15 +576,12 @@ class LaneStep:
 
 
 def lane_step(rnd, n: int, lanes: int, monitor=None) -> LaneStep:
-    """The LaneStep of ``rnd`` at (n, lanes), cached on the round object
-    under a lock (round_tpu/engine/executor.py::lane_step).  There is no
-    compile step and no warm-up call: the first dispatch runs eagerly.
-    Runtime-verification monitors come with ROADMAP slice 5b."""
-    if monitor is not None:
-        raise NotImplementedError(
-            "lane_step(monitor=) fuses rv/ monitors, which come with "
-            "ROADMAP slice 5b")
-    key = (n, lanes)
+    """The LaneStep of ``rnd`` at (n, lanes), with the ``monitor`` term
+    fused into its update when given, cached on the round object under a
+    lock (round_tpu/engine/executor.py::lane_step); monitored and plain
+    steps cache apart.  There is no compile step and no warm-up call: the
+    first dispatch runs eagerly."""
+    key = (n, lanes, monitor is not None)
     cache = getattr(rnd, "_lane_steps", None)
     if cache is not None and key in cache:
         return cache[key]
@@ -553,7 +590,7 @@ def lane_step(rnd, n: int, lanes: int, monitor=None) -> LaneStep:
         if cache is None:
             cache = rnd._lane_steps = {}
         if key not in cache:
-            cache[key] = LaneStep(rnd, n, lanes)
+            cache[key] = LaneStep(rnd, n, lanes, monitor=monitor)
         return cache[key]
 
 

@@ -40,8 +40,7 @@ round_tpu's salts of ``PRNGKey(seed)`` without jax, so a plan drops the
 links round_tpu's plan drops for the same seed, bit for bit.  The
 cluster driver launches the port's ``host_replica`` (on the card unless
 ``device`` says otherwise).  ``FaultyTransport.from_schedule_file`` reads
-fuzz artifacts through round_tpu/fuzz/replay.py, which comes with ROADMAP
-slice 5b: until then it raises NotImplementedError.
+fuzz artifacts through the port's ``fuzz/replay.py``.
 """
 
 from __future__ import annotations
@@ -250,9 +249,24 @@ class FaultyTransport:
         artifacts) the SAME value-substitution events are forged into
         the outgoing frames (delivery equivalence pinned by
         tests/test_fuzz.py; value equivalence by tests/test_byz.py)."""
-        raise NotImplementedError(
-            "schedule artifacts load through fuzz/replay.py, which comes "
-            "with ROADMAP slice 5b")
+        from round_tpu_torch.fuzz.replay import (
+            load_artifact,
+            schedule_from_artifact,
+            value_plan_from_artifact,
+        )
+
+        art = load_artifact(path)
+        vplan = value_plan_from_artifact(art)
+        rpp = None
+        if vplan is not None:
+            from round_tpu_torch.apps.selector import select
+
+            rpp = select(art["protocol"]).rounds_per_phase
+        return cls(inner, FaultPlan(seed=int(art.get("seed", 0))),
+                   n=int(art["n"]),
+                   schedule=schedule_from_artifact(art),
+                   value_plan=vplan, protocol=art["protocol"],
+                   rounds_per_phase=rpp)
 
     # -- the seeded link hash ----------------------------------------------
 

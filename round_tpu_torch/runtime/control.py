@@ -47,11 +47,9 @@ fleet-autoscale soak rung can audit the trajectory: SLO held by scaling,
 not shedding.
 
 Port of round_tpu/runtime/control.py, unchanged: the supervisor is host
-Python over the router's counters.  Its default proof gate
-(round_tpu/rv/license.py::ProofLicenseRegistry) comes with ROADMAP slice
-5b: until then a supervisor built without ``license_registry`` raises
-NotImplementedError, and callers pass a registry of their own (any
-object with ``check(model, n, solve=...)``).
+Python over the router's counters, and its default proof gate is
+``rv/license.py``'s ``ProofLicenseRegistry`` (whose default prover comes
+with ROADMAP slice 7; a registry built with ``prover=`` works now).
 """
 
 from __future__ import annotations
@@ -143,10 +141,9 @@ class FleetSupervisor:
         self.min_shards = min_shards
         self.max_shards = max_shards
         if license_registry is None:
-            raise NotImplementedError(
-                "FleetSupervisor's default proof gate is rv/license.py's "
-                "ProofLicenseRegistry, which comes with ROADMAP slice 5b; "
-                "pass license_registry=")
+            from round_tpu_torch.rv.license import ProofLicenseRegistry
+
+            license_registry = ProofLicenseRegistry()
         self.license_registry = license_registry
         self.license_solve = license_solve
         self.region_fn = region_fn or (lambda i: "r0")

@@ -64,9 +64,9 @@ its accounting are round_tpu's, placement byte for byte (blake2b).  A
 ``DriverServer``'s replicas run their lane state on ``device`` (the card
 unless the caller passes another; where the card is asked for and absent
 the server raises).  The key-value data plane (``send_read``,
-``DriverServer(kv=)``) comes with ROADMAP slice 6e, runtime verification
-and snapshots (``rv=``, ``snap=``) with slice 5b: each raises
-NotImplementedError naming its slice.
+``DriverServer(kv=)``) comes with ROADMAP slice 6e: each raises
+NotImplementedError naming its slice.  ``DriverServer(rv=, snap=)``
+serves every replica under runtime verification and snapshot audits.
 """
 
 from __future__ import annotations
@@ -779,8 +779,10 @@ class DriverServer:
     every replica's lane state on ``device``.  The client id every
     replica accepts is ``n`` — the id space right above the group, where
     the router's transports live (round_tpu/runtime/fleet.py::
-    DriverServer).  ``rv``/``snap`` come with ROADMAP slice 5b and
-    ``kv`` with slice 6e: each raises NotImplementedError."""
+    DriverServer).  ``rv`` (an rv.dump.RvConfig) is the runtime
+    verification and ``snap`` (a snap.audit.SnapConfig) the snapshot
+    audit every replica serves under; ``kv`` comes with slice 6e and
+    raises NotImplementedError."""
 
     def __init__(self, algo, n: int = 3, lanes: int = 16,
                  timeout_ms: int = 300, seed: int = 0,
@@ -799,13 +801,17 @@ class DriverServer:
         from round_tpu_torch.runtime.transport import HostTransport
         from round_tpu_torch.utils.device import resolve_device
 
-        for name, value, slice_ in (("rv", rv, "5b"), ("snap", snap, "5b"),
-                                    ("kv", kv, "6e")):
-            if value is not None:
-                raise NotImplementedError(
-                    f"DriverServer({name}=) comes with ROADMAP slice "
-                    f"{slice_}")
+        if kv is not None:
+            raise NotImplementedError(
+                "DriverServer(kv=) comes with ROADMAP slice 6e")
         self.device = resolve_device(device)
+        # runtime verification: the RvConfig the shard's lane drivers
+        # serve under; a 'halt' surfaces through errors/join() and the
+        # router's too_late drain
+        self.rv = rv
+        # snapshots: ONE shared config, so cfg.collector names the
+        # replica that assembles and audits the shard's cuts
+        self.snap = snap
         self.algo = algo
         self.n = n
         self.lanes = lanes
@@ -871,7 +877,8 @@ class DriverServer:
                 seed=self.seed, max_rounds=self.max_rounds,
                 value_schedule="uniform", use_pump=self.use_pump,
                 admission=admission, adaptive=adaptive,
-                clients={self.n}, tenants=tenant_admission,
+                clients={self.n}, rv=self.rv, snap=self.snap,
+                tenants=tenant_admission,
                 device=self.device,
             )
             self.results[i] = driver.serve(
@@ -880,6 +887,45 @@ class DriverServer:
         except Exception as e:  # noqa: BLE001 — surfaced by join()
             self.errors[i] = e
             raise
+
+    def rv_summary(self) -> Dict[str, Any]:
+        """Aggregate rv status across this shard's replicas
+        (round_tpu/runtime/fleet.py::DriverServer.rv_summary)."""
+        viols = [v for st in self.stats
+                 for v in st.get("rv_violations", [])]
+        return {
+            "enabled": self.rv is not None,
+            "checks": sum(st.get("rv_checks", 0) for st in self.stats),
+            "violations": viols,
+            "artifacts": sorted({a for st in self.stats
+                                 for a in st.get("rv_artifacts", [])}),
+            "halted": sorted(
+                i for i, e in self.errors.items()
+                if type(e).__name__ == "RvViolation"),
+        }
+
+    def snap_summary(self) -> Dict[str, Any]:
+        """Aggregate snapshot status across this shard's replicas
+        (round_tpu/runtime/fleet.py::DriverServer.snap_summary)."""
+        return {
+            "enabled": self.snap is not None,
+            "samples": sum(st.get("snap_samples", 0)
+                           for st in self.stats),
+            "cuts": sum(st.get("snap_cuts", 0) for st in self.stats),
+            "cuts_audited": sum(st.get("snap_cuts_audited", 0)
+                                for st in self.stats),
+            "partial_cuts": sum(st.get("snap_partial_cuts", 0)
+                                for st in self.stats),
+            "violations": [v for st in self.stats
+                           for v in st.get("snap_violations", [])],
+            "divergences": [d for st in self.stats
+                            for d in st.get("snap_divergences", [])],
+            "artifacts": sorted({a for st in self.stats
+                                 for a in st.get("snap_artifacts", [])}),
+            "halted": sorted(
+                i for i, e in self.errors.items()
+                if type(e).__name__ == "SnapViolation"),
+        }
 
     def tenant_summary(self) -> Dict[str, Any]:
         """Aggregate per-tenant shed accounting across this shard's

@@ -74,8 +74,14 @@ the wire:
     make_host_round_fns), not round_tpu's threefry fold-in;
   * pytrees flatten as JAX's do (dict keys sorted, None an empty node),
     so a payload's leaf order and its wire bytes are round_tpu's;
-  * runtime verification (``rv``) and snapshots (``snap``) come with
-    ROADMAP slice 5b: passing either raises NotImplementedError.
+  * runtime verification (``rv``): the round's decided flag and
+    decision ride the round's one device-to-host copy with its exit
+    flag, and the numpy twin of the lane monitor term checks them
+    (rv/compile.py HostRv); a FLAG_DECISION heard mid-instance is
+    checked before adoption with one more copy (a cold path);
+  * snapshots (``snap``): on a round the sampling policy picks, the
+    state's leaves ride the same copy as the exit flag; FLAG_SNAP frames
+    reach the collector from both pumps.
 """
 
 from __future__ import annotations
@@ -99,7 +105,7 @@ from round_tpu_torch.obs.trace import TRACE
 from round_tpu_torch.runtime import codec
 from round_tpu_torch.runtime.log import get_logger
 from round_tpu_torch.runtime.oob import (
-    FLAG_DECISION, FLAG_NACK, FLAG_NORMAL, FLAG_VIEW, Message,
+    FLAG_DECISION, FLAG_NACK, FLAG_NORMAL, FLAG_SNAP, FLAG_VIEW, Message,
     Tag,
 )
 from round_tpu_torch.runtime.transport import HostTransport, RoundPump
@@ -874,12 +880,13 @@ def run_instance_loop(
     own removal returns its decision log immediately with the remaining
     entries undecided — the CALLER exits it cleanly.
 
-    Every runner's round runs on ``device`` (the card when None).
-    ``rv``/``snap`` (runtime verification, snapshots) come with ROADMAP
-    slice 5b and raise NotImplementedError.
+    Every runner's round runs on ``device`` (the card when None).  With
+    ``rv`` (rv.dump.RvConfig) every instance's decision plane is checked
+    by the lane monitor term's numpy twin; with ``snap``
+    (snap.audit.SnapConfig) the rounds are sampled into cuts, audited on
+    the collector replica.
 
     Returns the per-instance decision log (None where undecided)."""
-    _no_rv_snap(rv, snap)
     device = resolve_device(device)
     stash: Dict[int, Dict[int, Dict[int, Any]]] = {}
     current = {"inst": 0}
@@ -956,6 +963,33 @@ def run_instance_loop(
             and _os.environ.get("ROUND_TPU_PUMP", "1") != "0"):
         pump_state = _make_runner_pump(transport, algo, my_id,
                                        len(peers), nbr_byzantine, device)
+    # runtime verification: one RvRuntime and monitor program for the
+    # whole loop, one HostRv per instance inside the body
+    rv_state = None
+    if rv is not None:
+        from round_tpu_torch.rv.compile import monitor_program
+        from round_tpu_torch.rv.dump import RvRuntime
+
+        program = monitor_program(algo, len(peers))
+        if program is None:
+            log.warning("node %d: rv requested but %s has no decision "
+                        "plane to monitor; rv disabled", my_id,
+                        type(algo).__name__)
+        else:
+            rv_state = (RvRuntime(rv, node=my_id, n=len(peers), seed=seed,
+                                  max_rounds=max_rounds, device=device),
+                        program, rv)
+    # snapshots: ONE SnapDriver for the whole loop (the emitter, the
+    # collector's part-cuts and the audit cache outlive an instance)
+    snap_state = None
+    if snap is not None:
+        from round_tpu_torch.snap.driver import SnapDriver
+
+        snap_state = SnapDriver(
+            snap, algo, node=my_id, n=len(peers), seed=seed,
+            max_rounds=max_rounds, transport=transport,
+            value_schedule=value_schedule, base_value=base_value,
+            view=view, device=device)
     try:
         return _run_instance_loop_body(
             algo, my_id, peers, transport, instances, timeout_ms, seed,
@@ -963,8 +997,13 @@ def run_instance_loop(
             delay_first_send_ms, nbr_byzantine, value_schedule, adaptive,
             checkpoint_dir, view, view_schedule, wire, pump_state,
             decisions, raw_decisions, replied, enc_cache, stash, current,
-            foreign, start, health, device)
+            foreign, start, health, device, rv_state, snap_state)
     finally:
+        if rv_state is not None:
+            # stats survive an rv halt: the summary carries the record
+            rv_state[0].fill_stats(stats_out)
+        if snap_state is not None:
+            snap_state.fill_stats(stats_out)
         if pump_state is not None:
             pump_state.close()
 
@@ -975,7 +1014,7 @@ def _run_instance_loop_body(
     delay_first_send_ms, nbr_byzantine, value_schedule, adaptive,
     checkpoint_dir, view, view_schedule, wire, pump_state,
     decisions, raw_decisions, replied, enc_cache, stash, current,
-    foreign, start, health, device,
+    foreign, start, health, device, rv_state=None, snap_state=None,
 ) -> List[Optional[int]]:
     # ordered view-change schedule: entry i moves the group from epoch i
     # to i+1, so a replica only PROPOSES an entry its own epoch has not
@@ -990,6 +1029,21 @@ def _run_instance_loop_body(
                 if view.removed:
                     break
                 vid, vpeers = view.my_id, view.view.peers()
+            inst_rv = None
+            if rv_state is not None:
+                from round_tpu_torch.rv.compile import (
+                    HostRv, schedule_init_values,
+                )
+
+                rv_runtime, rv_program, rv_cfg = rv_state
+                nn = len(vpeers)
+                inst_rv = HostRv(
+                    rv_runtime, rv_program, inst,
+                    schedule_init_values(algo, nn, value_schedule,
+                                         base_value, inst),
+                    [_schedule_value(value_schedule, base_value, pid,
+                                     inst) for pid in range(nn)],
+                    gossip=rv_cfg.gossip)
             runner = HostRunner(
                 algo, vid, vpeers, transport, instance_id=inst,
                 timeout_ms=timeout_ms, seed=seed + inst,
@@ -1007,6 +1061,8 @@ def _run_instance_loop_body(
                 wire=wire,
                 pump_state=pump_state,
                 health=health,
+                rv=inst_rv,
+                snap=snap_state,
                 device=device,
             )
             value = _schedule_value(value_schedule, base_value, vid, inst)
@@ -1066,15 +1122,6 @@ def _run_instance_loop_body(
             view.stale = False  # any mid-change staleness was resolved
             # by propose/adopt; the next data instance starts fresh
     return decisions
-
-
-def _no_rv_snap(rv, snap) -> None:
-    """Runtime verification and snapshots (round_tpu/rv, round_tpu/snap)
-    come with ROADMAP slice 5b."""
-    if rv is not None or snap is not None:
-        raise NotImplementedError(
-            "runtime verification (rv) and snapshots (snap) of the host "
-            "runner come with ROADMAP slice 5b")
 
 
 def serve_decisions(transport, decisions: List[Optional[int]],
@@ -1496,8 +1543,9 @@ class HostRunner:
     with other-flag traffic to `default_handler` (or are dropped).
 
     The replica's round runs on ``device`` (the card when None; where the
-    card is asked for and absent this raises).  ``rv``/``snap`` come with
-    ROADMAP slice 5b and raise NotImplementedError."""
+    card is asked for and absent this raises).  ``rv`` is one instance's
+    rv/compile.py HostRv and ``snap`` the loop's snap/driver.py
+    SnapDriver."""
 
     def __init__(
         self,
@@ -1524,7 +1572,6 @@ class HostRunner:
         snap=None,
         device=None,
     ):
-        _no_rv_snap(rv, snap)
         self.device = resolve_device(device)
         self.algo = algo
         self.id = my_id
@@ -1603,6 +1650,10 @@ class HostRunner:
         # health does not reset between instances.  None = the polite
         # pre-overload world (zero behavior change).
         self._health = health
+        self._rv = rv
+        self._rv_replied: Dict[Tuple[int, int], float] = {}
+        self._snap = snap
+        self._snap_shed = False
         self.malformed = 0
         self.timeouts = 0   # rounds ended by deadline expiry (diagnostics)
         self._trajectory: List[int] = []   # per-round deadline used (ms)
@@ -1840,6 +1891,9 @@ class HostRunner:
                     elif tg.flag == FLAG_DECISION \
                             and tg.instance == self.instance_id:
                         ok, p = self._loads(raw)
+                        if ok and p is not None and self._rv is not None:
+                            # agreement check before adoption
+                            self._rv.on_decision_frame(state, p, r)
                         adopted = (self.algo.adopt_decision(state, p)
                                    if ok else None)
                         if adopted is not None:
@@ -1855,6 +1909,9 @@ class HostRunner:
                         if TRACE.enabled:
                             TRACE.emit("nack_seen", node=self.id,
                                        inst=tg.instance, src=sender)
+                    elif tg.flag == FLAG_SNAP and self._snap is not None:
+                        # a snapshot sample off the pump's misc path
+                        self._snap.on_frame(sender, tg, raw)
                     elif tg.flag == FLAG_NORMAL and self.foreign is not None:
                         ok, p = self._loads(raw)
                         if ok:
@@ -2188,6 +2245,12 @@ class HostRunner:
                             # our late traffic with the value — adopt and exit
                             # instead of burning this round's timeout
                             ok, p = self._loads(raw)
+                            if ok and p is not None \
+                                    and self._rv is not None:
+                                # the agreement term's cold site: check
+                                # BEFORE adoption overwrites the state
+                                # the conflict lives in
+                                self._rv.on_decision_frame(state, p, r)
                             adopted = (self.algo.adopt_decision(state, p)
                                        if ok else None)
                             if adopted is not None:
@@ -2208,6 +2271,10 @@ class HostRunner:
                             if TRACE.enabled:
                                 TRACE.emit("nack_seen", node=self.id,
                                            inst=tag.instance, src=sender)
+                        elif tag.flag == FLAG_SNAP \
+                                and self._snap is not None:
+                            # a snapshot sample: the collector joins it
+                            self._snap.on_frame(sender, tag, raw)
                         elif tag.flag == FLAG_NORMAL and self.foreign is not None:
                             ok, p = self._loads(raw)
                             if ok:
@@ -2387,18 +2454,47 @@ class HostRunner:
                 state, exit_flag = f_update(
                     rr, sid, seed, state, vals, mask,
                 )
+                # with monitors on, the decision plane rides the same
+                # copy, and so do the state's leaves on a sampled round
+                plane = ((algo.decided(state), algo.decision(state))
+                         if self._rv is not None and not view_int()
+                         else ())
+                sample = (_flatten(state)[0]
+                          if self._snap is not None and not view_int()
+                          and self._snap.due(self.instance_id, r) else [])
                 if r + 1 < max_rounds:
                     # the next round's send rides with the exit flag in
                     # one copy; dropped when the flag ends the run
                     nxt = self._round_fns(rounds[(r + 1) % len(rounds)])[0]
                     st_n, payload_n, dest_n = nxt(r + 1, sid, seed, state)
-                    exit_np, payload_np_n, dest_np_n = to_numpy(
-                        (exit_flag, payload_n, dest_n))
+                    exit_np, payload_np_n, dest_np_n, sample, *plane = \
+                        to_numpy((exit_flag, payload_n, dest_n, sample,
+                                  *plane))
                     exited = bool(exit_np)
                     if not exited:
                         ahead = (st_n, payload_np_n, dest_np_n)
                 else:
-                    exited = bool(to_numpy(exit_flag))
+                    exit_np, sample, *plane = to_numpy(
+                        (exit_flag, sample, *plane))
+                    exited = bool(exit_np)
+                if plane:
+                    self._rv_round(bool(plane[0]), plane[1], r)
+                if sample:
+                    # the round boundary's post-update state (an adopted
+                    # exit skipped the update: no boundary to sample)
+                    self._snap.after_round(self.instance_id, r,
+                                           [np.array(x) for x in sample])
+            if oob_decided and self._rv is not None and not view_int():
+                # an adopted decision skipped the update: check it eagerly
+                from round_tpu_torch.rv.compile import _plane
+
+                self._rv_round(*_plane(algo, state), r)
+            if self._snap is not None:
+                # collector housekeeping (a no-op elsewhere): a halt
+                # raises here, a shed of THIS instance forces it undecided
+                for iid in self._snap.flush():
+                    if iid == self.instance_id & 0xFFFF:
+                        self._snap_shed = True
             if self._health is not None:
                 # one completed round wave of quarantine evidence: heard
                 # peers decay/rejoin, unheard peers accrue timeout score
@@ -2431,6 +2527,13 @@ class HostRunner:
         if view_int():
             # never report a decision across a view boundary (see above)
             decided = False
+        if self._rv is not None and self._rv.shed:
+            # rv 'shed' policy: a violating instance is reported
+            # undecided; its decision must not enter the log
+            decided = False
+        if self._snap_shed:
+            # snapshot 'shed' (the collector's verdict): undecided too
+            decided = False
         if decided:
             _C_DECISIONS.inc()
         if TRACE.enabled:
@@ -2445,6 +2548,18 @@ class HostRunner:
             timeout_trajectory=list(self._trajectory),
             stale_view=view_int(),
         )
+
+    def _rv_round(self, decided: bool, decision, r: int) -> None:
+        """One completed round's monitor verdicts (rv/compile.py HostRv)
+        and, with gossip on, this replica's fresh decision broadcast: the
+        agreement monitor's observability channel."""
+        self._rv.after_plane(decided, decision, r)
+        if self._rv.gossip and self._rv.just_decided:
+            for d in range(self.n):
+                if d != self.id:
+                    _try_send_decision(
+                        self.transport, self._rv_replied, d,
+                        self.instance_id, self._rv.mon.prev_val)
 
     def _mailbox(self, inbox: Dict[int, Any], like: Any):
         """Stack per-sender payloads into the (values, mask) pair of

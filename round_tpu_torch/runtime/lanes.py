@@ -44,11 +44,21 @@ Where the port differs from round_tpu (none of it on the wire):
   * the rng word of lane l is the host runner's for the same instance
     (``host_lane_word(host_key_salts(seed + inst), rr, id)``), computed
     on the device (executor.lane_words);
-  * runtime verification (``rv``) and snapshots (``snap``) come with
-    ROADMAP slice 5b, the replicated key-value store (``kv``, FLAG_READ
-    and FLAG_TXN serving) with slice 6e: each raises NotImplementedError
-    naming its slice, and a FLAG_READ frame is ignored (round_tpu ignores
-    it without a kv shard too).
+  * runtime verification (``rv``): the monitor term runs inside the same
+    update mega-step (engine/executor.py LaneStep ``monitor=``).  The
+    carried monitor state is the host's: it rides the wave's one
+    host-to-device copy, and the verdicts and the post-update decision
+    plane join the wave's one device-to-host copy, merged into the
+    carried state for the wave's lanes on the host.  Monitors add no
+    copy to a wave;
+  * snapshots (``snap``): the rows of the lanes a wave samples are
+    gathered on the device from the update's output and ride the wave's
+    one device-to-host copy (round_tpu copies rows of the host state it
+    already holds); cut audits run on the collector replica's device;
+  * the replicated key-value store (``kv``, FLAG_READ and FLAG_TXN
+    serving) comes with slice 6e: it raises NotImplementedError naming
+    its slice, and a FLAG_READ frame is ignored (round_tpu ignores it
+    without a kv shard too).
 
 Not supported here (as in round_tpu): live view changes (runtime/view.py
 — the sequential loop remains the membership-change driver) and the
@@ -85,6 +95,7 @@ from round_tpu_torch.runtime.oob import (
     FLEET_MAX_INSTANCE, FLEET_MIN_INSTANCE, Tag,
 )
 from round_tpu_torch.runtime.transport import RoundPump
+from round_tpu_torch.rv.dump import RvViolation
 from round_tpu_torch.utils.device import resolve_device
 from round_tpu_torch.utils.tree import tree_flatten, tree_unflatten
 
@@ -346,10 +357,6 @@ class LaneDriver:
         tenants=None,
         device=None,
     ):
-        if rv is not None:
-            raise _later_slice("runtime verification (rv=)", "5b")
-        if snap is not None:
-            raise _later_slice("snapshots (snap=)", "5b")
         if kv is not None:
             raise _later_slice("key-value serving (kv=)", "6e")
         if wire not in ("binary", "pickle"):
@@ -498,6 +505,43 @@ class LaneDriver:
         # against it at the protocol boundary
         self._io_proto = (np.asarray(instance_io(algo, 0)["initial_value"])
                           if self._clients else None)
+        # runtime verification (rv.dump.RvConfig): the algorithm's monitor
+        # program fused into the update mega-step, and the carried state
+        # (prev decided/decision, peer decision heard, the validity
+        # witness rows) on the host.  None = monitors off
+        self._rv = None
+        self._rv_mon = None
+        if rv is not None:
+            from round_tpu_torch.rv.compile import monitor_program
+            from round_tpu_torch.rv.dump import RvRuntime
+
+            self._rv_mon = monitor_program(algo, n)
+            if self._rv_mon is None:
+                log.warning("node %d: rv requested but %s has no "
+                            "decision plane to monitor; rv disabled",
+                            my_id, type(algo).__name__)
+            else:
+                self._rv = RvRuntime(rv, node=my_id, n=n, seed=seed,
+                                     max_rounds=max_rounds,
+                                     device=self.device)
+                (self._rv_prev_dec, self._rv_prev_val, self._rv_ext_dec,
+                 self._rv_ext_val, self._rv_init) = self._rv_mon.zeros(L)
+                self._rv_client_inst: set = set()
+                self._rv_shed_lanes: set = set()
+                self._rv_init_cache: Dict[int, np.ndarray] = {}
+        # round-consistent snapshots (snap.audit.SnapConfig): sample this
+        # replica's lanes at round boundaries and, on the collector
+        # replica, assemble cuts and audit them.  None = snapshots off
+        self._snap = None
+        self._snap_rows: Dict[int, List[np.ndarray]] = {}
+        if snap is not None:
+            from round_tpu_torch.snap.driver import SnapDriver
+
+            self._snap = SnapDriver(
+                snap, algo, node=my_id, n=n, seed=seed,
+                max_rounds=max_rounds, transport=transport,
+                value_schedule=value_schedule, base_value=base_value,
+                admission=admission, device=self.device)
 
     # -- native pump setup -------------------------------------------------
 
@@ -632,9 +676,50 @@ class LaneDriver:
             self._init_cache[key] = got
         return got
 
+    def _rv_reset_lane(self, lane: int, inst: int, client_io) -> None:
+        """Fresh monitor state for one admitted instance: no decision
+        history, no peer decision heard, and the validity witness rows —
+        the deterministic schedule matrix, or the client proposal
+        (round_tpu/runtime/lanes.py::LaneDriver._rv_reset_lane)."""
+        from round_tpu_torch.rv.compile import schedule_init_values
+
+        iid = inst & 0xFFFF
+        self._rv_prev_dec[lane] = False
+        self._rv_prev_val[lane] = 0
+        self._rv_ext_dec[lane] = False
+        self._rv_ext_val[lane] = 0
+        self._rv_shed_lanes.discard(lane)
+        if client_io is not None:
+            self._rv_client_inst.add(iid)
+            self._rv_init[lane] = np.asarray(
+                client_io["initial_value"])[None]
+            return
+        self._rv_client_inst.discard(iid)
+        # deterministic in (schedule, base, inst), from a ~5-value domain
+        key = inst % 5 if self.value_schedule in ("mixed", "uniform") \
+            else inst
+        got = self._rv_init_cache.get(key)
+        if got is None:
+            if len(self._rv_init_cache) >= 64:
+                self._rv_init_cache.clear()
+            got = schedule_init_values(self.algo, self.n,
+                                       self.value_schedule,
+                                       self.base_value, inst)
+            self._rv_init_cache[key] = got
+        self._rv_init[lane] = got
+
+    def _rv_values(self, inst: int) -> List[int]:
+        """The artifact ``values`` row: per-process scheduled proposals
+        (zeros for a client-proposed instance)."""
+        if inst & 0xFFFF in getattr(self, "_rv_client_inst", ()):
+            return [0] * self.n
+        return [_schedule_value(self.value_schedule, self.base_value,
+                                pid, inst) for pid in range(self.n)]
+
     def _admit(self, inst: int, io=None) -> None:
         iid = inst & 0xFFFF
         lane = self.table.admit(iid)
+        client_io = io
         if io is None:
             value = _schedule_value(self.value_schedule, self.base_value,
                                     self.id, inst)
@@ -658,6 +743,14 @@ class LaneDriver:
         self._max_rnd[lane, self.id] = 0
         self._next_round[lane] = 0
         self._pending[lane] = {}
+        if self._rv is not None:
+            self._rv_reset_lane(lane, inst, client_io)
+        if self._snap is not None and client_io is not None:
+            # the fleet's uniform-proposal contract: the client scalar IS
+            # every pid's proposal row
+            self._snap.note_client_value(
+                inst, decision_scalar(
+                    np.asarray(client_io["initial_value"])))
         _C_ADMIT.inc()
         _G_OCC.set(self.table.occupancy)
         if TRACE.enabled:
@@ -845,10 +938,19 @@ class LaneDriver:
                            src=sender)
             return
         if tag.flag == FLAG_SNAP:
-            return  # snapshot samples: no collector here (slice 5b)
+            # snapshot sample: the collector joins it into a cut, anyone
+            # else drops it as wire noise
+            if self._snap is not None:
+                self._snap.on_frame(sender, tag, raw)
+            return
         iid = tag.instance
         lane = self.table.lane_of(iid)
         if lane is None:
+            if tag.flag == FLAG_DECISION and self._rv is not None:
+                # agreement over the decision bank: a peer's decision for
+                # an instance we completed must match ours
+                self._rv_check_done(iid, raw)
+                return
             if tag.flag != FLAG_NORMAL:
                 return
             if iid in self._done:
@@ -884,6 +986,11 @@ class LaneDriver:
             return
         if tag.flag == FLAG_DECISION:
             ok, p = self._loads(raw, sender)
+            if ok and p is not None and self._rv is not None:
+                # record the peer decision for the fused agreement term
+                # and check the already-decided case now: the adoption
+                # below overwrites the lane before the next wave
+                self._rv_note_ext(lane, p)
             adopted = (self.algo.adopt_decision(self._state_row(lane), p)
                        if ok else None)
             if adopted is not None:
@@ -1159,8 +1266,9 @@ class LaneDriver:
     def _step(self, c: int):
         step = self._steps[c]
         if step is None:
-            step = self._steps[c] = lane_step(self.algo.rounds[c], self.n,
-                                              self.L)
+            step = self._steps[c] = lane_step(
+                self.algo.rounds[c], self.n, self.L,
+                monitor=self._rv_mon if self._rv is not None else None)
         return step
 
     # -- probe / update ----------------------------------------------------
@@ -1343,18 +1451,39 @@ class LaneDriver:
             group = [l for l in ready if int(self._rr[l]) % self.k == c]
             active = np.zeros((self.L,), dtype=bool)
             active[group] = True
-            (vals, mask), rr_d, act_d = to_device(
-                (self._boxes[c].values_mask(), self._rr, active),
+            # the carried monitor state rides this wave's one upload
+            mon_up = ((self._rv_prev_dec, self._rv_prev_val,
+                       self._rv_ext_dec, self._rv_ext_val, self._rv_init)
+                      if self._rv is not None else ())
+            (vals, mask), rr_d, act_d, *mon_d = to_device(
+                (self._boxes[c].values_mask(), self._rr, active, *mon_up),
                 self.device)
-            st, ex = self._step(c).update(
-                rr_d, self.id, self._seeds_dev, self._state_tree(), vals,
-                mask, act_d)
+            if self._rv is None:
+                st, ex = self._step(c).update(
+                    rr_d, self.id, self._seeds_dev, self._state_tree(),
+                    vals, mask, act_d)
+                mon_out = ()
+            else:
+                st, ex, ok, dec, val = self._step(c).update(
+                    rr_d, self.id, self._seeds_dev, self._state_tree(),
+                    vals, mask, act_d, *mon_d)
+                mon_out = (ok, dec, val)
+            # the rows the snapshot policy samples at this boundary, from
+            # the post-update state, ride the wave's one fetch
+            due = ([l for l in group if self._snap.due(
+                int(self._inst[l]), int(self._rr[l]))]
+                if self._snap is not None else [])
+            leaves = tree_flatten(st)[0] if due else []
+            rows = [[leaf[l] for leaf in leaves] for l in due]
             rr_n = rr_d + act_d.to(torch.int32)
             go_on = act_d & ~ex & (rr_n < self.max_rounds)
             st, payload, dest = self._step((c + 1) % self.k).send(
                 rr_n, self.id, self._seeds_dev, st, go_on)
             self._set_state(st)
-            ex_np, pl_np, dest_np = to_numpy((ex, payload, dest))
+            ex_np, pl_np, dest_np, rows_np, *mon_np = to_numpy(
+                (ex, payload, dest, rows, *mon_out))
+            for lane, row in zip(due, rows_np):
+                self._snap_rows[lane] = [np.array(x) for x in row]
             _C_UPD_D.inc()
             _C_SEND_D.inc()
             _C_DISPATCH.inc(2)
@@ -1365,7 +1494,115 @@ class LaneDriver:
                 out.append((lane, exited))
                 if not exited and int(self._rr[lane]) + 1 < self.max_rounds:
                     self._ahead[lane] = (pl_leaves, pl_tree, dest_np)
+            if mon_np:
+                old_dec = self._rv_prev_dec
+                # the wave's lanes carry their post-update plane forward
+                self._rv_prev_dec = np.where(active, mon_np[1], old_dec)
+                self._rv_prev_val[group] = mon_np[2][group]
+                self._rv_after_wave(group, mon_np[0], old_dec)
         return out
+
+    # -- runtime verification ------------------------------------------------
+
+    def _rv_after_wave(self, group: List[int], ok: np.ndarray,
+                       old_dec: np.ndarray) -> None:
+        """Consume one fused wave's verdicts: gossip newly decided lanes
+        (the agreement monitor's observability channel) and act on every
+        tripped monitor per the policy
+        (round_tpu/runtime/lanes.py::LaneDriver._rv_after_wave)."""
+        rv = self._rv
+        rv.note_checks(len(group) * self._rv_mon.n_monitors)
+        if rv.cfg.gossip:
+            for lane in group:
+                if self._rv_prev_dec[lane] and not old_dec[lane]:
+                    iid = int(self._inst[lane]) & 0xFFFF
+                    val = self._rv_prev_val[lane]
+                    for d in range(self.n):
+                        if d != self.id:
+                            _try_send_decision(
+                                self.transport, self._replied, d, iid,
+                                val, enc_cache=self._enc_cache)
+        # lanes outside the group are vacuously ok
+        for lane, fidx in zip(*np.nonzero(~ok)):
+            self._rv_violate(int(lane), int(fidx), "mega-step")
+
+    def _rv_violate(self, lane: int, fidx: int, where: str) -> None:
+        inst = int(self._inst[lane])
+        observed = {
+            "decided": bool(self._rv_prev_dec[lane]),
+            "decision": decision_scalar(self._rv_prev_val[lane]),
+            "ext_decided": bool(self._rv_ext_dec[lane]),
+            "ext_decision": decision_scalar(self._rv_ext_val[lane]),
+        }
+        # violate() raises RvViolation itself under the halt policy
+        action = self._rv.violate(
+            inst=inst, round_=int(self._rr[lane]),
+            label=self._rv_mon.labels[fidx],
+            values=self._rv_values(inst), observed=observed, where=where)
+        if action == "shed":
+            self._rv_shed_lanes.add(lane)
+
+    def _rv_check_oob(self, lane: int, row) -> np.ndarray:
+        """Eager verdicts on an oob-adopted lane (the cold-path twin of
+        the fused term); returns the lane's decision."""
+        from round_tpu_torch.rv.compile import eager_verdicts
+
+        self._rv.note_checks(self._rv_mon.n_monitors)
+        tripped, decided, decision = eager_verdicts(
+            self._rv_mon, row, bool(self._rv_prev_dec[lane]),
+            self._rv_prev_val[lane], bool(self._rv_ext_dec[lane]),
+            self._rv_ext_val[lane], self._rv_init[lane])
+        self._rv_prev_dec[lane] = decided
+        self._rv_prev_val[lane] = decision
+        for fidx in tripped:
+            self._rv_violate(lane, int(fidx), "oob-adopt")
+        return decision
+
+    def _rv_note_ext(self, lane: int, payload) -> None:
+        """A FLAG_DECISION arrived for a LIVE lane: record the peer's
+        decision for the fused agreement term, and check the
+        already-decided case here, since the adoption that follows
+        overwrites the lane before the next wave."""
+        p = self._rv_mon
+        try:
+            v = np.asarray(payload, dtype=p.decision_dtype).reshape(
+                p.decision_shape)
+        except Exception:  # noqa: BLE001 — a garbage decision frame is
+            return         # the adoption path's problem, not rv's
+        self._rv_ext_dec[lane] = True
+        self._rv_ext_val[lane] = v
+        agree = p.slot_index("agreement")
+        if agree is not None and self._rv_prev_dec[lane] \
+                and not np.array_equal(v, self._rv_prev_val[lane]):
+            self._rv_violate(lane, agree, "decision-adopt")
+
+    def _rv_check_done(self, iid: int, raw) -> None:
+        """A FLAG_DECISION arrived for a COMPLETED instance: the banked
+        decision and the peer's must agree."""
+        banked = self._done.get(iid)
+        if banked is None:
+            return
+        ok, payload = self._loads(raw)
+        if not ok or payload is None:
+            return
+        p = self._rv_mon
+        agree = p.slot_index("agreement")
+        if agree is None:
+            return
+        try:
+            v = np.asarray(payload, dtype=p.decision_dtype).reshape(
+                p.decision_shape)
+        except Exception:  # noqa: BLE001
+            return
+        if not np.array_equal(v, np.asarray(banked)):
+            observed = {"decided": True,
+                        "decision": decision_scalar(banked),
+                        "ext_decision": decision_scalar(v)}
+            # raises under halt; shed has no lane left to retire
+            self._rv.violate(
+                inst=iid, round_=-1, label=p.labels[agree],
+                values=self._rv_values(iid), observed=observed,
+                where="decision-bank")
 
     # -- lane lifecycle ----------------------------------------------------
 
@@ -1404,6 +1641,9 @@ class LaneDriver:
             self._pump.close_lane(lane)
             self._goahead_armed.discard(lane)
         self.table.retire(iid)
+        if self._snap is not None:
+            # the proposal-row note dies with the instance
+            self._snap.forget_value(iid)
         self._live[lane] = False
         self._waiting[lane] = False
         self._need_send[lane] = False
@@ -1491,8 +1731,20 @@ class LaneDriver:
             # oob adoption skips the update
             self.rounds_run += 1
             _C_ROUNDS.inc()
-            finished.append((lane, True, to_numpy(
-                self.algo.decision(self._state_row(lane)))))
+            row = self._state_row(lane)
+            if self._rv is None:
+                finished.append((lane, True,
+                                 to_numpy(self.algo.decision(row))))
+                continue
+            # an adopted decision never reaches a fused wave: check it
+            # eagerly, and the shed policy applies here too
+            decision = self._rv_check_oob(lane, row)
+            shed = lane in self._rv_shed_lanes
+            self._rv_shed_lanes.discard(lane)
+            if shed:
+                self.shed_instances += 1
+                _C_SHED_INSTANCES.inc()
+            finished.append((lane, not shed, decision))
         if not ready:
             return finished
         exits = self._update_wave(ready)
@@ -1518,7 +1770,15 @@ class LaneDriver:
                     timedout=timedout, exited=exited,
                     wall_ms=round(
                         (_time.monotonic() - self._t0[lane]) * 1e3, 3))
-            if exited or r + 1 >= self.max_rounds:
+            rows = self._snap_rows.pop(lane, None)
+            if rows is not None:
+                # round boundary: the post-update rows the wave fetched
+                self._snap.after_round(int(self._inst[lane]), r, rows)
+            if exited or r + 1 >= self.max_rounds or (
+                    self._rv is not None
+                    and lane in self._rv_shed_lanes):
+                # rv 'shed': a lane whose monitor tripped retires now,
+                # forced undecided below
                 finishing.append(lane)
             else:
                 self._rr[lane] = r + 1
@@ -1531,8 +1791,15 @@ class LaneDriver:
             decided_v, decision_v = to_numpy(
                 lane_decide(self.algo, self.L)(self._state_tree()))
             for lane in finishing:
+                shed = (self._rv is not None
+                        and lane in self._rv_shed_lanes)
+                if shed:
+                    self._rv_shed_lanes.discard(lane)
+                    self.shed_instances += 1
+                    _C_SHED_INSTANCES.inc()
                 finished.append(
-                    (lane, bool(decided_v[lane]), decision_v[lane]))
+                    (lane, bool(decided_v[lane]) and not shed,
+                     decision_v[lane]))
         return finished
 
     def _bank_pump_stats(self) -> None:
@@ -1569,6 +1836,10 @@ class LaneDriver:
                     agg[k] = agg.get(k, 0) + v
         if self._health is not None:
             stats_out["quarantine"] = self._health.summary()
+        if self._rv is not None:
+            self._rv.fill_stats(stats_out)
+        if self._snap is not None:
+            self._snap.fill_stats(stats_out)
 
     def run(self, instances: int, checkpoint_dir: Optional[str] = None,
             stats_out: Optional[Dict[str, int]] = None,
@@ -1669,10 +1940,7 @@ class LaneDriver:
                     inst = next_admit
                     completed.add(inst)
                     self._done[inst & 0xFFFF] = None
-                    purged = self._stash.pop(inst & 0xFFFF, [])
-                    self._stash_count -= len(purged)
-                    self._stash_bytes -= sum(len(r[2]) for r in purged)
-                    _G_STASH_DEPTH.set(self._stash_count)
+                    self._purge_stash(inst & 0xFFFF)
                     self.shed_instances += 1
                     self._admission.sheds += 1
                     _C_SHED_INSTANCES.inc()
@@ -1690,6 +1958,41 @@ class LaneDriver:
             for lane, decided, decision in self._tick(deferring):
                 self._finish_lane(lane, decided, decision, results,
                                   checkpoint_dir, completed, instances)
+            for lane in self._snap_flush():
+                # snapshot 'shed': the violating instance retires
+                # undecided now (halt raised inside the flush)
+                self._finish_lane(
+                    lane, False,
+                    to_numpy(self.algo.decision(self._state_row(lane))),
+                    results, checkpoint_dir, completed, instances)
+        if self._snap is not None:
+            # end of the schedule: resolve every pending part-cut and
+            # audit the tail
+            self._snap.flush(force=True)
+
+    def _snap_flush(self, force: bool = False) -> List[int]:
+        """Snapshot housekeeping: poll cut deadlines, run the batched
+        audit and turn the policy's shed verdicts into LIVE lanes
+        (round_tpu/runtime/lanes.py::LaneDriver._snap_flush).  A halt
+        raises SnapViolation out of the flush itself."""
+        if self._snap is None:
+            return []
+        lanes = []
+        for iid in self._snap.flush(force=force):
+            lane = self.table.lane_of(iid & 0xFFFF)
+            if lane is not None and self._live[lane]:
+                self.shed_instances += 1
+                _C_SHED_INSTANCES.inc()
+                lanes.append(lane)
+        return lanes
+
+    def _purge_stash(self, iid: int) -> None:
+        """Drop the stashed peer frames of a shed instance, so shedding
+        frees the bytes that count against the admission budget."""
+        purged = self._stash.pop(iid, [])
+        self._stash_count -= len(purged)
+        self._stash_bytes -= sum(len(r[2]) for r in purged)
+        _G_STASH_DEPTH.set(self._stash_count)
 
     def _tenant_instance_shed(self, tenant: int) -> None:
         ts = self._tenant_stats.setdefault(
@@ -1742,10 +2045,16 @@ class LaneDriver:
                 elif (now - self._admission.shed_started) * 1000.0 \
                         >= self._admission.shed_deadline_ms:
                     # deadline-shed the deferred backlog: every queued
-                    # proposal gets an accounted NACK
+                    # proposal gets an accounted NACK, and its stash is
+                    # purged as the scheduled loop's shed purges it:
+                    # peers' frames for a proposal that was never
+                    # admitted would otherwise hold the queued bytes
+                    # over the watermark, and the driver would shed
+                    # every later proposal too
                     while self._proposals:
                         tenant, iid, _io, sender = \
                             self._proposals.pop_fifo()
+                        self._purge_stash(iid)
                         self._proposed.discard(iid)
                         self._client_of.pop(iid, None)
                         self.shed_instances += 1
@@ -1785,6 +2094,25 @@ class LaneDriver:
                 self.transport.send(
                     sender, Tag(instance=iid, flag=FLAG_TOO_LATE))
 
+    def _rv_fail_clients(self) -> None:
+        """Best-effort client notification on an rv halt: FLAG_TOO_LATE
+        for every queued proposal and live client instance."""
+        try:
+            for iid, _io, sender in list(self._proposals.items()):
+                self.transport.send(
+                    sender, Tag(instance=iid, flag=FLAG_TOO_LATE))
+            for lane in np.nonzero(self._live)[0]:
+                iid = int(self._inst[int(lane)]) & 0xFFFF
+                c = self._client_of.get(iid)
+                targets = set(self._subscribers)
+                if c is not None:
+                    targets.add(c)
+                for t in targets:
+                    self.transport.send(
+                        t, Tag(instance=iid, flag=FLAG_TOO_LATE))
+        except Exception:  # noqa: BLE001 — the halt still propagates
+            pass
+
     def serve(self, idle_ms: int = 4000, max_ms: int = 600_000,
               stop=None, stats_out: Optional[Dict[str, int]] = None,
               ) -> Dict[int, Optional[int]]:
@@ -1811,23 +2139,51 @@ class LaneDriver:
             now = _time.monotonic()
             if now >= t_end or (stop is not None and stop()):
                 break
-            if self._admission is not None:
-                self._admission_update()
-            self._admit_proposals()
-            deferring = (self._admission is not None
-                         and self._admission.shedding
-                         and bool(self._proposals))
-            finished = self._tick(deferring)
+            try:
+                # admission replays stashed frames through _ingest, where
+                # a halt can trip too: the whole serving step is covered
+                if self._admission is not None:
+                    self._admission_update()
+                self._admit_proposals()
+                deferring = (self._admission is not None
+                             and self._admission.shedding
+                             and bool(self._proposals))
+                finished = self._tick(deferring)
+            except RvViolation:
+                # rv halt while client-serving: every proposer and
+                # subscriber learns its in-flight instances are dead
+                self._rv_fail_clients()
+                raise
             for lane, decided, decision in finished:
                 inst, raw = self._retire_lane(lane, decided, decision)
                 iid = inst & 0xFFFF
                 results[iid] = (decision_scalar(decision) if decided
                                 else None)
                 self._stream_decision(iid, decided, raw)
+            if self._snap is not None:
+                try:
+                    shed_lanes = self._snap_flush()
+                except RvViolation:
+                    # snap halt while client-serving: the same fail-fast
+                    # contract as an rv halt
+                    self._rv_fail_clients()
+                    raise
+                for lane in shed_lanes:
+                    inst, _raw = self._retire_lane(lane, False, None)
+                    iid = inst & 0xFFFF
+                    results[iid] = None
+                    self._stream_decision(iid, False, None)
             if finished or self.table.occupancy or self._proposals:
                 last_active = _time.monotonic()
             elif _time.monotonic() - last_active >= idle_ms / 1000.0:
                 break
+        if self._snap is not None:
+            try:
+                # end of serving: resolve pending part-cuts, audit the tail
+                self._snap.flush(force=True)
+            except RvViolation:
+                self._rv_fail_clients()
+                raise
 
 
 def run_instance_loop_lanes(
@@ -1862,8 +2218,8 @@ def run_instance_loop_lanes(
     round loop per instance.  ``use_pump=False`` pins the Python pump;
     ``admission``/``health`` opt in to the overload hardening;
     ``linger_ms`` answers laggards for an idle window after the schedule
-    completes.  ``rv``/``snap`` come with ROADMAP slice 5b and raise
-    NotImplementedError."""
+    completes.  ``rv`` runs the fused monitors, ``snap`` the snapshot
+    sampling and (on its collector replica) the cut audit."""
     driver = LaneDriver(
         algo, my_id, peers, transport, lanes=lanes, timeout_ms=timeout_ms,
         seed=seed, base_value=base_value, max_rounds=max_rounds,

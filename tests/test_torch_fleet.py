@@ -38,7 +38,7 @@ from round_tpu_torch.runtime.fleet import (
 from round_tpu_torch.runtime.host import instance_io
 from round_tpu_torch.runtime.lanes import LaneDriver, run_instance_loop_lanes
 from round_tpu_torch.runtime.oob import (
-    FLAG_NACK, FLAG_PROPOSE, FLAG_TOO_LATE, Tag,
+    FLAG_NACK, FLAG_NORMAL, FLAG_PROPOSE, FLAG_TOO_LATE, Tag,
 )
 from round_tpu_torch.runtime.transport import HostTransport
 
@@ -312,6 +312,55 @@ def test_shed_accounting_holds_through_the_router():
     assert agg["shed_frames"] == agg["nacks_sent"] + agg["nacks_suppressed"]
 
 
+def test_deadline_shed_purges_the_shed_proposals_stash(monkeypatch):
+    """The cause the shed-accounting test met under CPU load, pinned
+    with a clock that stands still: a peer's first-round frame for
+    instance 1 lands in the stash before this replica admits instance
+    1's proposal, so a 1-byte budget defers the proposal, and the
+    deadline sheds it.  The shed must purge instance 1's stashed frames,
+    as the scheduled loop's shed does: the queued bytes fall to zero,
+    shedding ends, and the client's retry is admitted (before the repair
+    the stash kept the driver shedding every later proposal)."""
+    from round_tpu_torch.runtime import lanes as lanes_mod
+    from round_tpu_torch.runtime.instances import AdmissionControl
+
+    clock = [1000.0]
+    monkeypatch.setattr(lanes_mod._time, "monotonic", lambda: clock[0])
+    ports = alloc_ports(2)
+    tr = HostTransport(0, ports[0])
+    try:
+        driver = LaneDriver(
+            _algo("otr"), 0, {0: ("127.0.0.1", ports[0]),
+                              1: ("127.0.0.1", ports[1])},
+            tr, lanes=2, timeout_ms=200, clients={2},
+            admission=AdmissionControl(high_bytes_per_lane=1,
+                                       shed_deadline_ms=100),
+            device="cpu")
+        peer = (1, Tag(instance=1, round=0, flag=FLAG_NORMAL),
+                codec.encode(np.int32(3)))
+        propose = (2, Tag(instance=1, flag=FLAG_PROPOSE),
+                   codec.encode(np.int32(3)))
+        driver._ingest(peer)               # start skew: stashed
+        driver._ingest(propose)
+        assert driver._stash_bytes > 0 and len(driver._proposals) == 1
+        assert driver._admission_update()  # the stash trips the budget
+        driver._admit_proposals()          # deferred, deadline stamped
+        assert len(driver._proposals) == 1
+        clock[0] += 0.2                    # past shed_deadline_ms
+        driver._admit_proposals()          # deadline-shed, NACK sent
+        assert len(driver._proposals) == 0
+        assert driver.shed_instances == 1 and driver.nacks_sent == 1
+        assert driver._stash_bytes == 0 and 1 not in driver._stash
+        assert not driver._admission_update()
+        clock[0] += 1.0                    # the client's backoff
+        driver._ingest(propose)            # the retry
+        driver._admission_update()
+        driver._admit_proposals()
+        assert driver.table.lane_of(1) is not None
+    finally:
+        tr.close()
+
+
 def test_garbage_proposal_refused_and_slot_released():
     ports = alloc_ports(1)
     tr = HostTransport(0, ports[0])
@@ -374,9 +423,23 @@ def test_bank_and_maybe_fit(tmp_path):
     assert len(json.load(open(bank))) == 4
 
 
-@pytest.mark.parametrize("flag,slice_", [("--rv", "5b"), ("--snap", "5b"),
+@pytest.mark.parametrize("flag,slice_", [("--rv", None), ("--snap", None),
                                          ("--kv", "6e")])
 def test_fleet_serve_later_slice_flags_exit(flag, slice_, capsys):
+    """``serve --rv`` and ``serve --snap`` serve under runtime
+    verification and snapshot audits (an idle clean shard: exit 0, the
+    summary's block enabled and clean); ``--kv`` (slice 6e) exits naming
+    its slice, and DriverServer raises for it."""
+    if slice_ is None:
+        ports = alloc_ports(3)
+        rc = fleet_app.main(["serve", "--ports", ",".join(map(str, ports)),
+                             "--device", "cpu", "--idle-ms", "300",
+                             flag, "log"])
+        out = capsys.readouterr().out.strip().splitlines()
+        summary = json.loads(out[-1])[flag[2:]]
+        assert rc == 0 and summary["enabled"]
+        assert summary["violations"] == [] and not summary["halted"]
+        return
     with pytest.raises(SystemExit):
         fleet_app.main(["serve", "--ports", "1,2,3", flag])
     assert f"slice {slice_}" in capsys.readouterr().err
@@ -386,12 +449,21 @@ def test_fleet_serve_later_slice_flags_exit(flag, slice_, capsys):
 
 
 def test_autoscale_bench_needs_a_license_registry():
-    """run_autoscale_bench reaches FleetSupervisor, whose default proof
-    gate (rv/license.py) comes with slice 5b: without an explicit
-    license_registry it raises, after tearing its shard down."""
+    """Without an explicit license_registry the supervisor's default is
+    rv/license.py's registry, whose prover comes with slice 7: a short
+    overloaded bench at n=4 asks to grow and every grow is refused as
+    unlicensed (not PROVED), the shard count staying at the minimum."""
     from pathlib import Path
 
     model = Path(__file__).resolve().parent.parent / "CAPACITY_r03.json"
-    with pytest.raises(NotImplementedError, match="5b"):
-        fleet_app.run_autoscale_bench(algo="otr", payload_bytes=0,
-                                      model_path=str(model), device="cpu")
+    rep = fleet_app.run_autoscale_bench(
+        algo="otr", n=4, payload_bytes=0, model_path=str(model),
+        device="cpu", multipliers=(3.0,), point_s=1.5, warmup=2,
+        max_shards=2, deadline_s=20, window_s=0.5, dwell_steps=1,
+        cooldown_s=0.2, step_interval_s=0.1)
+    sup = rep["supervisor"]
+    assert sup["grows"] == 0 and sup["shards"] == 1 and sup["refused"] > 0
+    lic = [d["license"] for d in sup["decisions"]
+           if d["action"] == "refused"]
+    assert lic and all(x["status"] == "unlicensed"
+                       and "not PROVED" in x["reason"] for x in lic)

@@ -8,7 +8,9 @@ checkpoint resume and FLAG_DECISION recovery serve as round_tpu's do, and
 the lock manager serves round_tpu's clients.  Thread mode with generous
 round timeouts; the tests assert decisions, never timings."""
 
+import json
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -356,7 +358,8 @@ def test_lock_manager_serves_as_round_tpus():
 def test_fleet_supervisor_steps_as_round_tpus():
     """control.py's supervisor over a stub router: the same signals give
     the same grow/shrink trajectory in both packages; without a license
-    registry the port raises (rv/license.py comes with slice 5b)."""
+    registry the port's default is rv/license.py's registry, as
+    round_tpu's is."""
     from round_tpu.runtime import control as rcontrol
     from round_tpu_torch.runtime import control as pcontrol
 
@@ -409,9 +412,11 @@ def test_fleet_supervisor_steps_as_round_tpus():
                          (dec["action"], dec["drivers_after"]))
         trails.append(trail)
     assert trails[0] == trails[1] and any(trails[0])
-    with pytest.raises(NotImplementedError):
-        pcontrol.FleetSupervisor(Router(), algo_name="otr", n=4,
-                                 spawn=None, retire=None)
+    from round_tpu_torch.rv.license import ProofLicenseRegistry
+
+    sup = pcontrol.FleetSupervisor(Router(), algo_name="otr", n=4,
+                                   spawn=None, retire=None)
+    assert isinstance(sup.license_registry, ProofLicenseRegistry)
 
 
 # -- the card by default ------------------------------------------------------
@@ -437,13 +442,38 @@ def test_entry_points_raise_without_a_card():
 
 @pytest.mark.parametrize("flag", [["--snap"], ["--rv", "log"],
                                   ["--snap", "log"], ["--view-license"],
-                                  ["--chaos-schedule", "x.json"]])
+                                  ["--chaos-schedule",
+                                   "tests/regressions/otr_equivocation_"
+                                   "victim.json"]])
 def test_replica_refuses_later_slices(flag, capsys):
-    with pytest.raises(SystemExit) as ei:
-        host_replica.main(["--id", "0", "--peers", "127.0.0.1:1",
-                           "--device", "cpu", *flag])
-    assert ei.value.code == 2
-    assert "slice" in capsys.readouterr().err
+    """An artifact replay whose n is not the cluster's is refused as
+    round_tpu refuses it; ``--rv``, ``--snap`` and ``--view-license``
+    now run: a one-replica loop under the monitors counts its checks,
+    under snapshots audits its cuts clean, and a licensed view manager
+    reports its (empty) refusals."""
+    if "--chaos-schedule" in flag:
+        art = Path(__file__).resolve().parent.parent / flag[1]
+        with pytest.raises(SystemExit) as ei:
+            host_replica.main(["--id", "0", "--peers", "127.0.0.1:1",
+                               "--device", "cpu", flag[0], str(art)])
+        assert ei.value.code == 2
+        assert "n=4" in capsys.readouterr().err
+        return
+    port = chaos.alloc_ports(1)[0]
+    extra = (["--view-change", ""] if "--view-license" in flag
+             else ["--snap-every", "1"] if "--snap" in flag else [])
+    assert host_replica.main(
+        ["--id", "0", "--peers", f"127.0.0.1:{port}", "--device", "cpu",
+         "--instances", "3", "--timeout-ms", "200", *flag, *extra]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["decided_instances"] == 3
+    if "--rv" in flag:
+        assert out["rv"]["checks"] > 0 and out["rv"]["violations"] == []
+    elif "--snap" in flag:
+        assert out["snap"]["cuts_audited"] > 0
+        assert out["snap"]["violations"] == [] == out["snap"]["divergences"]
+    else:
+        assert out["view_refused"] == [] and out["view_degraded"] is False
 
 
 def test_replica_processes_survive_a_crash_restart():

@@ -19,6 +19,13 @@ RUNTIME = ("__init__", "log", "stats", "membership", "decisions", "config",
 # the apps of the host runner and the fleet
 HOST_APPS = ("perf_ab", "host_replica", "host_perftest", "lock_manager",
              "loadgen", "fleet")
+# the verification plane: runtime verification, snapshot fixtures, the
+# artifact replay, the hostile-wire gate, the crosscheck and their CLI
+VERIFY = ("rv/__init__", "rv/compile", "rv/dump", "rv/license",
+          "rv/fixtures", "snap/__init__", "snap/sample", "snap/collect",
+          "snap/audit", "snap/driver", "snap/fixtures", "fuzz/replay",
+          "fuzz/hostile", "byz/crosscheck", "apps/fuzz_cli",
+          "apps/snap_cli")
 
 
 def _port_files():
@@ -81,6 +88,7 @@ def test_port_files_exist():
                  "round_tpu_torch/apps/perftest.py",
                  "round_tpu_torch/apps/dynamic_membership.py",
                  *(f"round_tpu_torch/apps/{m}.py" for m in HOST_APPS),
+                 *(f"round_tpu_torch/{m}.py" for m in VERIFY),
                  "chip_smoke.py"):
         assert want in names
 
@@ -110,7 +118,9 @@ def test_importing_the_port_loads_no_jax():
         + "".join(f"round_tpu_torch.runtime.{m}, " for m in RUNTIME[1:]) +
         "round_tpu_torch.runtime, round_tpu_torch.apps.perftest, "
         "round_tpu_torch.apps.dynamic_membership, "
-        + "".join(f"round_tpu_torch.apps.{m}, " for m in HOST_APPS) +
+        + "".join(f"round_tpu_torch.apps.{m}, " for m in HOST_APPS)
+        + "".join("round_tpu_torch.{}, ".format(m.replace("/", "."))
+                  for m in VERIFY) +
         "sys; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'round_tpu')); assert not bad, bad"

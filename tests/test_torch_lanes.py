@@ -210,8 +210,8 @@ def test_lane_step_equals_round_tpus(name):
 
 def test_lane_sample_rows_and_step_cache():
     """lane_sample_rows gives one lane's rows as owning arrays with
-    round_tpu's shapes (0-d stays 0-d); lane_step caches per (n, lanes)
-    and refuses monitors (slice 5b)."""
+    round_tpu's shapes (0-d stays 0-d); lane_step caches per (n, lanes,
+    monitored) and takes a monitor program (rv/compile.py)."""
     algo = _algo("otr")
     _rng, values, st, *_ = _lanes_input(algo, 3)
     leaves = tree_flatten(st)[0]
@@ -224,8 +224,12 @@ def test_lane_sample_rows_and_step_cache():
     rnd = algo.rounds[0]
     assert lane_step(rnd, N, L) is lane_step(rnd, N, L)
     assert lane_step(rnd, N, 2 * L) is not lane_step(rnd, N, L)
-    with pytest.raises(NotImplementedError, match="5b"):
-        lane_step(rnd, N, L, monitor=object())
+    from round_tpu_torch.rv.compile import monitor_program
+
+    prog = monitor_program(algo, N)
+    mon = lane_step(rnd, N, L, monitor=prog)
+    assert mon is lane_step(rnd, N, L, monitor=prog)
+    assert mon is not lane_step(rnd, N, L) and mon.monitor is prog
 
 
 # -- clusters -----------------------------------------------------------------
@@ -354,7 +358,7 @@ def test_lane_admission_churn_builds_no_new_step():
     assert d["lanes.admitted"] == d["lanes.retired"] == 3 * 20
     assert d["lanes.dispatches"] > 0
     for rnd in algo.rounds:
-        assert set(rnd._lane_steps) == {(3, 4)}
+        assert set(rnd._lane_steps) == {(3, 4, False)}  # unmonitored
 
 
 def test_lanes_late_replica_adopts_decision_replies():
@@ -449,14 +453,27 @@ def test_lane_driver_sheds_with_full_nack_accounting():
 
 
 def test_later_slice_hooks_raise():
+    """``rv=`` builds the monitored driver (an algorithm with no decision
+    plane to monitor leaves it off) and ``snap=`` its snapshot driver;
+    ``kv=`` (slice 6e) raises naming its slice."""
+    from round_tpu_torch.rv.dump import RvConfig
+    from round_tpu_torch.snap import SnapConfig
+
     tr = HostTransport(0, alloc_ports(1)[0])
     try:
-        for kw, slice_ in (({"rv": object()}, "5b"),
-                           ({"snap": object()}, "5b"),
-                           ({"kv": object()}, "6e")):
-            with pytest.raises(NotImplementedError, match=slice_):
-                LaneDriver(_algo("otr"), 0, {0: ("127.0.0.1", 1)}, tr,
-                           device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="6e"):
+            LaneDriver(_algo("otr"), 0, {0: ("127.0.0.1", 1)}, tr,
+                       device="cpu", kv=object())
+        d = LaneDriver(_algo("otr"), 0, {0: ("127.0.0.1", 1)}, tr,
+                       device="cpu", snap=SnapConfig(every_k=2))
+        assert d._snap is not None and d._snap.is_collector
+        d = LaneDriver(_algo("otr"), 0, {0: ("127.0.0.1", 1)}, tr,
+                       device="cpu", rv=RvConfig(policy="log"))
+        assert d._rv is not None and d._rv_mon.slots == (
+            "agreement", "validity", "irrevocability")
+        d = LaneDriver(_algo("lvb", 64), 0, {0: ("127.0.0.1", 1)}, tr,
+                       device="cpu", rv=RvConfig(policy="log"))
+        assert d._rv is None
     finally:
         tr.close()
 

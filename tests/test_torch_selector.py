@@ -50,8 +50,27 @@ def test_every_name_is_covered():
 @pytest.mark.parametrize("name", ["rv-broken-agreement", "snap-broken-x",
                                   "RV-BROKEN-anything"])
 def test_fixture_prefixes_raise_with_a_reason(name):
-    with pytest.raises(ValueError, match="not ported those packages"):
+    """The fixture prefixes load their fixtures as round_tpu's selector
+    does (same rounds, envelope and Spec labels); a name under either
+    prefix that names no fixture raises round_tpu's error."""
+    from round_tpu_torch.rv.fixtures import FIXTURES as RV
+    from round_tpu_torch.snap.fixtures import FIXTURES as SNAP
+
+    for fixture in (*RV, *SNAP):
+        got, want = tselector.select(fixture), jselector.select(fixture)
+        assert [type(r).__name__ for r in got.rounds] == \
+            [type(r).__name__ for r in want.rounds]
+        assert got.fault_envelope == want.fault_envelope
+        assert got.adopt_decision(None, 1) is None
+    if name in RV:
+        assert type(tselector.select(name).rounds[0]).__name__ == \
+            type(jselector.select(name).rounds[0]).__name__
+        return
+    with pytest.raises(ValueError) as want:
+        jselector.select(name)
+    with pytest.raises(ValueError) as got:
         tselector.select(name)
+    assert str(got.value) == str(want.value)
 
 
 def test_unknown_name_raises_like_jax():
