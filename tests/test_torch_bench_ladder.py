@@ -15,6 +15,10 @@ import torch
 
 from round_tpu_torch import bench
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 CUDA = torch.device("cuda")
 

@@ -13,6 +13,10 @@ import torch
 
 from round_tpu_torch.tools import bisect
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -41,6 +41,10 @@ from round_tpu_torch.fuzz.search import search as tsearch
 from round_tpu_torch.models.pbft import digest as tdigest
 from round_tpu_torch.utils.tree import tree_leaves
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 LOOP_VALUES = np.array([1, 3, 0, 2], dtype=np.int32)
 

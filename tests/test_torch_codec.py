@@ -19,6 +19,10 @@ from round_tpu_torch.obs.metrics import METRICS
 from round_tpu_torch.runtime import codec as pc
 from round_tpu_torch.runtime import host as ph
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 WIRE_PAYLOADS = [
     None,
     True,

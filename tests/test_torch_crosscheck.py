@@ -9,6 +9,7 @@ frame for frame as round_tpu's does."""
 
 import numpy as np
 import pytest
+import torch
 
 import round_tpu.apps.selector as r_sel
 import round_tpu.byz.crosscheck as r_cc
@@ -19,6 +20,10 @@ from round_tpu_torch.byz import crosscheck as p_cc
 from round_tpu_torch.fuzz import genome
 from round_tpu_torch.fuzz import hostile as p_hostile
 from round_tpu_torch.fuzz import replay
+
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("n,liars,seed", [(4, 1, 0), (4, 2, 3), (7, 2, 9)])

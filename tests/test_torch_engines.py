@@ -29,6 +29,10 @@ from round_tpu_torch.models.common import consensus_io as tconsensus_io
 from round_tpu_torch.models.otr import OTR as TOTR, OtrState as TOtrState
 from round_tpu_torch.utils import benchstat
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 V = 8
 N = 16
 S = 12

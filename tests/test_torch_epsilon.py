@@ -38,6 +38,10 @@ from round_tpu_torch.ops import detsum as tdetsum
 from round_tpu_torch.ops.mailbox import Mailbox as TMailbox
 from round_tpu_torch.parallel import mesh as tmesh
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 FIELDS = ("x", "max_r", "halted_vals", "halted_mask", "decided", "decision")
 

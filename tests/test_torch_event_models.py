@@ -41,6 +41,10 @@ from round_tpu_torch.models.tpc import TwoPhaseCommit as TTpc
 from round_tpu_torch.models.tpc import tpc_io as ttpc_io
 from round_tpu_torch.ops.mailbox import Mailbox as TMailbox
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 LV_FIELDS = ("x", "ts", "ready", "commit", "vote", "decided", "decision")
 

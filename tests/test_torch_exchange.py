@@ -20,6 +20,10 @@ from round_tpu_torch.ops import exchange as texchange
 from round_tpu_torch.ops import fused as tfused
 from round_tpu_torch.ops.mailbox import Mailbox as TMailbox
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 # round_tpu.ops re-exports a function named `exchange` over the module
 jexchange = importlib.import_module("round_tpu.ops.exchange")
 

@@ -27,6 +27,10 @@ from round_tpu_torch.models import erb as terb
 from round_tpu_torch.models import lattice as tlattice
 from round_tpu_torch.models import tpc as ttpc
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 N, S = 12, 10
 MIX_FIELDS = ("crashed", "crash_round", "side", "heal_round", "rotate_down",
               "p8", "salt0", "salt1")

@@ -35,6 +35,10 @@ from round_tpu_torch.models import theta as ttheta
 from round_tpu_torch.parallel import mesh as tmesh
 from round_tpu_torch.utils.tree import tree_leaves
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 MIX_FIELDS = ("crashed", "crash_round", "side", "heal_round", "rotate_down",
               "p8", "salt0", "salt1")

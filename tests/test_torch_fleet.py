@@ -22,6 +22,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import round_tpu.apps.loadgen as r_loadgen
 import round_tpu.runtime.fleet as r_fleet
@@ -41,6 +42,10 @@ from round_tpu_torch.runtime.oob import (
     FLAG_NACK, FLAG_NORMAL, FLAG_PROPOSE, FLAG_TOO_LATE, Tag,
 )
 from round_tpu_torch.runtime.transport import HostTransport
+
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
 
 
 @functools.lru_cache(maxsize=None)

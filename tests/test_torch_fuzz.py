@@ -41,6 +41,10 @@ from round_tpu_torch.fuzz.search import make_target as tmake_target
 from round_tpu_torch.fuzz.search import search as tsearch
 from round_tpu_torch.obs.metrics import METRICS
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 OUT_KEYS = ("decided", "decision", "decided_round", "undecided",
             "decide_round", "agreement_viol", "validity_viol")

@@ -25,6 +25,10 @@ from round_tpu_torch.engine import scenarios as tscen
 from round_tpu_torch.ops import exchange as texchange
 from round_tpu_torch.ops import fused as tfused
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 GRID = [0, 1, 2, 3, 255, 256, 0xFFFF, 2**31 - 1, 2**31, 2**31 + 1,
         0x9E3779B9, 0xDEADBEEF, 2**32 - 2, 2**32 - 1]
 

@@ -31,6 +31,10 @@ from round_tpu_torch.runtime.decisions import DecisionLog
 from round_tpu_torch.runtime.oob import Tag
 from round_tpu_torch.runtime.transport import HostTransport
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 SEEDS = [0, 1, 23, 2 ** 31 - 1, 2 ** 32 - 1, 2 ** 32, -1, -(2 ** 31),
          2 ** 63 - 1, -(2 ** 63)]
 

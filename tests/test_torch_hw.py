@@ -25,6 +25,10 @@ from round_tpu_torch.models.otr import OtrState
 from round_tpu_torch.ops import fused as tfused
 from round_tpu_torch.utils import benchstat as tbenchstat
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 M32 = 0xFFFFFFFF
 LOOP_ARGS = ("crashed", "side", "crash_round", "heal_round", "rotate_down",
              "p8", "salt0", "salt1")

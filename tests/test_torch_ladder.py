@@ -25,6 +25,10 @@ from round_tpu.utils import benchstat as jbenchstat
 from round_tpu_torch import interop
 from round_tpu_torch.apps import ladder
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 MIX_FIELDS = ("crashed", "crash_round", "side", "heal_round", "rotate_down",
               "p8", "salt0", "salt1")

@@ -23,6 +23,10 @@ from round_tpu_torch.models.failure_detector import EsfdState
 from round_tpu_torch.models.kset import KSetESState
 from round_tpu_torch.utils.tree import tree_leaves, tree_map
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 N, S = 12, 6
 PERMS = [
     np.roll(np.arange(N), 5),

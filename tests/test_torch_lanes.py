@@ -50,6 +50,10 @@ from round_tpu_torch.runtime.lanes import LaneDriver, run_instance_loop_lanes
 from round_tpu_torch.runtime.transport import HostTransport
 from round_tpu_torch.utils.tree import tree_flatten, tree_map, tree_stack
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 N, L, SID = 4, 16, 1
 MODELS = [("otr", {}), ("lastvoting", {}), ("lve", {}),
           ("lvb", {"payload_bytes": 64})]

@@ -25,6 +25,10 @@ from round_tpu_torch.models.benor import BenOrState
 from round_tpu_torch.models.floodmin import FloodMinState
 from round_tpu_torch.ops import fused as tfused
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 V = 8
 N = 16
 S = 12

@@ -35,6 +35,10 @@ from round_tpu_torch.parallel import ici as tici
 from round_tpu_torch.parallel import mesh as tmesh
 from round_tpu_torch.parallel.mesh import P, PROC_AXIS, SCENARIO_AXIS
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 N, S, ROUNDS = 16, 8, 6
 MIX_FIELDS = ("crashed", "crash_round", "side", "heal_round", "rotate_down",

@@ -33,6 +33,10 @@ import torch
 
 from round_tpu_torch.ops import fused
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 P8_GRID = (0, 1, 13, 64, 128, 255, 256)
 M32 = 0xFFFFFFFF
 H = 0x80808080

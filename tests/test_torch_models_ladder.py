@@ -34,6 +34,10 @@ from round_tpu_torch.models.floodmin import FloodMin as TFloodMin
 from round_tpu_torch.models.floodmin import FloodMinState
 from round_tpu_torch.models.lastvoting import LastVoting as TLastVoting
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 N = 10
 S = 8
 MIX_FIELDS = ("crashed", "crash_round", "side", "heal_round", "rotate_down",

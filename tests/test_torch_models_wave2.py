@@ -38,6 +38,10 @@ from round_tpu_torch.models import theta as ttheta
 from round_tpu_torch.models.common import consensus_io as tconsensus_io
 from round_tpu_torch.utils.tree import tree_leaves
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

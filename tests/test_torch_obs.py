@@ -29,6 +29,10 @@ from round_tpu_torch.obs import trace as ttrace
 from round_tpu_torch.obs.metrics import METRICS, MetricsRegistry, Stats
 from round_tpu_torch.obs.trace import Tracer, load_jsonl, merge
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 MIX_FIELDS = ("crashed", "crash_round", "side", "heal_round", "rotate_down",
               "p8", "salt0", "salt1")

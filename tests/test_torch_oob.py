@@ -26,6 +26,10 @@ from round_tpu_torch.models.otr import OTR as TOTR
 from round_tpu_torch.runtime import oob as toob
 from round_tpu_torch.runtime.instances import InstancePool as TPool
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

@@ -11,6 +11,7 @@ and view numbers."""
 import json
 
 import pytest
+import torch
 
 from round_tpu.apps import dynamic_membership as jdm
 from round_tpu.apps import perftest as jperf
@@ -27,6 +28,10 @@ from round_tpu_torch.runtime.decisions import DecisionLog as TDecisionLog
 from round_tpu_torch.runtime.membership import Directory as TDirectory
 from round_tpu_torch.runtime.membership import local_group as tlocal_group
 from round_tpu_torch.runtime.stats import stats as tstats
+
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)

@@ -22,6 +22,10 @@ from jax.experimental import pallas as pl
 
 from round_tpu_torch.ops import fused as tfused
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 M32 = 0xFFFFFFFF
 # Random123's Philox4x32-10 known-answer vectors: counter, key, output

@@ -26,8 +26,13 @@ kernel itself is held against the plain version on the card
 import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
+import torch
 
 from round_tpu_torch.parallel import ici
+
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
 
 WARP = 32
 MAX_BAND = 16384  # csrc/ring_exchange.cu kMaxBandBytes

@@ -19,6 +19,10 @@ from round_tpu_torch.engine import executor as texecutor
 from round_tpu_torch.engine import scenarios as tscen
 from round_tpu_torch.utils import tree as ttree
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 N = 12
 
 

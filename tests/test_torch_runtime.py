@@ -50,6 +50,10 @@ from round_tpu_torch.runtime.decisions import DecisionLog as TDecisionLog
 from round_tpu_torch.runtime.instances import instance_key, window_masks
 from round_tpu_torch.runtime.membership import local_group as tlocal_group
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 MIX_FIELDS = ("crashed", "crash_round", "side", "heal_round", "rotate_down",
               "p8", "salt0", "salt1")

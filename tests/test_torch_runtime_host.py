@@ -32,6 +32,10 @@ from round_tpu_torch.runtime import health as thealth
 from round_tpu_torch.runtime import instances as tinst
 from round_tpu_torch.runtime.decisions import DecisionLog as TDecisionLog
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -41,6 +41,10 @@ from round_tpu_torch.rv import license as p_license
 from round_tpu_torch.rv.dump import RvConfig, RvViolation
 from round_tpu_torch.utils.tree import tree_flatten, tree_map, tree_stack
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 N, L, SID = 4, 16, 1
 
 

@@ -19,6 +19,10 @@ import torch
 from round_tpu.engine import scenarios as jscen
 from round_tpu_torch.engine import scenarios as tscen
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 KEYS = 96
 

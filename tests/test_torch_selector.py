@@ -3,9 +3,14 @@ name gives the same algorithm class with the same round count, rounds and
 options; the test-fixture prefixes raise instead of passing as unknown."""
 
 import pytest
+import torch
 
 from round_tpu.apps import selector as jselector
 from round_tpu_torch.apps import selector as tselector
+
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
 
 CASES = [
     ("otr", None), ("otr", {"after_decision": 5}),

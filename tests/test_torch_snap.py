@@ -30,6 +30,10 @@ from round_tpu_torch.snap.audit import SnapConfig
 from round_tpu_torch.spec.check import check_cut
 from round_tpu_torch.utils.tree import tree_unflatten
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 N = 4
 
 

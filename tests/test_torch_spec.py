@@ -35,6 +35,10 @@ from round_tpu_torch.models.otr import OtrSpec
 from round_tpu_torch.spec import check as tcheck
 from round_tpu_torch.spec import dsl as tdsl
 
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
+
 OTR_FIELDS = ("x", "decided", "decision", "after")
 FM_FIELDS = ("x", "decided", "decision")
 BENOR_FIELDS = ("x", "can_decide", "vote", "decided", "decision")

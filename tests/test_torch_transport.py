@@ -13,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from round_tpu.runtime import transport as rt
 from round_tpu_torch.obs.metrics import METRICS
@@ -20,6 +21,10 @@ from round_tpu_torch.runtime import codec as pc
 from round_tpu_torch.runtime import transport as pt
 from round_tpu_torch.runtime.chaos import alloc_ports
 from round_tpu_torch.runtime.oob import FLAG_BATCH, FLAG_DECISION, Message, Tag
+
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -14,6 +14,7 @@ tests/test_view.py have no other counterpart here."""
 import pickle
 
 import pytest
+import torch
 
 from round_tpu.runtime import view as jview
 from round_tpu.runtime.membership import Group as JGroup
@@ -23,6 +24,10 @@ from round_tpu_torch.runtime import view as tview
 from round_tpu_torch.runtime.membership import Group as TGroup
 from round_tpu_torch.runtime.membership import Replica as TReplica
 from round_tpu_torch.runtime.oob import FLAG_VIEW, Tag
+
+# tiny tensors on the CPU: more intra-op threads only spin, taking the
+# cores that the socket tests' event loops need under pytest-xdist
+torch.set_num_threads(1)
 
 PKGS = ((jview, JGroup, JReplica), (tview, TGroup, TReplica))
 
