@@ -112,7 +112,9 @@ Phases, each printed as one line:
                    sleep kernel (the card's time) and back to back (the
                    host's issue time; K2, K3 and FloodMin also the host's
                    wall time a call, host_ms), torch.mul beside P1 timed
-                   both ways
+                   both ways, and the launch floor beside P1 and P2: the
+                   card time of torch.cuda._sleep(0), a one-thread kernel
+                   with nothing to do, queued the same way
   host-breakdown   the host's steps of one P1 call, one P2 call, one
                    one-card K4 exchange and one K3 call at the lv rung's
                    shape, each timed over 10,000 calls, on the lean launch
@@ -250,13 +252,42 @@ Phases, each printed as one line:
                    and 10,000 in-envelope schedules on the card; at 1,024
                    the card's records equal the CPU's
 
+  kv-array         the key-value store's array rider (kv/store.py
+                   kv_array_machine, no kernel of its own): a seeded
+                   decided log of 4,096 records of 256 bytes over keyspace
+                   4,096 folded on the card, the (seq, digest) tables equal
+                   to the CPU fold's and the host KVState's; its first 64
+                   records also decided by consensus on the card; records/s
+                   and the fold's host syncs at 64 and 4,096 records (equal)
+  kv-cluster       round_tpu's tests/test_kv.py fixtures on cuda:0: 1 and 2
+                   shards of 3 replica threads, lin, lease and stale reads,
+                   a single-shard txn, a cross-shard commit and a
+                   conflicting prepare that aborts; the checker clean, the
+                   decisions, read answers and every replica's store equal
+                   to a CPU run's; a one-replica shard serving the same
+                   writes with kv off and on: the same host copies and
+                   update waves
+  kv-bench         apps/kv.py run_kv_bench at round_tpu's CLI defaults (2
+                   shard processes on cuda:0, n 3, lanes 16, 100 ops/s, 400
+                   ops, 90% reads at lin/lease/stale 0.2/0.4/0.4, 64 keys at
+                   Zipf 0.8): linearizable, every shed NACK-accounted, every
+                   op completed; ops/s, decisions/s, write and per-grade
+                   p50/p99, lease_vs_lin_p50, start-up s and peak GiB a
+                   shard, and each shard's rounds: the share closed on a
+                   deadline (or wait cap) and the rounds a decided instance
+                   took on a replica
+  kv-broken-lease  the same bench with --kv-broken-lease: the checker
+                   catches it and apps/kv.py check replays the artifact to
+                   the same verdict
+
 With ``--only sharded`` the script builds the kernels and runs the K4 and
 sharded phases alone; with ``--only peers`` just K4-vs-plain and ring-peers
 (for a machine with several cards); with ``--only fuzz`` the five fuzz
 phases; with ``--only runtime`` the three runtime phases; with ``--only
 host`` the four host phases; with ``--only serve`` the five lane and
-fleet phases; with ``--only verify`` the eight verification phases, the
-timed ones with the card's name and power limit.  The fuzz and
+fleet phases; with ``--only verify`` the eight verification phases; with
+``--only kv`` the four key-value phases; the timed ones with the card's
+name and power limit.  The fuzz and
 runtime phases print one JSON line each, with a "phase" key; an ``--only``
 run prints {"only": ...} before the card's line.
 
@@ -3294,6 +3325,412 @@ def verify_phases(torch, dev, card) -> None:
              small_schedules=VERIFY_SMALL, results=rec)
 
 
+# the replicated key-value store (round_tpu_torch/kv, the lane driver's and
+# the fleet's kv paths, apps/kv.py): the array rider's log, round_tpu's
+# test fixtures, and the bench at round_tpu's CLI defaults
+KV_RECORDS, KV_ROW_B, KV_KEYSPACE = 4_096, 256, 4_096
+KV_CONSENSUS_RECORDS = 64    # the log's head, decided by consensus too
+KV_CLUSTER_B = 64            # round_tpu's tests/test_kv.py fixture width
+KV_BENCH = dict(shards=2, n=3, lanes=16, rate=100.0, ops=400, warmup=4,
+                payload_bytes=256, value_bytes=8, timeout_ms=200, keys=64,
+                key_skew=0.8, read_frac=0.9, grade_mix=(0.2, 0.4, 0.4),
+                keyspace=4_096, seed=0)  # round_tpu/apps/kv.py's defaults
+# round_tpu's tests/test_kv.py broken-lease bench
+KV_BROKEN = dict(KV_BENCH, timeout_ms=150, seed=7, keys=16,
+                 grade_mix=(0.2, 0.6, 0.2), broken_lease=True)
+
+
+def _kv_log(records: int, payload_bytes: int, keyspace: int):
+    """A seeded decided record log: two clients' PUTs over ``keyspace``
+    keys (each client counts its own per-key seqs, so equal-seq races
+    happen), with txn, prepare, commit and abort records among them."""
+    import numpy as np
+
+    from round_tpu_torch.kv.store import (
+        OP_ABORT, OP_COMMIT, OP_PREPARE, OP_PUT, OP_TXN, encode_record,
+    )
+
+    rng = np.random.default_rng(SEED)
+    counters = [{}, {}]
+    rows = []
+    for i in range(records):
+        key = b"key%d" % int(rng.integers(0, keyspace))
+        c = int(rng.integers(0, 2))
+        seq = counters[c][key] = counters[c].get(key, 0) + 1
+        val = rng.integers(0, 256, 8, dtype=np.uint8).tobytes()
+        op = OP_PUT if i % 16 else (OP_TXN, OP_PREPARE, OP_COMMIT,
+                                    OP_ABORT)[(i // 16) % 4]
+        rows.append(encode_record(op, [(seq, key, val)], payload_bytes,
+                                  txn=i // 64 + 1, keyspace=keyspace))
+    return rows
+
+
+def _kv_cluster(device, shards: int):
+    """round_tpu's tests/test_kv.py kv_cluster (one shard) or kv_cluster2
+    (two) on ``device``, driven through the same operations.  Returns
+    (the answers and decisions, every replica's store per shard, the
+    shards' kv summaries)."""
+    import numpy as np
+
+    from round_tpu_torch.kv import reads as R
+    from round_tpu_torch.kv.client import KVClient
+    from round_tpu_torch.kv.lin import check_history
+    from round_tpu_torch.kv.store import (
+        OP_ABORT, OP_PREPARE, KvConfig, encode_record,
+    )
+    from round_tpu_torch.models.lastvoting import LastVotingBytes
+    from round_tpu_torch.runtime.fleet import DriverServer, FleetRouter
+
+    B = KV_CLUSTER_B
+    srvs = [DriverServer(LastVotingBytes(payload_bytes=B), n=3, lanes=8,
+                         timeout_ms=150, idle_ms=60_000, max_ms=120_000,
+                         kv=KvConfig(), device=device)
+            for _ in range(shards)]
+    for s in srvs:
+        s.start()
+    router = FleetRouter(proto="tcp")
+    for i, s in enumerate(srvs):
+        router.add_shard(f"s{i}", s.replicas)
+    cl = KVClient(router, payload_bytes=B, device=device)
+    out = {}
+
+    def drained(what):
+        require(cl.drain(30.0), f"kv-cluster ({device}): {what} stuck")
+
+    def last_read(key, grade=R.GRADE_LIN, issue=True):
+        if issue:
+            cl.read(key, grade)
+            drained(f"read of {key!r}")
+        op = [o for o in cl.history
+              if o["op"] == "r" and o["key"] == key.hex()][-1]
+        require(op["ok"], f"kv-cluster ({device}): read of {key!r} failed")
+        return op["res_seq"], op["res_val"]
+
+    def key_on(shard, prefix):
+        return next(k for k in (f"{prefix}{i}".encode()
+                                for i in range(4096))
+                    if router.ring.owner_key(k) == shard)
+
+    def txn(pairs):
+        return cl.txn(pairs, deadline_s=60.0)["committed"]
+
+    def blocker(op, ka):
+        inst = cl._alloc_inst()
+        router.propose(inst, encode_record(op, [(99, ka, b"blk")], B,
+                                           txn=9001), shard="s0", txn=True)
+        require(cl._wait_insts([inst], 30.0),
+                f"kv-cluster ({device}): blocker {op} undecided")
+
+    try:
+        if shards == 1:
+            cl.put(b"lin-k", b"v1")
+            drained("put")
+            out["lin"] = last_read(b"lin-k")
+            cl.put(b"lin-k", b"v2")
+            cl.read(b"lin-k", R.GRADE_LIN)
+            drained("put + read")
+            out["lin-behind-write"] = last_read(b"lin-k", issue=False)
+            cl.put(b"lease-k", b"lv")
+            drained("put")
+            out["lease"] = last_read(b"lease-k", R.GRADE_LEASE)
+            cl.put(b"stale-k", b"sv")
+            drained("put")
+            out["stale"] = last_read(b"stale-k", R.GRADE_STALE)
+            out["txn"] = txn({b"txn-a": b"1", b"txn-b": b"2"})
+            out["txn-reads"] = [last_read(b"txn-a"), last_read(b"txn-b")]
+            require(out["lin-behind-write"][0] == 2 and out["txn"],
+                    f"kv-cluster ({device}): {out}")
+        else:
+            ka, kb = key_on("s0", "ya"), key_on("s1", "yb")
+            out["commit"] = txn({ka: b"A1", kb: b"B1"})
+            blocker(OP_PREPARE, ka)
+            out["conflict"] = txn({ka: b"A2", kb: b"B2"})
+            out["after-abort"] = [last_read(ka), last_read(kb)]
+            blocker(OP_ABORT, ka)
+            out["retry"] = txn({ka: b"A3", kb: b"B3"})
+            out["after-retry"] = [last_read(ka), last_read(kb)]
+            require(out["commit"] and not out["conflict"] and out["retry"]
+                    and out["after-abort"][0][1] == b"A1".hex(),
+                    f"kv-cluster ({device}): {out}")
+        viol = check_history(cl.history)
+        require(not viol, f"kv-cluster ({device}): checker: {viol}")
+        out["decisions"] = {
+            i: None if v is None else np.asarray(v).tobytes().hex()
+            for i, v in sorted(router.results.items())}
+        # the stores are read once every replica of a shard has applied
+        # what its siblings did (one replica may trail them by a round)
+        t_end, steady = time.monotonic() + 30.0, 0
+        while time.monotonic() < t_end and steady < 5:
+            even = all(len({sh.state.applied for sh in s.kv_shards}) == 1
+                       for s in srvs)
+            steady = steady + 1 if even else 0
+            time.sleep(0.1)
+    finally:
+        router.close()
+        for s in srvs:
+            s.stop()
+        for s in srvs:
+            s.join(30.0)
+    stores = [[(sh.state.data, sh.state.txns, sh.state.locks,
+                sh.state.applied) for sh in s.kv_shards] for s in srvs]
+    return out, stores, [s.kv_summary() for s in srvs]
+
+
+def _kv_loopback(device, kv: bool, writes: int = 16):
+    """One replica on ``device`` serving ``writes`` records one at a time
+    after one more, with kv off or on (and then a lin and a lease read
+    after each write): its log, and the host copies and update waves of
+    the ``writes`` records."""
+    from round_tpu_torch.kv import reads as R
+    from round_tpu_torch.kv.client import KVClient
+    from round_tpu_torch.kv.store import OP_PUT, KvConfig, encode_record
+    from round_tpu_torch.models.lastvoting import LastVotingBytes
+    from round_tpu_torch.obs.metrics import METRICS
+    from round_tpu_torch.runtime.fleet import DriverServer, FleetRouter
+
+    names = ("lanes.update_dispatches", "host.d2h_copies",
+             "host.h2d_copies")
+    B = KV_CLUSTER_B
+    srv = DriverServer(LastVotingBytes(payload_bytes=B), n=1, lanes=4,
+                       timeout_ms=150, idle_ms=30_000, max_ms=60_000,
+                       kv=KvConfig() if kv else None, device=device)
+    srv.start()
+    router = FleetRouter(proto="tcp")
+    router.add_shard("s0", srv.replicas)
+    cl = KVClient(router, payload_bytes=B, device=device)
+
+    def write(i):
+        rec = encode_record(OP_PUT, [(i + 1, b"lb", b"v%d" % i)], B)
+        router.propose(i + 1, rec, shard="s0")
+        require(cl._wait_insts([i + 1], 30.0),
+                f"kv-cluster loopback: write {i + 1} undecided")
+        if kv:
+            cl.read(b"lb", R.GRADE_LIN)
+            cl.read(b"lb", R.GRADE_LEASE)
+            require(cl.drain(20.0), "kv-cluster loopback: reads stuck")
+
+    try:
+        # one write before the counts: the replica makes its one-time
+        # layout upload as its driver starts, on its own thread, and
+        # that may land on either side of an unguarded first reading
+        write(0)
+        c0 = [METRICS.counter(k).value for k in names]
+        for i in range(1, writes + 1):
+            write(i)
+        d = {k: METRICS.counter(k).value - v for k, v in zip(names, c0)}
+    finally:
+        router.close()
+        srv.stop()
+        srv.join(30.0)
+    return dict(srv.results[0]), d
+
+
+def kv_phases(torch, dev, card) -> None:
+    """The replicated key-value store (round_tpu_torch/kv, the lane
+    driver's and the fleet's kv paths, apps/kv.py; no kernel of its own)
+    on the card, each held against the CPU or its own checker."""
+    import tempfile
+
+    import numpy as np
+
+    from round_tpu_torch.apps import kv as kv_app
+    from round_tpu_torch.engine import scenarios
+    from round_tpu_torch.kv.store import (
+        OP_PUT, KVState, decode_record, key_index, kv_array_apply,
+        kv_array_machine, value_digest,
+    )
+
+    cpu = torch.device("cpu")
+
+    # -- kv-array -------------------------------------------------------------
+    rows = _kv_log(KV_RECORDS, KV_ROW_B, KV_KEYSPACE)
+    host = KVState()
+    for row in rows:
+        rec = decode_record(row)
+        if rec["op"] == OP_PUT:
+            host.apply(rec)
+    # a slot holds the largest (seq, digest) of the keys hashed to it
+    best = {}
+    for key, (seq, val) in host.data.items():
+        slot = key_index(key, KV_KEYSPACE)
+        best[slot] = max(best.get(slot, (0, 0)), (seq, value_digest(val)))
+    want = np.zeros((2, KV_KEYSPACE), np.int64)
+    for slot, (seq, dig) in best.items():
+        want[:, slot] = (seq, dig)
+
+    def machine(device, window=16):
+        return kv_array_machine(3, scenarios.full(3, device=device),
+                                payload_bytes=KV_ROW_B, keyspace=KV_KEYSPACE,
+                                window=window, device=device)
+
+    def fold(device, count):
+        m = machine(device)
+        m.decided_batches = dict(enumerate(rows[:count]))
+        m.next_instance = count
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if device.type == "cuda":
+            (seqs, digs), syncs = device_syncs(torch, m.apply_decided)
+            torch.cuda.synchronize()
+        else:
+            (seqs, digs), syncs = m.apply_decided(), None
+        dt = time.perf_counter() - t0
+        return (np.stack([seqs.cpu().numpy().astype(np.int64),
+                          digs.cpu().numpy()]), dt, syncs)
+
+    fold(dev, 64)  # first use of the fold's ops on the card
+    card_t, card_s, syncs_all = fold(dev, KV_RECORDS)
+    _t, _s, syncs_head = fold(dev, 64)
+    cpu_t, cpu_s, _ = fold(cpu, KV_RECORDS)
+    require(np.array_equal(card_t, cpu_t) and np.array_equal(card_t, want),
+            "kv-array: the card's (seq, digest) tables differ from the "
+            "CPU fold's or the host KVState's")
+    require(syncs_all == syncs_head,
+            f"kv-array: host syncs grow with the log: {syncs_head} at 64 "
+            f"records, {syncs_all} at {KV_RECORDS}")
+    # the launch calls of one record's fold step
+    table = (torch.zeros(KV_KEYSPACE, dtype=torch.int32, device=dev),
+             torch.zeros(KV_KEYSPACE, dtype=torch.int64, device=dev))
+    row = torch.from_numpy(rows[1]).to(dev)
+    kv_array_apply(table, row)
+    torch.cuda.synchronize()
+    step_launches = traced_launches(torch, lambda: kv_array_apply(table,
+                                                                  row))[0]
+    # the log's head through consensus on the card and on the CPU
+    decided = {}
+    for w, d in (("card", dev), ("cpu", cpu)):
+        m = machine(d, window=KV_CONSENSUS_RECORDS)
+        for row in rows[:KV_CONSENSUS_RECORDS]:
+            m.propose(row.tolist())
+        require(m.run((0, SEED)) == KV_CONSENSUS_RECORDS,
+                f"kv-array: {w} consensus did not take every record")
+        decided[w] = [m.decided_batches.get(i)
+                      for i in range(KV_CONSENSUS_RECORDS)]
+        seqs, digs = m.apply_decided()
+        require(np.array_equal(np.stack([seqs.cpu().numpy(),
+                                         digs.cpu().numpy()]),
+                               fold(cpu, KV_CONSENSUS_RECORDS)[0]),
+                f"kv-array: the {w} consensus log folds differently")
+    require(all(a is not None and a.tobytes() == r.tobytes()
+                for a, r in zip(decided["card"], rows))
+            and all(a.tobytes() == b.tobytes()
+                    for a, b in zip(decided["card"], decided["cpu"])),
+            "kv-array: consensus on the card decided other records")
+    say_json("kv-array", records=KV_RECORDS, payload_bytes=KV_ROW_B,
+             keyspace=KV_KEYSPACE, keys_written=len(host.data),
+             slots_written=len(best), fold_s=card_s,
+             records_per_s=KV_RECORDS / card_s, cpu_fold_s=cpu_s,
+             launch_calls_per_record=step_launches,
+             syncs=syncs_all, syncs_at_64=syncs_head,
+             consensus_records=KV_CONSENSUS_RECORDS,
+             card_equal_cpu=True, equal_host_store=True, card=card)
+
+    # -- kv-cluster -----------------------------------------------------------
+    clusters = {}
+    t0 = time.perf_counter()
+    for shards in (1, 2):
+        got = _kv_cluster(dev, shards)
+        ref = _kv_cluster(cpu, shards)
+        require(got[0] == ref[0],
+                f"kv-cluster {shards}: the card's answers or decisions "
+                f"differ from the CPU's: {got[0]} vs {ref[0]}")
+        for s, (card_st, cpu_st) in enumerate(zip(got[1], ref[1])):
+            require(all(st == card_st[0] for st in card_st + cpu_st),
+                    f"kv-cluster {shards}: shard s{s}'s replica stores "
+                    f"differ (card or CPU)")
+        clusters[f"shards_{shards}"] = {
+            "answers": {k: v for k, v in got[0].items()
+                        if k != "decisions"},
+            "decisions": len(got[0]["decisions"]),
+            "summary": got[2]}
+    log_off, d_off = _kv_loopback(dev, False)
+    log_on, d_on = _kv_loopback(dev, True)
+    require(log_on == log_off and d_on == d_off,
+            f"kv-cluster: kv changed the one-replica run: {d_on} vs {d_off}")
+    waves = max(1, d_on["lanes.update_dispatches"])
+    say_json("kv-cluster", replicas=3, payload_bytes=KV_CLUSTER_B,
+             runs=clusters, checker_clean=True, card_equal_cpu=True,
+             stores_equal=True, loopback_waves=waves,
+             d2h_per_wave={"off": d_off["host.d2h_copies"] / waves,
+                           "on": d_on["host.d2h_copies"] / waves},
+             h2d_per_wave={"off": d_off["host.h2d_copies"] / waves,
+                           "on": d_on["host.h2d_copies"] / waves},
+             wall_s=time.perf_counter() - t0, card=card)
+
+    # -- kv-bench -------------------------------------------------------------
+    dump_dir = tempfile.mkdtemp(prefix="kv-")
+    t0 = time.perf_counter()
+    rep = kv_app.run_kv_bench(**KV_BENCH, device=str(dev),
+                              dump_dir=dump_dir)
+    wall = time.perf_counter() - t0
+    ol = rep["open_loop"]
+    require(rep["lin_ok"], f"kv-bench: not linearizable: "
+                           f"{rep['violations'][:3]}")
+    require(rep["shed_accounting_ok"],
+            f"kv-bench: shed {rep['shed_frames']} != NACKs "
+            f"{rep['nacks_accounted']}")
+    require(ol["completed"] == ol["issued"] == ol["ops"],
+            f"kv-bench: completed {ol['completed']} of {ol['issued']} "
+            f"issued, {ol['ops']} planned")
+    require(all("error" not in o for o in rep["servers"].values()),
+            f"kv-bench: a shard failed: {rep['servers']}")
+    g = ol["read_grades"]
+    lin_p50, lease_p50 = g["lin"]["p50_ms"], g["lease"]["p50_ms"]
+    # where a write's rounds end: the lane driver counts every round
+    # closed on its deadline (or wait cap) and every round run, summed
+    # over a shard's replicas
+    rounds = {}
+    for d, o in rep["servers"].items():
+        rounds[d] = {
+            "rounds_run": o["rounds_run"], "timeouts": o["timeouts"],
+            "decided_instances": o["decided_instances"],
+            "deadline_share": (round(o["timeouts"] / o["rounds_run"], 4)
+                               if o["rounds_run"] else None),
+            "rounds_per_instance": (
+                round(o["rounds_run"] / (o["n"] * o["decided_instances"]),
+                      3) if o["decided_instances"] else None)}
+    say_json("kv-bench", achieved_ops=ol["achieved_ops"],
+             achieved_dps=ol["achieved_dps"], offered_rate=ol["offered_rate"],
+             ops=ol["ops"], completed=ol["completed"],
+             write_p50_ms=ol["write_p50_ms"], write_p99_ms=ol["write_p99_ms"],
+             grades={k: {"count": v["count"], "p50_ms": v["p50_ms"],
+                         "p99_ms": v["p99_ms"]} for k, v in g.items()},
+             lease_vs_lin_p50=(round(lin_p50 / lease_p50, 2)
+                               if lin_p50 and lease_p50 else None),
+             lease_served=ol["lease_served"],
+             lease_fallbacks=ol["lease_fallbacks"],
+             give_ups=ol["give_ups"], checked_ops=rep["checked_ops"],
+             lin_ok=True, shed_accounting_ok=True,
+             startup_s=rep["startup_s"], peak_gib=rep["peak_gib"],
+             kv={d: o.get("kv") for d, o in rep["servers"].items()},
+             rounds=rounds, bench={k: v for k, v in KV_BENCH.items()},
+             wall_s=wall, open_loop_wall_s=ol["wall_s"], card=card)
+
+    # -- kv-broken-lease ------------------------------------------------------
+    t0 = time.perf_counter()
+    rep = kv_app.run_kv_bench(**KV_BROKEN, device=str(dev),
+                              dump_dir=dump_dir)
+    kinds = sorted({v["kind"] for v in rep["violations"]})
+    require(not rep["lin_ok"] and set(kinds) & {
+        "non-linearizable", "stale-read-uncommitted"},
+        f"kv-broken-lease: the checker missed it: {kinds}")
+    art = rep.get("artifact")
+    require(art and os.path.exists(art), "kv-broken-lease: no artifact")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = kv_app.main(["check", art])
+    replayed = json.loads(buf.getvalue().strip().splitlines()[-1])
+    require(rc == 0 and replayed["matches_expected"],
+            f"kv-broken-lease: apps/kv.py check gave {rc}: {replayed}")
+    say_json("kv-broken-lease", caught=True, kinds=kinds,
+             violations=len(rep["violations"]),
+             checked_ops=rep["checked_ops"],
+             artifact=os.path.basename(art), replay_matches=True,
+             lease_served=rep["open_loop"]["lease_served"],
+             wall_s=time.perf_counter() - t0, card=card)
+
+
 def main() -> None:
     if not (ROOT / "round_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: round_tpu_torch/csrc is not beside "
@@ -3365,7 +3802,7 @@ def main() -> None:
         else None
     if only is not None:
         require(only in ("sharded", "peers", "fuzz", "runtime", "host",
-                         "serve", "verify"), f"unknown --only {only}")
+                         "serve", "verify", "kv"), f"unknown --only {only}")
         if only == "sharded":
             part = sharded_phases(torch, gen)
         elif only == "fuzz":
@@ -3382,6 +3819,9 @@ def main() -> None:
             part = []
         elif only == "verify":
             verify_phases(torch, dev, card)
+            part = []
+        elif only == "kv":
+            kv_phases(torch, dev, card)
             part = []
         else:
             k4_vs_plain(torch, gen)
@@ -3872,6 +4312,9 @@ def main() -> None:
     # -- 6b'. the verification plane (no kernel of its own) ------------------
     verify_phases(torch, dev, card)
 
+    # -- 6b'. the replicated key-value store (no kernel of its own) ----------
+    kv_phases(torch, dev, card)
+
     # -- 6b''. the last histogram slice's engines at their users' widths ----
     kset_launches = families_wide(torch, dev)
 
@@ -4161,6 +4604,9 @@ def main() -> None:
     # torch.mul, timed both ways too; no PyTorch call draws a keyed Philox
     # stream, so P2 has no library time.
     x = torch.randn(PROBE_SHAPE, generator=gen, device=dev)
+    # the launch floor, the least card time a launch takes: a one-thread
+    # kernel with no cycles to spin, queued the same way
+    floor_ms = queued_ms(torch, lambda: torch.cuda._sleep(0), 100)
     p1_ms = queued_ms(torch, lambda: fused.probe_double(x), 100)
     p1_issue_ms, got = event_ms(lambda: fused.probe_double(x), reps=100)
     p1_plain_ms, want = plain_ms(lambda: x * 2.0)
@@ -4172,7 +4618,8 @@ def main() -> None:
         plain_ms=round(p1_plain_ms, 4), library_ms=round(p1_lib_ms, 5),
         library_issue_ms=round(p1_lib_issue_ms, 5),
         library="torch.mul(x, 2.0)", bound_ms=f"{p1_bound:.3g}",
-        bound_by=p1_by)
+        bound_by=p1_by, launch_floor_ms=round(floor_ms, 5),
+        of_floor=round(p1_ms / floor_ms, 3))
     m = PROBE_SHAPE[0] * PROBE_SHAPE[1]
     p2_ms = queued_ms(torch, lambda: fused.philox_bits(seed, PROBE_SHAPE),
                       100)
@@ -4184,7 +4631,8 @@ def main() -> None:
     p2_bound, p2_by, p2_pipe = bound_ms(8 + 4 * m, m / 4, PHILOX_OPS)
     say("P2-time", ms=round(p2_ms, 5), issue_ms=round(p2_issue_ms, 5),
         plain_ms=round(p2_plain_ms, 4), bound_ms=f"{p2_bound:.3g}",
-        bound_by=p2_by, pipe=p2_pipe)
+        bound_by=p2_by, pipe=p2_pipe, launch_floor_ms=round(floor_ms, 5),
+        of_floor=round(p2_ms / floor_ms, 3))
     host_breakdown(torch, x)
 
     # -- 8. K4 and the sharded paths ------------------------------------------

@@ -26,8 +26,8 @@ its peak GiB on the card.  A bench routes to a shard only once the shard
 says it is serving (a ``{"ready": ...}`` line); round_tpu routes at once.
 ``serve --rv``/``--snap`` run every replica under runtime verification
 and snapshot audits (a halt exits 3 with the shard's summary);
-``serve --kv`` (the replicated key-value store, ROADMAP slice 6e) exits
-with an error naming its slice.  ``autoscale``'s default
+``serve --kv`` serves the shard as a replicated key-value store (kv/,
+apps/kv.py).  ``autoscale``'s default
 proof gate is ``rv/license.py``'s registry, whose default prover comes
 with slice 7: until then it denies every resize, and a caller passes a
 ``license_registry`` of its own.
@@ -106,6 +106,14 @@ def serve_main(args) -> int:
             policy=args.snap, protocol=args.algo,
             dump_dir=args.snap_dir or "snap_dumps",
             every_k=args.snap_every, bank_dir=args.snap_bank)
+    kv = None
+    if args.kv:
+        from round_tpu_torch.kv.store import KvConfig
+
+        kv = KvConfig(lease_ms=args.kv_lease_ms,
+                      lease_replica=args.kv_lease_replica,
+                      keyspace=args.kv_keyspace,
+                      broken_lease=args.kv_broken_lease)
     # fixed ports: the bench parent announced them to the router
     srv = DriverServer(
         algo, n=len(ports), lanes=args.lanes,
@@ -116,7 +124,7 @@ def serve_main(args) -> int:
         admission_bytes_per_lane=args.admission_bytes_per_lane,
         shed_deadline_ms=args.shed_deadline_ms,
         adaptive_cap_ms=args.adaptive_cap_ms, ports=ports, rv=rv,
-        snap=snap,
+        snap=snap, kv=kv,
         tenants=_parse_tenant_weights(args.tenant_weights),
         tenant_bytes_per_lane=args.tenant_bytes_per_lane, device=device)
     srv.start()
@@ -165,6 +173,8 @@ def serve_main(args) -> int:
             summary["rv"] = srv.rv_summary()
         if snap is not None:
             summary["snap"] = srv.snap_summary()
+        if kv is not None:
+            summary["kv"] = srv.kv_summary()
         print(json.dumps(summary))
     return rc
 
@@ -175,9 +185,11 @@ def _spawn_fleet(drivers: int, n: int, lanes: int, algo: str,
                  admission_bytes_per_lane: int, shed_deadline_ms: int,
                  no_pump: bool, adaptive_cap_ms: int = 0,
                  tenant_weights: Optional[str] = None,
-                 tenant_bytes_per_lane: int = 0, device: str = "cuda"):
+                 tenant_bytes_per_lane: int = 0, device: str = "cuda",
+                 extra_argv=()):
     """D shard processes (the deployment shape), each on ``device``, +
-    their address lists."""
+    their address lists.  ``extra_argv`` goes to every shard's ``serve``
+    (apps/kv.py passes the ``--kv`` flags)."""
     import subprocess
     import tempfile
 
@@ -211,6 +223,7 @@ def _spawn_fleet(drivers: int, n: int, lanes: int, algo: str,
                          str(tenant_bytes_per_lane)]
         if no_pump:
             argv += ["--no-pump"]
+        argv += list(extra_argv)
         # stderr goes to an unbuffered temp FILE, not a pipe: the bench
         # only reaps output after the whole open-loop run, and a shard
         # logging more than the OS pipe buffer mid-run would block on
@@ -223,6 +236,62 @@ def _spawn_fleet(drivers: int, n: int, lanes: int, algo: str,
         procs.append(proc)
         addrs.append([("127.0.0.1", x) for x in p])
     return procs, addrs
+
+
+def await_ready(procs, router, addrs) -> None:
+    """Add each shard to ``router`` once it says it is serving: a
+    proposal sent while its process still starts fails, and the
+    transport's send pause can keep the shard unreached."""
+    for d, (p, a) in enumerate(zip(procs, addrs)):
+        line = p.stdout.readline()
+        if not line.startswith('{"ready"'):
+            raise RuntimeError(f"shard s{d} did not start: {line!r}")
+        router.add_shard(f"s{d}", a)
+
+
+def reap_shards(procs, idle_ms: int) -> Dict[int, Any]:
+    """Collect each shard's one-line JSON summary (or its stderr tail);
+    a wedged shard is killed and marked."""
+    outs: Dict[int, Any] = {}
+    for d, p in enumerate(procs):
+        errf = getattr(p, "_fleet_errf", None)
+
+        def err_tail():
+            if errf is None:
+                return ""
+            try:
+                errf.seek(0, 2)
+                errf.seek(max(0, errf.tell() - 500))
+                return errf.read()
+            except Exception:  # noqa: BLE001 - diagnostics only
+                return ""
+
+        try:
+            stdout, _ = p.communicate(timeout=idle_ms / 1000.0 + 60.0)
+            if p.returncode == 0 and stdout.strip():
+                outs[d] = json.loads(stdout.strip().splitlines()[-1])
+            else:
+                outs[d] = {"error": err_tail()}
+        except Exception:  # noqa: BLE001 — wedged shard: kill + mark
+            p.kill()
+            try:
+                p.communicate(timeout=10)
+            except Exception:  # noqa: BLE001 - best-effort reap
+                pass
+            outs[d] = {"error": "wedged", "stderr": err_tail()}
+        finally:
+            if errf is not None:
+                errf.close()
+    return outs
+
+
+def shard_startup(outs: Dict[int, Any], launched: float) -> Dict[str, Any]:
+    """Each served shard's start-up seconds (launch to ready) and peak
+    GiB on its device, from the summaries ``reap_shards`` collected."""
+    up = {d: o for d, o in outs.items() if "ready_at" in o}
+    return {"startup_s": {d: round(o["ready_at"] - launched, 3)
+                          for d, o in up.items()},
+            "peak_gib": {d: o.get("peak_gib") for d, o in up.items()}}
 
 
 def bank_and_maybe_fit(samples_path: str, model_path: Optional[str],
@@ -308,14 +377,7 @@ def run_fleet_bench(*, drivers: int = 4, rate: float = 100.0,
     }
     router = FleetRouter(proto=proto)
     try:
-        for d, (p, a) in enumerate(zip(procs, addrs)):
-            # offer load only to a shard that is serving: a proposal sent
-            # while its process still starts fails, and the transport's
-            # send pause can keep the shard unreached
-            line = p.stdout.readline()
-            if not line.startswith('{"ready"'):
-                raise RuntimeError(f"shard s{d} did not start: {line!r}")
-            router.add_shard(f"s{d}", a)
+        await_ready(procs, router, addrs)
         start_id = [1]
 
         def run_point(r):
@@ -341,43 +403,8 @@ def run_fleet_bench(*, drivers: int = 4, rate: float = 100.0,
             report["open_loop"] = run_point(rate)
     finally:
         router.close()
-        outs: Dict[int, Any] = {}
-        for d, p in enumerate(procs):
-            errf = getattr(p, "_fleet_errf", None)
-
-            def err_tail():
-                if errf is None:
-                    return ""
-                try:
-                    errf.seek(0, 2)
-                    errf.seek(max(0, errf.tell() - 500))
-                    return errf.read()
-                except Exception:  # noqa: BLE001 - diagnostics only
-                    return ""
-
-            try:
-                stdout, _ = p.communicate(
-                    timeout=idle_ms / 1000.0 + 60.0)
-                if p.returncode == 0 and stdout.strip():
-                    outs[d] = json.loads(
-                        stdout.strip().splitlines()[-1])
-                else:
-                    outs[d] = {"error": err_tail()}
-            except Exception:  # noqa: BLE001 — wedged shard: kill + mark
-                p.kill()
-                try:
-                    p.communicate(timeout=10)
-                except Exception:  # noqa: BLE001 - best-effort reap
-                    pass
-                outs[d] = {"error": "wedged", "stderr": err_tail()}
-            finally:
-                if errf is not None:
-                    errf.close()
-        report["servers"] = outs
-    report["startup_s"] = {d: round(o["ready_at"] - launched, 3)
-                           for d, o in outs.items() if "ready_at" in o}
-    report["peak_gib"] = {d: o.get("peak_gib") for d, o in outs.items()
-                          if "ready_at" in o}
+        outs = report["servers"] = reap_shards(procs, idle_ms)
+    report.update(shard_startup(outs, launched))
     # the shed invariant, extended THROUGH the router: every shed frame
     # any shard counted is NACK-accounted, fleet client traffic included
     shed = sum(o.get("shed_frames", 0) for o in outs.values())
@@ -716,9 +743,23 @@ def main(argv=None) -> int:
     sv.add_argument("--snap-bank", type=str, default=None, metavar="DIR",
                     help="bank assembled cuts as .snapcut files "
                          "(apps/snap_cli.py audits them offline)")
-    sv.add_argument("--kv", nargs="?", const="on", default=None,
-                    help="the replicated key-value store (kv/, ROADMAP "
-                         "slice 6e): not ported, an error")
+    sv.add_argument("--kv", action="store_true",
+                    help="serve this shard as a replicated KV store "
+                         "(kv/, docs/KV.md): decided lvb records apply "
+                         "to a per-replica state machine, FLAG_READ "
+                         "serves the three read grades, FLAG_TXN "
+                         "validates transaction records")
+    sv.add_argument("--kv-lease-replica", type=int, default=0,
+                    help="which replica answers lease reads")
+    sv.add_argument("--kv-lease-ms", type=float, default=0.0,
+                    help="lease staleness bound (0 = derive from the "
+                         "round deadline, rv.compile.lease_bound_ms)")
+    sv.add_argument("--kv-keyspace", type=int, default=4096)
+    sv.add_argument("--kv-broken-lease", action="store_true",
+                    help="INJECT the stale-lease fixture: the lease "
+                         "replica freezes each key's first answer and "
+                         "never refuses — the kv/lin.py checker must "
+                         "catch it (tests + docs only)")
 
     bn = sub.add_parser("bench", help="spawn a fleet + open-loop loadgen")
     bn.add_argument("--drivers", type=int, default=4)
@@ -800,8 +841,6 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
     if args.cmd == "serve":
-        if args.kv:
-            sv.error("--kv comes with ROADMAP slice 6e")
         return serve_main(args)
     if args.cmd == "autoscale":
         from round_tpu_torch.apps.loadgen import parse_tenant_specs

@@ -23,9 +23,9 @@ Programmatic use (apps/fleet.py bench): ``open_loop(router, ...)`` drives
 an existing FleetRouter.
 
 Port of round_tpu/apps/loadgen.py: arrival plans and payload vectors are
-round_tpu's (numpy's seeded generator, byte for byte).  The fleet's shard
-processes run on ``--device`` (the card by default).  The key-value
-workload (``plan_kv_ops``, ``kv_open_loop``) comes with ROADMAP slice 6e.
+round_tpu's (numpy's seeded generator, byte for byte), and so are the
+key-value workload's (``plan_kv_ops``).  The fleet's shard processes run
+on ``--device`` (the card by default).
 """
 
 from __future__ import annotations
@@ -392,6 +392,130 @@ def parse_tenant_specs(text: str) -> List[Dict[str, Any]]:
     if not out:
         raise ValueError("empty tenant spec")
     return out
+
+
+# -- the KV serving workload (kv/, docs/KV.md) ------------------------------
+
+def plan_kv_ops(rate: float, ops: int, seed: int, *, keys: int = 64,
+                key_skew: float = 0.8, read_frac: float = 0.9,
+                grade_mix=(0.2, 0.4, 0.4), key_prefix: bytes = b"k"
+                ) -> List[Dict[str, Any]]:
+    """A YCSB-style mixed open-loop trace: Poisson arrivals at ``rate``,
+    Zipf KEY skew (weights ``(rank+1)^-key_skew`` over ``keys`` hot-
+    ranked keys — real key popularity, not just hot shards),
+    ``read_frac`` reads with ``grade_mix`` = (lin, lease, stale)
+    proportions.  Deterministic per seed, like plan_arrivals: the plan
+    is round_tpu's for the same seed (round_tpu/apps/loadgen.py::
+    plan_kv_ops)."""
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.exponential(1.0 / max(rate, 1e-9), size=ops))
+    w = np.array([(r + 1) ** -max(key_skew, 0.0) for r in range(keys)])
+    w /= w.sum()
+    kidx = rng.choice(keys, size=ops, p=w)
+    is_read = rng.random(ops) < read_frac
+    gm = np.asarray(grade_mix, dtype=float)
+    gm = gm / gm.sum()
+    grades = rng.choice(3, size=ops, p=gm)
+    plan: List[Dict[str, Any]] = []
+    for i in range(ops):
+        key = key_prefix + str(int(kidx[i])).encode()
+        if is_read[i]:
+            plan.append({"t": float(t[i]), "op": "r", "key": key,
+                         "grade": int(grades[i])})
+        else:
+            plan.append({"t": float(t[i]), "op": "w", "key": key})
+    return plan
+
+
+def kv_open_loop(client, rate: float, ops: int, *, seed: int = 0,
+                 keys: int = 64, key_skew: float = 0.8,
+                 read_frac: float = 0.9, grade_mix=(0.2, 0.4, 0.4),
+                 value_bytes: int = 8, warmup: int = 4,
+                 deadline_s: float = 120.0) -> Dict[str, Any]:
+    """Offer a mixed KV trace through a kv.client.KVClient and report
+    per-grade read latency beside the write/decision accounting.  The
+    returned ``history`` slice (measured window only) is the
+    linearizability checker's input — the bench gates on it
+    (round_tpu/apps/loadgen.py::kv_open_loop)."""
+    router = client.router
+    for i in range(warmup):
+        client.put(b"_warm" + str(i).encode(), b"w")
+    client.drain(deadline_s)
+    hist0 = len(client.history)
+    base = {k: getattr(router, k) for k in
+            ("nack_retries", "give_ups", "reproposals")}
+    lease_served0 = client.lease_served
+    fallbacks0 = client.lease_fallbacks
+    plan = plan_kv_ops(rate, ops, seed, keys=keys, key_skew=key_skew,
+                       read_frac=read_frac, grade_mix=grade_mix)
+    t0 = _time.monotonic()
+    t_hard = t0 + deadline_s
+    i = 0
+    while (i < len(plan) or client._writes or client._reads) \
+            and _time.monotonic() < t_hard:
+        now = _time.monotonic() - t0
+        while i < len(plan) and plan[i]["t"] <= now:
+            p = plan[i]
+            _H_ARRIVAL_LAG.observe((now - p["t"]) * 1000.0)
+            if p["op"] == "w":
+                val = bytes(payload_value(i, value_bytes))
+                client.put(p["key"], val)
+            else:
+                client.read(p["key"], p["grade"])
+            i += 1
+        if i < len(plan):
+            gap_ms = max(0.0, (plan[i]["t"]
+                               - (_time.monotonic() - t0)) * 1000.0)
+            client.pump(int(min(20.0, gap_ms)))
+        else:
+            client.pump(20)
+    wall = _time.monotonic() - t0
+    history = client.history[hist0:]
+
+    def pct(lats, p):
+        if not lats:
+            return None
+        lats = sorted(lats)
+        return round(lats[min(len(lats) - 1,
+                              int(math.ceil(p / 100.0 * len(lats))) - 1)],
+                     2)
+
+    reads = {"lin": [], "lease": [], "stale": []}
+    writes = []
+    for op in history:
+        ms = (op["t1"] - op["t0"]) * 1000.0
+        if op["op"] == "r" and op["ok"]:
+            reads[op["grade"]].append(ms)
+        elif op["op"] == "w" and op["ok"]:
+            writes.append(ms)
+    decided = len(writes)
+    return {
+        "offered_rate": rate,
+        "ops": ops,
+        "issued": i,
+        "completed": len(history),
+        "writes_decided": decided,
+        "achieved_dps": round(decided / wall, 2) if wall > 0 else 0.0,
+        "achieved_ops": round(len(history) / wall, 2) if wall > 0
+        else 0.0,
+        "wall_s": round(wall, 3),
+        "write_p50_ms": pct(writes, 50), "write_p99_ms": pct(writes, 99),
+        "read_grades": {
+            g: {"count": len(ls), "p50_ms": pct(ls, 50),
+                "p95_ms": pct(ls, 95), "p99_ms": pct(ls, 99)}
+            for g, ls in reads.items()},
+        "lease_served": client.lease_served - lease_served0,
+        "lease_fallbacks": client.lease_fallbacks - fallbacks0,
+        "read_frac": read_frac,
+        "grade_mix": list(grade_mix),
+        "key_skew": key_skew,
+        "keys": keys,
+        "seed": seed,
+        "nack_retries": router.nack_retries - base["nack_retries"],
+        "give_ups": router.give_ups - base["give_ups"],
+        "reproposals": router.reproposals - base["reproposals"],
+        "history": history,
+    }
 
 
 def main(argv=None) -> int:

@@ -63,10 +63,9 @@ Port of round_tpu/runtime/fleet.py.  The ring, the router's protocol and
 its accounting are round_tpu's, placement byte for byte (blake2b).  A
 ``DriverServer``'s replicas run their lane state on ``device`` (the card
 unless the caller passes another; where the card is asked for and absent
-the server raises).  The key-value data plane (``send_read``,
-``DriverServer(kv=)``) comes with ROADMAP slice 6e: each raises
-NotImplementedError naming its slice.  ``DriverServer(rv=, snap=)``
-serves every replica under runtime verification and snapshot audits.
+the server raises).  ``DriverServer(rv=, snap=, kv=)`` serves every
+replica under runtime verification, snapshot audits and the replicated
+key-value store (kv/), whose reads ride ``FleetRouter.send_read``.
 """
 
 from __future__ import annotations
@@ -523,11 +522,23 @@ class FleetRouter:
         (round_tpu/kv three-grade reads) and flush immediately — read
         latency is the product here, so reads never wait for the next
         proposal wave's coalesce.  ``tenant`` rides Tag.call_stack so
-        linearizable reads meter against the tenant's share too.  The kv
-        data plane comes with ROADMAP slice 6e."""
-        raise NotImplementedError(
-            "FleetRouter.send_read is the kv read verb, which comes with "
-            "ROADMAP slice 6e")
+        linearizable reads meter against the tenant's share too."""
+        from round_tpu_torch.kv.reads import read_tag
+
+        link = self._links.get(shard)
+        if link is None:
+            return False
+        tag = dataclasses.replace(read_tag(rid),
+                                  call_stack=int(tenant) & 0xFF)
+        sendb = getattr(link, "send_buffered", None)
+        if sendb is not None:
+            sendb(replica, tag, payload)
+            fl = getattr(link, "flush", None)
+            if fl is not None:
+                fl()
+        else:
+            link.send(replica, tag, payload)
+        return True
 
     def subscribe(self, shard: Optional[str] = None) -> None:
         """Ask ``shard`` (default: all) to stream EVERY decision it
@@ -781,8 +792,8 @@ class DriverServer:
     the router's transports live (round_tpu/runtime/fleet.py::
     DriverServer).  ``rv`` (an rv.dump.RvConfig) is the runtime
     verification and ``snap`` (a snap.audit.SnapConfig) the snapshot
-    audit every replica serves under; ``kv`` comes with slice 6e and
-    raises NotImplementedError."""
+    audit every replica serves under, and ``kv`` (a kv.store.KvConfig)
+    makes every replica a member of a replicated key-value shard."""
 
     def __init__(self, algo, n: int = 3, lanes: int = 16,
                  timeout_ms: int = 300, seed: int = 0,
@@ -801,9 +812,6 @@ class DriverServer:
         from round_tpu_torch.runtime.transport import HostTransport
         from round_tpu_torch.utils.device import resolve_device
 
-        if kv is not None:
-            raise NotImplementedError(
-                "DriverServer(kv=) comes with ROADMAP slice 6e")
         self.device = resolve_device(device)
         # runtime verification: the RvConfig the shard's lane drivers
         # serve under; a 'halt' surfaces through errors/join() and the
@@ -812,6 +820,11 @@ class DriverServer:
         # snapshots: ONE shared config, so cfg.collector names the
         # replica that assembles and audits the shard's cuts
         self.snap = snap
+        # replicated key-value serving (kv/): a kv.store.KvConfig turns
+        # every replica into a KV shard member — decisions apply to a
+        # per-replica KVState, FLAG_READ serves the three grades,
+        # FLAG_TXN validates transaction records (docs/KV.md)
+        self.kv = kv
         self.algo = algo
         self.n = n
         self.lanes = lanes
@@ -843,6 +856,9 @@ class DriverServer:
                                                         range(n)]
         self.stats: List[Dict[str, Any]] = [{} for _ in range(n)]
         self.errors: Dict[int, BaseException] = {}
+        # each replica's kv.store.KVShard once it serves (the port keeps
+        # them: a caller can read every replica's store after the run)
+        self.kv_shards: List[Any] = [None] * n
 
     def _run_replica(self, i: int) -> None:
         from round_tpu_torch.runtime.instances import (AdmissionControl,
@@ -870,6 +886,12 @@ class DriverServer:
 
             adaptive = AdaptiveTimeout(cap_ms=self.adaptive_cap_ms,
                                        seed=self.seed * 31 + i)
+        kv_shard = None
+        if self.kv is not None:
+            from round_tpu_torch.kv.store import KVShard
+
+            kv_shard = self.kv_shards[i] = KVShard(
+                self.kv, node=i, n=self.n, timeout_ms=self.timeout_ms)
         try:
             driver = LaneDriver(
                 self.algo, i, peers, self._transports[i],
@@ -878,7 +900,7 @@ class DriverServer:
                 value_schedule="uniform", use_pump=self.use_pump,
                 admission=admission, adaptive=adaptive,
                 clients={self.n}, rv=self.rv, snap=self.snap,
-                tenants=tenant_admission,
+                kv=kv_shard, tenants=tenant_admission,
                 device=self.device,
             )
             self.results[i] = driver.serve(
@@ -903,6 +925,16 @@ class DriverServer:
                 i for i, e in self.errors.items()
                 if type(e).__name__ == "RvViolation"),
         }
+
+    def kv_summary(self) -> Dict[str, Any]:
+        """Aggregate kv status across this shard's replicas
+        (round_tpu/runtime/fleet.py::DriverServer.kv_summary)."""
+        out: Dict[str, Any] = {"enabled": self.kv is not None}
+        for k in ("applied", "reads_lin", "reads_lease", "reads_stale",
+                  "lease_refused", "lease_barrier", "lease_grants",
+                  "txn_frames", "txn_commits", "txn_aborts"):
+            out[k] = sum(st.get("kv_" + k, 0) for st in self.stats)
+        return out
 
     def snap_summary(self) -> Dict[str, Any]:
         """Aggregate snapshot status across this shard's replicas

@@ -55,10 +55,12 @@ Where the port differs from round_tpu (none of it on the wire):
     gathered on the device from the update's output and ride the wave's
     one device-to-host copy (round_tpu copies rows of the host state it
     already holds); cut audits run on the collector replica's device;
-  * the replicated key-value store (``kv``, FLAG_READ and FLAG_TXN
-    serving) comes with slice 6e: it raises NotImplementedError naming
-    its slice, and a FLAG_READ frame is ignored (round_tpu ignores it
-    without a kv shard too).
+  * the replicated key-value store (``kv``, a kv.store.KVShard):
+    decided client instances apply to the replica's store in decision
+    order from the decision rows the wave's ``lane_decide`` fetch
+    already brought to the host, so kv adds no copy to a wave; FLAG_READ
+    serves the three read grades and FLAG_TXN validates transaction
+    records, as in round_tpu.
 
 Not supported here (as in round_tpu): live view changes (runtime/view.py
 — the sequential loop remains the membership-change driver) and the
@@ -152,11 +154,6 @@ _DONE_CAP = 8192   # client-serving decision-bank cap (_retire_lane)
 
 # per-class progress kinds (parsed once from Round.init_progress)
 _P_TIMEOUT, _P_WAIT, _P_GOAHEAD, _P_SYNC = range(4)
-
-
-def _later_slice(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the lane driver's {what} comes with ROADMAP slice {slice_}")
 
 
 class _ClassBox:
@@ -357,8 +354,6 @@ class LaneDriver:
         tenants=None,
         device=None,
     ):
-        if kv is not None:
-            raise _later_slice("key-value serving (kv=)", "6e")
         if wire not in ("binary", "pickle"):
             raise ValueError(f"wire must be 'binary' or 'pickle', "
                              f"got {wire!r}")
@@ -542,6 +537,17 @@ class LaneDriver:
                 max_rounds=max_rounds, transport=transport,
                 value_schedule=value_schedule, base_value=base_value,
                 admission=admission, device=self.device)
+        # replicated key-value serving (kv.store.KVShard): decided client
+        # instances also apply to its per-replica store IN DECISION
+        # ORDER, FLAG_READ frames serve the three read grades
+        # (linearizable reads queue behind their write barrier + one
+        # serve wave; lease/stale answer inline), and FLAG_TXN rides the
+        # PROPOSE machinery with record validation.  None = kv off
+        self._kv = kv
+        self._kv_reads: List[Any] = []   # queued linearizable reads
+        self._kv_wave = 0                # serve-loop wave counter
+        self._kv_prev_rounds = 0         # lease-freshness deltas
+        self._kv_prev_timeouts = 0
 
     # -- native pump setup -------------------------------------------------
 
@@ -835,14 +841,20 @@ class LaneDriver:
             self._subscribers.add(sender)
             return
         if tag.flag == FLAG_READ:
-            return  # the kv read verb: no kv shard here (slice 6e)
-        if tag.flag == FLAG_TXN:
+            # the kv read verb: lease/stale grades answer inline from
+            # applied state, linearizable reads queue behind their write
+            # barrier + one serve wave and SHED like proposals under
+            # admission pressure (lease/stale cost no lane)
+            if self._kv is not None:
+                self._kv_read_frame(sender, tag, raw)
+            return
+        if tag.flag == FLAG_TXN and self._kv is None:
             # the txn verb needs a kv shard to validate against
             self._note_malformed(sender)
             self.transport.send(sender, Tag(instance=tag.instance,
                                             flag=FLAG_TOO_LATE))
             return
-        if tag.flag != FLAG_PROPOSE:
+        if tag.flag not in (FLAG_PROPOSE, FLAG_TXN):
             return  # decisions/NACKs are client->driver only downstream
         iid = tag.instance
         if not FLEET_MIN_INSTANCE <= iid <= FLEET_MAX_INSTANCE:
@@ -891,6 +903,17 @@ class LaneDriver:
         # own the bytes: decode is zero-copy into the receive buffer
         arr = (arr.astype(proto.dtype) if arr.dtype != proto.dtype
                else np.array(arr))
+        if tag.flag == FLAG_TXN and not self._kv.is_txn_record(arr):
+            # FLAG_TXN is PROPOSE's state machine plus payload
+            # validation: a non-transaction record on the txn verb is
+            # refused with the give-up signal
+            self._note_malformed(sender)
+            self.transport.send(sender,
+                                Tag(instance=iid, flag=FLAG_TOO_LATE))
+            return
+        if self._kv is not None:
+            # register the write barrier for linearizable reads
+            self._kv.note_propose(iid, arr)
         self._proposals.push(tenant, iid, {"initial_value": arr}, sender,
                              arr.nbytes)
         self._proposed.add(iid)
@@ -920,6 +943,92 @@ class LaneDriver:
             self.client_streams += 1
             _C_CLIENT_STREAM.inc()
 
+    # -- kv serving (kv/, docs/KV.md) --------------------------------------
+
+    def _kv_read_frame(self, sender: int, tag: Tag, raw) -> None:
+        """One FLAG_READ frame: lease/stale answer inline (no lane, no
+        consensus — served even while shedding), linearizable reads
+        queue behind their write barrier + one serve wave, and SHED with
+        the same accounted NACK as proposals under admission pressure
+        (Tag.instance carries the 16-bit read id for correlation)."""
+        from round_tpu_torch.kv import reads as _kvr
+
+        req = _kvr.decode_read(bytes(raw) if raw is not None else b"")
+        if req is None:
+            self._note_malformed(sender)
+            return
+        if _kvr.serve_read(self._kv, sender, req["r"], req["k"],
+                           req["g"], self.transport):
+            return
+        # linearizable reads cost a lane wave, so they shed per tenant
+        # too (the read verb carries the tenant in call_stack)
+        r_tenant = (tag.call_stack & 0xFF) if self._tenants is not None \
+            else None
+        if ((self._admission is not None and self._admission.shedding)
+                or len(self._kv_reads) >= _STASH_CAP
+                or (r_tenant is not None
+                    and self._tenants.is_shedding(r_tenant))):
+            self._shed_frame(sender, tag.instance, tenant=r_tenant)
+            return
+        self._kv.reads_lin += 1
+        _kvr.C_READS[_kvr.GRADE_LIN].inc()
+        self._kv_reads.append(_kvr.PendingRead(
+            sender, req["r"], req["k"],
+            self._kv.barrier_for(req["k"]), self._kv_wave))
+
+    def _kv_tick(self) -> None:
+        """One serve wave's kv work: advance the wave counter, feed the
+        lease clock (a round wave that advanced by THRESHOLD — not
+        deadline — heard a quorum inside one round trip; works on both
+        the Python and native pumps, which never surface per-peer frames
+        here), revoke the lease for good once the rv monitor has
+        recorded any violation, and release queued linearizable reads
+        whose write barrier drained at least one full wave ago."""
+        from round_tpu_torch.kv import reads as _kvr
+
+        dr = self.rounds_run - self._kv_prev_rounds
+        dt = self.timeouts - self._kv_prev_timeouts
+        self._kv_prev_rounds = self.rounds_run
+        self._kv_prev_timeouts = self.timeouts
+        # the wave is a ROUND wave, not a serve-loop iteration: a queued
+        # linearizable read must see actual round progress before it
+        # answers.  An idle lane table runs no rounds, so idleness itself
+        # advances the wave: per-link FIFO already ordered the read after
+        # every acked write's apply, and nothing is in flight
+        if dr > 0 or not self.table.occupancy:
+            self._kv_wave += 1
+        if dr > dt:
+            self._kv.lease.note_quorum()
+        if (self._rv is not None
+                and getattr(self._rv, "violations", None)):
+            self._kv.lease.revoke()
+        if not self._kv_reads:
+            return
+        keep = []
+        for pr in self._kv_reads:
+            if pr.ready(self._kv.pending, self._kv_wave):
+                seq, val = self._kv.answer(pr.key)
+                self.transport.send(
+                    pr.sender, _kvr.read_tag(pr.rid),
+                    _kvr.encode_reply(pr.rid, _kvr.ST_OK, seq, val))
+            else:
+                keep.append(pr)
+        self._kv_reads = keep
+
+    def _kv_fail_reads(self) -> None:
+        """Best-effort on a halt: refuse every queued linearizable read
+        so clients fall to their retry/give-up path immediately."""
+        from round_tpu_torch.kv import reads as _kvr
+
+        for pr in self._kv_reads:
+            try:
+                self.transport.send(
+                    pr.sender, _kvr.read_tag(pr.rid),
+                    _kvr.encode_reply(pr.rid, _kvr.ST_REFUSED, 0, b""))
+            except Exception:  # noqa: BLE001 — the halt still propagates
+                pass
+        self._kv_reads = []
+
     def _ingest(self, got) -> None:
         sender, tag, raw = got
         if not 0 <= sender < self.n:
@@ -929,6 +1038,10 @@ class LaneDriver:
             self.malformed += 1
             _C_MALFORMED.inc()
             return
+        if self._kv is not None:
+            # any peer frame is lease-freshness evidence (the Python
+            # pump path; the native pump feeds note_quorum via _kv_tick)
+            self._kv.lease.note_peer(sender)
         if tag.flag == FLAG_NACK:
             # a peer SHED our frame: informational — the protocol's own
             # retransmission is the retry
@@ -1840,6 +1953,8 @@ class LaneDriver:
             self._rv.fill_stats(stats_out)
         if self._snap is not None:
             self._snap.fill_stats(stats_out)
+        if self._kv is not None:
+            self._kv.fill_stats(stats_out)
 
     def run(self, instances: int, checkpoint_dir: Optional[str] = None,
             stats_out: Optional[Dict[str, int]] = None,
@@ -2096,7 +2211,11 @@ class LaneDriver:
 
     def _rv_fail_clients(self) -> None:
         """Best-effort client notification on an rv halt: FLAG_TOO_LATE
-        for every queued proposal and live client instance."""
+        for every queued proposal and live client instance (queued kv
+        reads are refused too, and the lease dies with the shard)."""
+        if self._kv is not None:
+            self._kv.lease.revoke()
+            self._kv_fail_reads()
         try:
             for iid, _io, sender in list(self._proposals.items()):
                 self.transport.send(
@@ -2159,7 +2278,14 @@ class LaneDriver:
                 iid = inst & 0xFFFF
                 results[iid] = (decision_scalar(decision) if decided
                                 else None)
+                if self._kv is not None:
+                    # apply IN DECISION ORDER before the decision
+                    # streams: a client that sees its ack must find
+                    # every replica's read view already reflecting it
+                    self._kv.on_decision(iid, decided, raw)
                 self._stream_decision(iid, decided, raw)
+            if self._kv is not None:
+                self._kv_tick()
             if self._snap is not None:
                 try:
                     shed_lanes = self._snap_flush()
@@ -2172,6 +2298,8 @@ class LaneDriver:
                     inst, _raw = self._retire_lane(lane, False, None)
                     iid = inst & 0xFFFF
                     results[iid] = None
+                    if self._kv is not None:
+                        self._kv.on_decision(iid, False, None)
                     self._stream_decision(iid, False, None)
             if finished or self.table.occupancy or self._proposals:
                 last_active = _time.monotonic()

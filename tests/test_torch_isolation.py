@@ -26,6 +26,9 @@ VERIFY = ("rv/__init__", "rv/compile", "rv/dump", "rv/license",
           "snap/audit", "snap/driver", "snap/fixtures", "fuzz/replay",
           "fuzz/hostile", "byz/crosscheck", "apps/fuzz_cli",
           "apps/snap_cli")
+# the replicated key-value store and its CLI
+KV = ("kv/__init__", "kv/store", "kv/reads", "kv/txn", "kv/lin",
+      "kv/client", "apps/kv")
 
 
 def _port_files():
@@ -89,6 +92,7 @@ def test_port_files_exist():
                  "round_tpu_torch/apps/dynamic_membership.py",
                  *(f"round_tpu_torch/apps/{m}.py" for m in HOST_APPS),
                  *(f"round_tpu_torch/{m}.py" for m in VERIFY),
+                 *(f"round_tpu_torch/{m}.py" for m in KV),
                  "chip_smoke.py"):
         assert want in names
 
@@ -120,7 +124,7 @@ def test_importing_the_port_loads_no_jax():
         "round_tpu_torch.apps.dynamic_membership, "
         + "".join(f"round_tpu_torch.apps.{m}, " for m in HOST_APPS)
         + "".join("round_tpu_torch.{}, ".format(m.replace("/", "."))
-                  for m in VERIFY) +
+                  for m in VERIFY + KV) +
         "sys; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'round_tpu')); assert not bad, bad"
