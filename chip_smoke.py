@@ -156,15 +156,15 @@ Phases, each printed as one line:
   fuzz-minimize    the known-bad genome minimized on the card and the CPU
   fuzz-pop         one evaluation at P = 1,024, 4,096, 16,384: ms,
                    schedules/sec, peak GiB above what was held before, the
-                   device's kernels and copies
-                   (torch.profiler) and host syncs; kernels must not grow
-                   with P, syncs stay below one a round
+                   host's launch calls, the device's kernels and copies
+                   (torch.profiler) and host syncs; launch calls must not
+                   grow with P, syncs stay below one a round
 
   perftest-otr, perftest-lv
                    the in-process runtime (round_tpu_torch/runtime, no
                    kernel of its own): round_tpu_torch.apps.perftest's
                    run at n=4, a backlog of 4,096 instances at -rt 1,024
-                   and its first 1,024 at -rt 16, omission 0.05, 64
+                   and its first 512 at -rt 16, omission 0.05, 64
                    phases: decided of total, wall, decisions/sec, a
                    window's launch calls, kernels and copies
                    (torch.profiler) and host syncs, peak GiB; the card's
@@ -243,6 +243,9 @@ Phases, each printed as one line:
                    on the card against its recorded expected.engine
   rv-ab            host_perftest.measure_rv_ab at its defaults:
                    host_otr_n4_rv_overhead with round_tpu's gate verdict
+  rv-ab-gate       the same A/B at round_tpu's soak gate settings
+                   (tools/soak.py check_host_rv: LastVoting, 24 instances,
+                   8 lanes, 3 pairs): host_lv_n4_rv_overhead and the gate
   snap-ab          host_perftest.measure_snap_ab at its defaults:
                    host_lvb_n4_snap_overhead with the gate verdict; then
                    snap-broken-conservation caught by the collector's
@@ -280,13 +283,30 @@ Phases, each printed as one line:
                    catches it and apps/kv.py check replays the artifact to
                    the same verdict
 
+  rtsat            the verifier's SAT core (round_tpu_torch/verify/
+                   solver.py) built by g++ from round_tpu_torch/native/
+                   sat.cpp into round_tpu_torch/_build/rtsat on this
+                   machine; a known SAT and a known UNSAT formula, and a
+                   DIMACS session, give their verdicts
+  extract-card     the nine extracted builders of verify/protocols.py (ten
+                   calls: Ben-Or for two receivers) traced on the card's
+                   tensors and on the CPU's: the printed formulas and site
+                   axioms are equal
+  proof-suites     the port's verifier over round_tpu's tier-1 suites:
+                   TPC's and OTR's hand suites (Verifier.check), the proved
+                   non-slow sub-VCs of LastVoting's staged chain, and the
+                   extracted-stage VCs of OTR, LastVoting, ε, TPC-event and
+                   LastVoting-event (traced on the card), each verdict the
+                   one round_tpu's tests assert; seconds per suite
+
 With ``--only sharded`` the script builds the kernels and runs the K4 and
 sharded phases alone; with ``--only peers`` just K4-vs-plain and ring-peers
 (for a machine with several cards); with ``--only fuzz`` the five fuzz
 phases; with ``--only runtime`` the three runtime phases; with ``--only
 host`` the four host phases; with ``--only serve`` the five lane and
 fleet phases; with ``--only verify`` the eight verification phases; with
-``--only kv`` the four key-value phases; the timed ones with the card's
+``--only kv`` the four key-value phases; with ``--only proof`` the three
+verifier phases; the timed ones with the card's
 name and power limit.  The fuzz and
 runtime phases print one JSON line each, with a "phase" key; an ``--only``
 run prints {"only": ...} before the card's line.
@@ -324,6 +344,7 @@ ROOT = Path(__file__).resolve().parent
 # flagship shape (README / bench defaults)
 N, S_FLAG, ROUNDS, V, P_DROP = 1024, 10_000, 50, 16, 0.25
 S_PLAIN_HW = 512         # scenarios of the flagship K1-hw plain comparison
+S_PLAIN_HASH = 2_048     # and of the flagship K1 (hash) plain comparison
 S_FUSED = 1_000          # run_hist (K2, one launch per round)
 S_CHECK = 64             # kernel-vs-plain comparisons
 # K1 and K2 against their plain versions: the flagship width, an n that is
@@ -414,6 +435,20 @@ SMI_FIELDS = ("clocks.sm", "power.draw", "temperature.gpu",
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+class Clock:
+    """Seconds each section of the full run took, said as it ends, and the
+    run's total so far: the script must end well inside its time limit."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, section: str) -> None:
+        now = time.perf_counter()
+        say("clock", section=section, s=round(now - self.last, 1),
+            total_s=round(now - self.start, 1))
+        self.last = now
 
 
 def require(cond: bool, what: str) -> None:
@@ -1536,10 +1571,14 @@ def families_wide(torch, dev, shapes=FAMILY_SHAPES) -> dict:
       pbft-vc   run_pbft_vc_fast, n=100 x 1,000 x 12, row 0 the
                 primary-crash witness (lane 0 crashed at round 0 on clean
                 links): a lane decides in a view > 0
-      mutex     run_mutex_fast, n=1024 x 1,000 x 50
-      gol       run_gol_fast, a 32 x 32 torus x 1,000 x 50 from a glider;
+      mutex     run_mutex_fast, n=1024 x 1,000 x 20
+      gol       run_gol_fast, a 32 x 32 torus x 1,000 x 20 from a glider;
                 on a clean torus the glider moves by (1, 1) in 4 rounds
-      ho-stats  mix_ho_stats of the four-family mix, n=1024 x 1,000 x 50
+      ho-stats  mix_ho_stats of the four-family mix, n=1024 x 1,000 x 20
+
+    The last three run 20 rounds, not the flagship's 50: at 50 each of
+    their runs took ~6 s on the H100, and each runs twice besides its CPU
+    and replay checks, which the script's time limit cannot spare.
 
     Each engine's check run comes first; a second run, which must repeat
     it bit for bit, is timed with CUDA events (ms, rounds/sec = rounds /
@@ -1784,7 +1823,7 @@ def families_wide(torch, dev, shapes=FAMILY_SHAPES) -> dict:
     del out, st, mix, d
 
     # -- mutex and Game of Life at n = 1024 --------------------------------
-    (n, S), rounds = shapes["mutex"], 50
+    (n, S), rounds = shapes["mutex"], 20
     require(shapes["gol"] == shapes["ho-stats"] == (n, S),
             "mutex, gol and ho-stats share one mix")
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
@@ -1942,12 +1981,6 @@ def traced_launches(torch, fn):
     return calls, kernels, copies
 
 
-def profiled_launches(torch, fn):
-    """(kernels, memcpy/memset) the device ran during fn, from
-    torch.profiler's CUDA activity."""
-    return traced_launches(torch, fn)[1:]
-
-
 def fuzz_phases(torch, dev) -> dict:
     """The fault-schedule fuzzer (round_tpu_torch/fuzz) on the card: one
     batched evaluation per generation, held against the same work on the
@@ -2091,16 +2124,18 @@ def fuzz_phases(torch, dev) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
         peak = (torch.cuda.max_memory_allocated() - base) / gib
         _, syncs = device_syncs(torch, lambda: t_dev.evaluate(pop))
-        kernels, copies = profiled_launches(torch,
-                                            lambda: t_dev.evaluate(pop))
+        # the host's launch calls are the exact count; the device's kernel
+        # records of a trace this long can miss a few (4,042 of 4,046)
+        calls, kernels, copies = traced_launches(torch,
+                                                 lambda: t_dev.evaluate(pop))
         row = {"P": P, "ms": wall_ms, "schedules_per_sec": P / wall_ms * 1e3,
-               "peak_gib": peak, "kernels": kernels, "copies": copies,
-               "syncs": syncs}
+               "peak_gib": peak, "launch_calls": calls, "kernels": kernels,
+               "copies": copies, "syncs": syncs}
         rows.append(row)
         say_json("fuzz-pop", protocol="otr", n=FUZZ_N, horizon=FUZZ_H, **row)
-    require(len({r["kernels"] for r in rows}) == 1,
+    require(len({r["launch_calls"] for r in rows}) == 1,
             f"fuzz-pop: kernel launches grow with P: "
-            f"{[r['kernels'] for r in rows]}")
+            f"{[r['launch_calls'] for r in rows]}")
     # staging in and the outcome out: a few syncs an evaluation, never one
     # a round
     require(max(r["syncs"] for r in rows) < FUZZ_H,
@@ -2114,12 +2149,13 @@ def fuzz_phases(torch, dev) -> dict:
 # Options' default), a backlog of 4,096 instances in flight 16 at a time
 # (the reference's processPool) and 1,024 (the largest lane bucket), under
 # omission at perftest's p_drop 0.05 with Options' 64 phases.  At -rt 16
-# the backlog is cut to its first 1,024 instances: every window is the
-# same work, so the rate does not depend on the backlog, and all 256
-# windows of LastVoting take ~3 minutes of the script's time.  The CPU
-# replays RT_CPU_CHECK instances of each run on the same keys.
+# the backlog is cut to its first 512 instances: every window is the same
+# work, so the rate does not depend on the backlog, and LastVoting's 32
+# windows take 24-27 s of the script's time on the H100 (45-77 s at 1,024
+# instances, which the script's time limit cannot spare).  The CPU replays
+# RT_CPU_CHECK instances of each run on the same keys.
 RT_N, RT_RATES, RT_P_DROP, RT_PHASES = 4, (16, 1024), 0.05, 64
-RT_BACKLOG = {16: 1024, 1024: 4096}
+RT_BACKLOG = {16: 512, 1024: 4096}
 RT_CPU_CHECK = {16: 256, 1024: 4096}
 # SMR: LastVoting, batches of 64 commands, 4,096 commands (64 instances)
 SMR_BATCH, SMR_COMMANDS = 64, 4096
@@ -2285,7 +2321,10 @@ def runtime_phases(torch, dev) -> None:
 # the host runner's deployment (round_tpu_torch/apps/host_perftest.py's
 # defaults, which are round_tpu's: PerfTest2's 4 replicas, 300-ms rounds)
 HOST_N, HOST_TIMEOUT_MS = 4, 300
-HOST_THREAD_INSTANCES, HOST_PROC_INSTANCES = 20, 100
+HOST_PROC_INSTANCES = 100
+# instances of the thread runs, on the card and again on the CPU: LastVoting
+# decides ~0.8 instances a second on 300-ms rounds, so it runs 10
+HOST_THREAD_INSTANCES = {"otr": 20, "lastvoting": 10}
 # the chaos run: 10 % iid drops from a fixed seed, 10 instances (a dropped
 # frame costs its receiver a 300-ms round)
 HOST_CHAOS, HOST_CHAOS_INSTANCES = "drop=0.1,seed=7", 10
@@ -2447,15 +2486,16 @@ def host_phases(torch, dev) -> None:
         runs = {}
         for where, d in (("card", dev), ("cpu", cpu)):
             runs[where] = host_perftest.measure(
-                n=HOST_N, instances=HOST_THREAD_INSTANCES, algo=algo,
+                n=HOST_N, instances=HOST_THREAD_INSTANCES[algo], algo=algo,
                 timeout_ms=HOST_TIMEOUT_MS, device=d)
         card, card_logs = runs["card"]
         cpu_res, cpu_logs = runs["cpu"]
         for what, res in (("card", card), ("CPU", cpu_res)):
-            require(res["extra"]["agreed_instances"] == HOST_THREAD_INSTANCES,
+            require(res["extra"]["agreed_instances"]
+                    == HOST_THREAD_INSTANCES[algo],
                     f"host-threads {algo}: {what} agreed "
                     f"{res['extra']['agreed_instances']} of "
-                    f"{HOST_THREAD_INSTANCES}")
+                    f"{HOST_THREAD_INSTANCES[algo]}")
         require(card_logs == cpu_logs,
                 f"host-threads {algo}: the card's decisions "
                 f"{card_logs[0]} differ from the CPU's {cpu_logs[0]}")
@@ -2517,7 +2557,7 @@ def host_phases(torch, dev) -> None:
             fetch(pay)
         alone_us = (time.perf_counter() - t0) * 1e6 / reps
         say_json("host-threads", algo=algo, n=HOST_N,
-                 instances=HOST_THREAD_INSTANCES,
+                 instances=HOST_THREAD_INSTANCES[algo],
                  timeout_ms=HOST_TIMEOUT_MS,
                  metric=card["metric"], decisions_per_sec=card["value"],
                  wall_basis=card["extra"]["wall_basis"],
@@ -3058,6 +3098,11 @@ def _rv_cluster(driver, name, device, rv, n=3, instances=2, lanes=4,
             {i: errors.get(i) for i in range(n)}, snapped)
 
 
+# round_tpu's soak gate on the monitor A/B (tools/soak.py check_host_rv)
+RV_GATE_AB = dict(n=4, instances=24, lanes=8, timeout_ms=300, pairs=3,
+                  warmup=1, algo="lv")
+
+
 def verify_phases(torch, dev, card) -> None:
     """The verification plane (no kernel of its own): the monitored
     mega-step, the broken fixtures under each policy in both drivers, the
@@ -3265,6 +3310,24 @@ def verify_phases(torch, dev, card) -> None:
                  "samples_off", "samples_on", "pairs", "instances", "lanes",
                  "n", "rv_checks", "rv_violations", "logs_identical")})
 
+    # -- rv-ab-gate -----------------------------------------------------------
+    # the same A/B at round_tpu's soak gate settings (tools/soak.py
+    # check_host_rv: deadline-paced LastVoting), where round_tpu reads its
+    # gate; the otr blast above is the dispatch-bound case it calls an
+    # overstatement
+    t0 = time.perf_counter()
+    ab = host_perftest.measure_rv_ab(**RV_GATE_AB, device=dev)
+    ex = ab["extra"]
+    require(ex["rv_checks"] > 0 and ex["rv_violations"] == 0
+            and ex["logs_identical"], f"rv-ab-gate: clean run failed: {ex}")
+    say_json("rv-ab-gate", metric=ab["metric"], value=ab["value"],
+             gate=ab["gate"], card=card,
+             wall_s=time.perf_counter() - t0, algo=RV_GATE_AB["algo"],
+             **{k: ex[k] for k in (
+                 "dps_off", "dps_on", "median_off", "median_on",
+                 "samples_off", "samples_on", "pairs", "instances", "lanes",
+                 "n", "rv_checks", "rv_violations", "logs_identical")})
+
     # -- snap-ab --------------------------------------------------------------
     t0 = time.perf_counter()
     ab = host_perftest.measure_snap_ab(device=dev)
@@ -3323,6 +3386,169 @@ def verify_phases(torch, dev, card) -> None:
                       "small_card_equal_cpu": True}
     say_json("crosscheck", n=4, min_schedules=VERIFY_SCHEDULES,
              small_schedules=VERIFY_SMALL, results=rec)
+
+
+# the verifier (round_tpu_torch/verify, host Python and the rtsat binary, no
+# kernel): the nine extracted builders, traced on the card and on the CPU
+PROOF_BUILDERS = (
+    ("otr_extracted_tr", ()), ("lv_extracted_tr", ()),
+    ("epsilon_extracted_tr", ()), ("tpce_extracted_tr", ()),
+    ("lve_extracted_tr", ()), ("floodmin_extracted_tr", ()),
+    ("kset_extracted_tr", ()), ("benor_extracted_tr", ("boj",)),
+    ("benor_extracted_tr", ("bok",)), ("pbft_vc_selection_extracted", ()),
+)
+# the extracted-stage suites: builder of (name, hyp, concl, cfg) stages, the
+# entailment budget round_tpu's test gives each, and the stages its tier-1
+# run leaves to the slow tier (tests/test_extract_vcs.py SLOW); every other
+# stage must be proved, as round_tpu's tests assert
+PROOF_STAGES = (
+    ("otr-extracted", "otr_extracted_stage_vcs", 400,
+     {"Ci: max >= |C_pw|", "Di: msite <= w"}),
+    ("lv-extracted", "lv_extracted_stage_vcs", 180, set()),
+    ("epsilon-extracted", "epsilon_extracted_stage_vcs", 240, set()),
+    ("tpce-extracted", "tpce_extracted_vcs", 240, set()),
+    ("lve-extracted", "lve_extracted_stage_vcs", 240, set()),
+)
+
+
+def _print_tree(x) -> str:
+    """Everything a builder returns, in order: formulas by repr,
+    containers element by element, other objects (a StateSig) field by
+    field, functions by name."""
+    if isinstance(x, (list, tuple)):
+        return "[" + ", ".join(_print_tree(y) for y in x) + "]"
+    if isinstance(x, dict):
+        return "{" + ", ".join(f"{_print_tree(k)}: {_print_tree(v)}"
+                               for k, v in x.items()) + "}"
+    if callable(x) and hasattr(x, "__qualname__"):
+        return f"<fn {x.__qualname__}>"
+    if hasattr(x, "__dict__") and type(x).__module__.startswith(
+            "round_tpu_torch.verify.tr"):
+        return type(x).__name__ + "(" + ", ".join(
+            f"{k}={_print_tree(v)}" for k, v in sorted(vars(x).items())) + ")"
+    return repr(x)
+
+
+def proof_phases(torch, dev, card) -> None:
+    """The port's verifier on the card's machine: its rtsat built there from
+    round_tpu_torch/native/sat.cpp, the nine extracted builders traced on
+    the card's tensors against the CPU's, and the tier-1 proof suites with
+    the verdicts round_tpu's tests assert."""
+    from round_tpu_torch.verify import protocols, solver
+    from round_tpu_torch.verify.extract import canon
+    from round_tpu_torch.verify.formula import And, Gt, Int, IntLit, Lt
+    from round_tpu_torch.verify.formula import Variable
+
+    # -- rtsat ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    exe = Path(solver._sat_binary())
+    build_s = time.perf_counter() - t0
+    require(exe == ROOT / "round_tpu_torch" / "_build" / "rtsat",
+            f"rtsat built at {exe}")
+    x = Variable("x", Int)
+    sat = solver.solve_ground(Gt(x, IntLit(1)), timeout_s=60)
+    unsat = solver.solve_ground(And(Gt(x, IntLit(1)), Lt(x, IntLit(0))),
+                                timeout_s=60)
+    ses = solver.SatSession(2, [[1, 2], [-1, 2]])
+    try:
+        model = ses.solve(timeout_s=60)
+        ses.add_clause([-2])
+        dimacs_unsat = ses.solve(timeout_s=60) is None
+    finally:
+        ses.proc.kill()
+        ses.proc.wait()
+    require(sat == "sat" and unsat == "unsat" and model is not None
+            and model[2] and dimacs_unsat,
+            f"rtsat: x > 1 gave {sat}, x > 1 and x < 0 gave {unsat}")
+    say_json("rtsat", exe=str(exe.relative_to(ROOT)), build_s=build_s,
+             sat=sat, unsat=unsat, dimacs_sat=True, dimacs_unsat=True)
+
+    # -- extract-card -----------------------------------------------------------
+    t0 = time.perf_counter()
+    on_card = [_print_tree(getattr(protocols, name)(*args, device=dev))
+               for name, args in PROOF_BUILDERS]
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = [_print_tree(getattr(protocols, name)(*args, device="cpu"))
+              for name, args in PROOF_BUILDERS]
+    cpu_s = time.perf_counter() - t0
+    for (name, args), a, b in zip(PROOF_BUILDERS, on_card, on_cpu):
+        require(canon([a]) == canon([b]) and "ext!" in a,
+                f"extract-card: {name}{args} prints differently on the card")
+    say_json("extract-card", builders=len(PROOF_BUILDERS),
+             chars=sum(len(a) for a in on_card), equal=True,
+             raw_equal=on_card == on_cpu, card_s=card_s, cpu_s=cpu_s)
+
+    # -- proof-suites -----------------------------------------------------------
+    # host Python, one independent VC a task, over a pool of processes on
+    # the machine's cores (no CUDA in them); the extracted stages are the
+    # ones traced on the card, carried to the pool as pickles
+    import concurrent.futures
+    import copyreg
+    import multiprocessing
+
+    from round_tpu_torch.verify.formula import InterpretedFct
+
+    copyreg.pickle(InterpretedFct, lambda fct: (_interpreted, (fct.name,)))
+    tasks = [("tpc-hand", ("hand", "tpc_spec")),
+             ("otr-hand", ("hand", "otr_spec"))]
+    # LastVoting's staged chain as round_tpu's tier-1 run discharges it
+    # (tests/test_lv_verify.py::test_lv_stage_subvcs: every proved entry
+    # but the slow ones)
+    tasks += [("lv-staged-chain", ("lv-sub", k))
+              for k, (_l, _h, _c, _cfg, is_proved, slow)
+              in enumerate(protocols.lv_stage_subvcs())
+              if is_proved and not slow]
+    for suite, builder, budget, slow in PROOF_STAGES:
+        got = getattr(protocols, builder)(device=dev)
+        stages = got[0] if isinstance(got, tuple) else got
+        picked = [("stage", name, hyp, concl, cfg, budget)
+                  for name, hyp, concl, cfg in stages if name not in slow]
+        require(picked, f"proof-suites: {suite} has no stage")
+        tasks += [(suite, t) for t in picked]
+    t0 = time.perf_counter()
+    workers = max(1, min(8, os.cpu_count() or 1) - 1)
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = list(pool.map(_proof_task, [t for _s, t in tasks]))
+    wall = time.perf_counter() - t0
+    copyreg.dispatch_table.pop(InterpretedFct, None)
+    verdicts, secs = {}, {}
+    for (suite, task), (ok, took) in zip(tasks, results):
+        require(ok, f"proof-suites: {suite} {task[1]!r} not proved")
+        verdicts[suite] = verdicts.get(suite, 0) + 1
+        secs[suite] = secs.get(suite, 0.0) + took
+    say_json("proof-suites", card=card, proved=verdicts, task_s=secs,
+             workers=workers, wall_s=wall)
+
+
+def _interpreted(name):
+    """An interpreted symbol by name (how proof tasks carry the formula
+    symbols, whose type schemes are closures)."""
+    from round_tpu_torch.verify.formula import SYMBOL_BY_NAME
+
+    return SYMBOL_BY_NAME[name]
+
+
+def _proof_task(task):
+    """One proof obligation in a pool process: a hand suite's full
+    Verifier.check, one LastVoting sub-VC, or one extracted stage; returns
+    (proved, seconds)."""
+    from round_tpu_torch.verify import protocols
+    from round_tpu_torch.verify.cl import entailment
+    from round_tpu_torch.verify.verifier import Verifier
+
+    t0 = time.perf_counter()
+    if task[0] == "hand":
+        ver = Verifier(getattr(protocols, task[1])())
+        ok = ver.check() and "✗" not in ver.report()
+    elif task[0] == "lv-sub":
+        _label, hyp, concl, cfg, _p, _s = protocols.lv_stage_subvcs()[task[1]]
+        ok = entailment(hyp, concl, cfg, timeout_s=400)
+    else:
+        _kind, _name, hyp, concl, cfg, budget = task
+        ok = entailment(hyp, concl, cfg, timeout_s=budget)
+    return bool(ok), time.perf_counter() - t0
 
 
 # the replicated key-value store (round_tpu_torch/kv, the lane driver's and
@@ -3754,6 +3980,7 @@ def main() -> None:
     from round_tpu_torch.utils.benchstat import decided_summary, p50_from_hist
     from round_tpu_torch.utils.tree import tree_map
 
+    clock = Clock()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3802,7 +4029,8 @@ def main() -> None:
         else None
     if only is not None:
         require(only in ("sharded", "peers", "fuzz", "runtime", "host",
-                         "serve", "verify", "kv"), f"unknown --only {only}")
+                         "serve", "verify", "kv", "proof"),
+                f"unknown --only {only}")
         if only == "sharded":
             part = sharded_phases(torch, gen)
         elif only == "fuzz":
@@ -3823,6 +4051,9 @@ def main() -> None:
         elif only == "kv":
             kv_phases(torch, dev, card)
             part = []
+        elif only == "proof":
+            proof_phases(torch, dev, card)
+            part = []
         else:
             k4_vs_plain(torch, gen)
             part = [ring_peers(torch, gen)]
@@ -3833,6 +4064,8 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return
+
+    clock("build")
 
     # -- 3. K2 against its plain version (tolerance 0: integer counts) -------
     k2_err = 0.0
@@ -3881,6 +4114,8 @@ def main() -> None:
         tolerance=0, max_abs_err=k2_err,
         second_pass_max_abs_err=k2_v32_err, equal=True)
 
+    clock("K2-vs-plain")
+
     # -- 4. K1 against its plain version (tolerance 0: integer state) --------
     algo = fused.OtrLoop(num_values=V, after_decision=2)
     k1_err = 0.0
@@ -3911,6 +4146,8 @@ def main() -> None:
         rows="standard_mix + blackout p8=256, plus n=1000 and n=1008, plus "
              "the public wrapper vs CPU", outputs=6,
         tolerance=0, max_abs_err=k1_err, equal=True)
+
+    clock("K1-vs-plain")
 
     # -- 4b. the new K1 instances and K3 against their plain versions -------
     def loop_inputs(n, S, x_values, heal_round=5):
@@ -4009,6 +4246,8 @@ def main() -> None:
         cases="standard_mix + p8 grid, plus lv_loop vs CPU", outputs=9,
         tolerance=0, max_abs_err=errs["lv_loop"], equal=True)
 
+    clock("K1-K3-vs-plain")
+
     # -- 4c. the probes and the hw link stream against their plain versions -
     x = torch.randn(PROBE_SHAPE, generator=gen, device=dev)
     got, want = fused.probe_double(x).cpu(), fused.probe_double(x.cpu())
@@ -4103,6 +4342,8 @@ def main() -> None:
         max_abs_err=json.dumps(hw_err).replace(" ", ""),
         run_hist_equals_loop=True)
 
+    clock("probes-hw-vs-plain")
+
     # -- 5. the main paths, through the bench's entry point ------------------
     common = ["--n", str(N), "--phases", str(ROUNDS), "--values", str(V),
               "--p-drop", str(P_DROP), "--seed", str(SEED), "--parity", "0",
@@ -4168,6 +4409,8 @@ def main() -> None:
         frac_lanes_decided=per_round_hw["extra"]["frac_lanes_decided"],
         K2_hw_launches=k2_hw_launches)
 
+    clock("main-paths")
+
     # -- 6. parity against the general engine --------------------------------
     pgen = torch.Generator(device=dev).manual_seed(SEED)
     mix = fast.standard_mix(pgen, S_FLAG, N, p_drop=P_DROP, device=dev)
@@ -4193,6 +4436,8 @@ def main() -> None:
         families="0,1,2,3,0,1,2,3", parity_frac=parity)
     require(parity == 1.0, f"parity {parity} != 1.0")
 
+    clock("parity")
+
     # -- 6b. the config ladder at its reference shapes -----------------------
     rung_launches = {}
     for name, kernels in RUNG_KERNELS.items():
@@ -4215,6 +4460,8 @@ def main() -> None:
         for kernel in kernels:
             require(launches.get(kernel, 0) > 0,
                     f"ladder rung {name} launched no {kernel} kernel")
+
+    clock("ladder")
 
     # -- 6b'. the fifth rung, its dry-run segment, the bench's ladder arm ---
     fused.reset_launches()
@@ -4297,26 +4544,47 @@ def main() -> None:
 
     event_models(torch, dev)
 
+    clock("epsilon-dryrun-bench-ladder")
+
     # -- 6b'. the fault-schedule fuzzer (no kernel of its own) ---------------
     fuzz_phases(torch, dev)
+
+    clock("fuzz")
 
     # -- 6b'. the in-process runtime (no kernel of its own) ------------------
     runtime_phases(torch, dev)
 
+    clock("runtime")
+
     # -- 6b'. the wire and the host runner (no kernel of their own) ----------
     host_phases(torch, dev)
+
+    clock("host")
 
     # -- 6b'. the lane driver and the fleet (no kernel of their own) ---------
     serve_phases(torch, dev, card)
 
+    clock("serve")
+
     # -- 6b'. the verification plane (no kernel of its own) ------------------
     verify_phases(torch, dev, card)
+
+    clock("verify")
 
     # -- 6b'. the replicated key-value store (no kernel of its own) ----------
     kv_phases(torch, dev, card)
 
+    clock("kv")
+
+    # -- 6b'. the verifier (host Python and rtsat, no kernel) -----------------
+    proof_phases(torch, dev, card)
+
+    clock("proof")
+
     # -- 6b''. the last histogram slice's engines at their users' widths ----
     kset_launches = families_wide(torch, dev)
+
+    clock("families-wide")
 
     # -- 6c. the bisect tool, each stage in its own process ------------------
     t0 = time.perf_counter()
@@ -4344,6 +4612,8 @@ def main() -> None:
         require(bisect_launches.get(kernel, 0) > 0,
                 f"the bisect tool launched no {kernel} kernel")
 
+    clock("bisect")
+
     # -- 7. kernel times, bounds, plain and library times --------------------
     # K1 at the flagship shape (the flagship mix of seed SEED), in both
     # streams, timed before their plain versions run and again after them,
@@ -4363,11 +4633,14 @@ def main() -> None:
     k1_bytes = loop_bytes(S_FLAG, N, 6)
     k1_bound, k1_by, k1_pipe = bound_ms(k1_bytes, k1_links)
     k1_bound_walk = bound_ms(k1_bytes, k1_links, HASH_OPS_WALK)[0]
+    # the plain versions on the first S_PLAIN_HASH and S_PLAIN_HW
+    # scenarios (each scenario's run depends on its own row alone)
+    cut = slice(0, S_PLAIN_HASH)
     (k1_plain_ms, plain), plain_smi = sampled(lambda: plain_ms(
-        lambda: fused._hist_loop_plain(algo, *args, ROUNDS, "hash")), 500)
-    compare("K1 at the flagship shape", out, plain)
-    # K1-hw's plain version on the first S_PLAIN_HW scenarios (each
-    # scenario's run depends on its own row alone)
+        lambda: fused._hist_loop_plain(algo, *(a[cut] for a in args),
+                                       ROUNDS, "hash")), 500)
+    compare(f"K1 at the flagship shape (first {S_PLAIN_HASH} scenarios)",
+            [o[cut] for o in out], plain)
     k1hw_links = loop_links(mix, out_hw[5], ROUNDS, linger=1)
     k1hw_bound, k1hw_by, k1hw_pipe = bound_ms(k1_bytes, k1hw_links, HW_OPS)
     k1hw_bound_walk = bound_ms(k1_bytes, k1hw_links, HW_OPS_WALK)[0]
@@ -4392,7 +4665,7 @@ def main() -> None:
         cnt, hist = decided_summary(o[1] != 0, o[5], ROUNDS)
         say(line, ms=round(ms, 3), ms_after_plain=round(after, 3),
             plain_ms=round(p_ms, 1),
-            **({"plain_scenarios": S_PLAIN_HW} if o is out_hw else {}),
+            plain_scenarios=S_PLAIN_HW if o is out_hw else S_PLAIN_HASH,
             bound_ms=round(bnd, 3), bound_by=by, pipe=pipe,
             walk_bound_ms=round(walk, 3),
             bytes_ms=round(k1_bytes / HBM_BYTES_PER_S * 1e3, 4),
@@ -4635,6 +4908,8 @@ def main() -> None:
         of_floor=round(p2_ms / floor_ms, 3))
     host_breakdown(torch, x)
 
+    clock("kernel-times")
+
     # -- 8. K4 and the sharded paths ------------------------------------------
     ring_kernels = sharded_phases(torch, gen)
 
@@ -4643,7 +4918,8 @@ def main() -> None:
          "source": "round_tpu_torch/csrc/hist_loop.cu",
          "replaces": "round_tpu/ops/fused.py:557",
          "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+         "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "plain_scenarios": S_PLAIN_HASH, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "hist_exchange", "route": "cuda",
          "source": "round_tpu_torch/csrc/hist_exchange.cu",
@@ -4723,6 +4999,7 @@ def main() -> None:
     for row in kernels:
         if row["name"] in sass:
             row["sass_per_link"] = sass[row["name"]]["per_link"]
+    clock("sharded")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

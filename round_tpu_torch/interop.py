@@ -255,3 +255,116 @@ def smr_from_round_tpu(rsm, path: str) -> int:
     applied-upto watermark."""
     return rsm._adopt_checkpoint(
         path, *checkpoint_from_round_tpu(path, rsm._checkpoint_like()))
+
+
+def formula_from_round_tpu(f: Any) -> Any:
+    """Rebuild a round_tpu verifier object in the port's classes: a
+    ``Formula`` tree, a ``Type``, a ``Symbol``, a ``ClConfig``, or a ``VC``
+    tree (``SingleVC``/``CompositeVC``); a list or tuple of them maps
+    element-wise.  The walk goes by class name and fields (duck-typed, so
+    this package never imports round_tpu), keeps every node's type, and
+    maps each of the reference's type variables to one fresh type variable
+    of the port, so that the same formula can be handed to both solvers."""
+    from round_tpu_torch.verify import cl, formula, vc
+
+    return carry_formula(f, formula, vc, cl.ClConfig)
+
+
+def carry_formula(f: Any, F, V, config_cls) -> Any:
+    """The walk of ``formula_from_round_tpu`` into the classes of any
+    package laid out as ``verify/``: its ``formula`` module ``F``, its
+    ``vc`` module ``V`` and its ``ClConfig`` class (so a test can also
+    carry the port's objects back into round_tpu's)."""
+    import dataclasses
+
+    tvars: dict = {}
+
+    def typ(t):
+        if t is None:
+            return None
+        k = type(t).__name__
+        if k == "BoolT":
+            return F.Bool
+        if k == "IntT":
+            return F.Int
+        if k == "Wildcard":
+            return F.Wildcard()
+        if k == "TVar":
+            if t.index not in tvars:
+                tvars[t.index] = F.fresh_tvar()
+            return tvars[t.index]
+        if k == "UnInterpreted":
+            return F.UnInterpreted(t.name)
+        if k in ("FSet", "FOption"):
+            return getattr(F, k)(typ(t.elem))
+        if k == "FMap":
+            return F.FMap(typ(t.key), typ(t.value))
+        if k == "Product":
+            return F.Product([typ(a) for a in t.args])
+        if k == "FunT":
+            return F.FunT([typ(a) for a in t.args], typ(t.ret))
+        raise TypeError(f"cannot carry type {t!r} ({k}) over")
+
+    def sym(s):
+        k = type(s).__name__
+        if k == "InterpretedFct":
+            return F.SYMBOL_BY_NAME[s.name]
+        if k == "UnInterpretedFct":
+            return F.UnInterpretedFct(s.name, typ(s.tpe))
+        raise TypeError(f"cannot carry symbol {s!r} ({k}) over")
+
+    memo: dict = {}
+
+    def form(x):
+        key = id(x)
+        if key in memo:
+            return memo[key][1]
+        k = type(x).__name__
+        if k == "Literal":
+            out = F.Literal(x.value)
+        elif k == "Variable":
+            out = F.Variable(x.name, typ(x.tpe))
+        elif k == "Application":
+            out = F.Application(sym(x.fct), [form(a) for a in x.args])
+        elif k == "Binding":
+            out = F.Binding(x.binder, [form(v) for v in x.vars], form(x.body))
+        else:
+            raise TypeError(f"cannot carry formula node {x!r} ({k}) over")
+        if k != "Literal":
+            out.tpe = typ(x.tpe)
+        memo[key] = (x, out)  # keep x alive so its id is not reused
+        return out
+
+    def config(c):
+        if c is None:
+            return None
+        vals = {fd.name: getattr(c, fd.name)
+                for fd in dataclasses.fields(config_cls)}
+        if vals.get("tactic") is not None or vals.get("qi_logger") is not None:
+            raise TypeError("cannot carry a ClConfig with a tactic or a "
+                            "QI logger over")
+        return config_cls(**vals)
+
+    def walk(x):
+        k = type(x).__name__
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(y) for y in x)
+        if k in ("Literal", "Variable", "Application", "Binding"):
+            return form(x)
+        if k in ("BoolT", "IntT", "Wildcard", "TVar", "UnInterpreted",
+                 "FSet", "FOption", "FMap", "Product", "FunT"):
+            return typ(x)
+        if k in ("InterpretedFct", "UnInterpretedFct"):
+            return sym(x)
+        if k == "ClConfig":
+            return config(x)
+        if k == "SingleVC":
+            return V.SingleVC(x.name, form(x.hypothesis),
+                              form(x.transition), form(x.conclusion),
+                              config(x.config), x.timeout_s)
+        if k == "CompositeVC":
+            return V.CompositeVC(x.name, x.all_of,
+                                 [walk(c) for c in x.children])
+        raise TypeError(f"cannot carry {x!r} ({k}) over")
+
+    return walk(f)

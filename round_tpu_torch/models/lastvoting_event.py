@@ -81,7 +81,12 @@ class LVECollect(FoldRound):
         ids = torch.where(at_max, torch.arange(mask.shape[0],
                                                device=mask.device), -1)
         m_id = ids.max()
-        m_x = torch.where(m_id >= 0, lifted["x"][m_id.clamp(min=0)], state.x)
+        # the at-max sender's slot as round_tpu takes it (argmax over the
+        # masked ids, the index of m_id whenever m_id >= 0), gathered as a
+        # [1] index so that an unbatched trace reads nothing on the host;
+        # verify/extract.py reads this as round_tpu's argmax site
+        idx = torch.argmax(ids)
+        m_x = torch.where(m_id >= 0, lifted["x"][idx.reshape(1)][0], state.x)
         return {"ts": m_ts, "id": m_id.to(torch.int32), "x": m_x}
 
     def go_ahead(self, ctx: RoundCtx, state: LVState, m, count):

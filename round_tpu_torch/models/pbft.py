@@ -340,7 +340,9 @@ class VcViewChangeAck(Round):
         has_prep = confirmed & (state.vc_pv >= 0)
         key = torch.where(has_prep, state.vc_pv, -2)
         best = first_true(key == key.max())
-        sel = torch.where(has_prep.any(), state.vc_req[best], state.x)
+        # vc_req[best] as a [1] gather: a 0-d index would read it on the host
+        sel = torch.where(has_prep.any(), state.vc_req[best.reshape(1)][0],
+                          state.x)
 
         keep = state.vc_active & ~state.decided
         return state.replace(

@@ -17,9 +17,11 @@ the reference examples has a masked-reduction counterpart:
     values.max/min         (Epsilon)         masked_max()/masked_min()
     head (any element)     (TPC:72)          any_value()
 
-All ops are deterministic: ties break toward the smallest sender id.  The
-port never relies on the tie behaviour of ``torch.argmax``: "first index
-where a mask holds" is written as ``min(where(mask, arange, n))``.
+All ops are deterministic: ties break toward the smallest sender id.
+"First index where a mask holds" is ``torch.argmax`` of the 0/1 mask,
+which returns the first maximal index (as ``jnp.argmax`` does); that one
+body runs in the engine and is the boolean argmax site that
+verify/extract.py reads.
 Counts are exact integer sums (int32), not float matmuls.
 """
 
@@ -50,10 +52,7 @@ def _tree_pick(values: Any, idx):
 def first_true(mask: torch.Tensor) -> torch.Tensor:
     """Index of the first True along the last axis of a bool mask (0 where
     none, like jnp.argmax over an all-False mask)."""
-    n = mask.shape[-1]
-    ids = torch.arange(n, device=mask.device)
-    first = torch.where(mask, ids, n).min(dim=-1).values
-    return torch.where(first == n, 0, first)
+    return torch.argmax(mask.to(torch.int32), dim=-1)
 
 
 class Mailbox:
@@ -172,9 +171,12 @@ class Mailbox:
         if num_values is not None:
             counts = self.value_histogram(num_values, vals)
             return first_true(counts == counts.max()).to(vals.dtype)
+        # counts[c] = Σ_i mask[i] ∧ (v_c == v_i), summed over the sender
+        # axis 0 as round_tpu's mask @ eq contracts it, so the extracted
+        # formula (verify/extract.py) is round_tpu's term for term
         eq = vals[None, :] == vals[:, None]
-        counts = (eq & self.mask[None, :]).to(torch.int32).sum(
-            dim=1, dtype=torch.int32)
+        counts = (self.mask[:, None] & eq).to(torch.int32).sum(
+            dim=0, dtype=torch.int32)
         max_count = counts.max()
         # a slot ties the max only if its value is held by max_count present
         # senders; picking a non-present slot with that value is harmless.

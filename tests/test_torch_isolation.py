@@ -2,6 +2,7 @@
 no flax and nothing of round_tpu (only the tests import both packages)."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -29,6 +30,13 @@ VERIFY = ("rv/__init__", "rv/compile", "rv/dump", "rv/license",
 # the replicated key-value store and its CLI
 KV = ("kv/__init__", "kv/store", "kv/reads", "kv/txn", "kv/lin",
       "kv/client", "apps/kv")
+# the verifier: the solver core, the aux boundary, the extractor and the
+# protocol suites
+SOLVER = tuple(f"verify/{m}" for m in (
+    "__init__", "formula", "futils", "typer", "printer", "qilog", "lia",
+    "simplify", "congruence", "quantifiers", "matching", "tactics",
+    "solver", "venn", "cl", "tr", "vc", "verifier", "auxmethod",
+    "extract", "protocols"))
 
 
 def _port_files():
@@ -53,6 +61,7 @@ def _imported_roots(path: Path):
 
 def test_port_files_exist():
     names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert (REPO / "round_tpu_torch/native/sat.cpp").exists()
     for want in ("round_tpu_torch/engine/fast.py", "round_tpu_torch/ops/fused.py",
                  "round_tpu_torch/bench.py", "round_tpu_torch/apps/ladder.py",
                  "round_tpu_torch/spec/check.py",
@@ -93,6 +102,7 @@ def test_port_files_exist():
                  *(f"round_tpu_torch/apps/{m}.py" for m in HOST_APPS),
                  *(f"round_tpu_torch/{m}.py" for m in VERIFY),
                  *(f"round_tpu_torch/{m}.py" for m in KV),
+                 *(f"round_tpu_torch/{m}.py" for m in SOLVER),
                  "chip_smoke.py"):
         assert want in names
 
@@ -124,7 +134,7 @@ def test_importing_the_port_loads_no_jax():
         "round_tpu_torch.apps.dynamic_membership, "
         + "".join(f"round_tpu_torch.apps.{m}, " for m in HOST_APPS)
         + "".join("round_tpu_torch.{}, ".format(m.replace("/", "."))
-                  for m in VERIFY + KV) +
+                  for m in VERIFY + KV + SOLVER) +
         "sys; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'round_tpu')); assert not bad, bad"
@@ -144,3 +154,55 @@ def test_transport_builds_from_the_ports_own_source():
         REPO / "round_tpu_torch/native/transport.cpp"
     assert Path(transport._NATIVE_SO) == \
         REPO / "round_tpu_torch/_build/libroundnet.so"
+
+
+def test_solver_builds_and_runs_without_touching_round_tpu(tmp_path):
+    """The port's rtsat is compiled from round_tpu_torch/native/sat.cpp by
+    g++ (never by make in round_tpu/native/), and neither that build nor a
+    solve nor an extraction writes anything under round_tpu/ or loads
+    jax: an audit hook in a fresh process sees every file opened for
+    writing, every rename and every process started."""
+    code = f"""
+import os, sys
+events = []
+def hook(name, args):
+    if name == "open" and args[1] not in (None, "r", "rb") and \\
+            isinstance(args[0], (str, bytes, os.PathLike)):
+        events.append(("write", os.fspath(args[0])))
+    elif name in ("os.rename", "os.replace"):
+        events.append(("rename", os.fspath(args[1])))
+    elif name == "subprocess.Popen":
+        events.append(("run", " ".join(map(os.fsdecode, args[1]))))
+sys.addaudithook(hook)
+from round_tpu_torch.verify import solver
+solver._BUILD_DIR = {str(tmp_path)!r}
+solver._SAT_EXE = os.path.join(solver._BUILD_DIR, "rtsat")
+from round_tpu_torch.verify.formula import And, Gt, Lt, IntLit, Variable, Int
+x = Variable("x", Int)
+assert solver.solve_ground(And(Gt(x, IntLit(1)), Lt(x, IntLit(0)))) == "unsat"
+assert solver.solve_ground(Gt(x, IntLit(1))) == "sat"
+from round_tpu_torch.verify.protocols import otr_extracted_tr
+otr_extracted_tr(device="cpu")
+bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'round_tpu'))
+assert not bad, bad
+print(repr(events))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    events = eval(out.stdout.strip().splitlines()[-1])  # noqa: S307
+    runs = [e[1] for e in events if e[0] == "run"]
+    assert any(r.startswith("g++ ") and r.endswith(
+        str(REPO / "round_tpu_torch/native/sat.cpp")) for r in runs), runs
+    assert not any(r.split()[0] == "make" for r in runs), runs
+    theirs = str(REPO / "round_tpu") + os.sep
+    written = [e[1] for e in events if e[0] in ("write", "rename")]
+    assert written and not [w for w in written
+                            if os.path.abspath(w).startswith(theirs)], written
+
+
+def test_solver_builds_from_the_ports_own_source():
+    from round_tpu_torch.verify import solver
+
+    assert Path(solver._SAT_SRC) == REPO / "round_tpu_torch/native/sat.cpp"
+    assert Path(solver._SAT_EXE) == REPO / "round_tpu_torch/_build/rtsat"
