@@ -299,6 +299,27 @@ Phases, each printed as one line:
                    LastVoting-event (traced on the card), each verdict the
                    one round_tpu's tests assert; seconds per suite
 
+  threshold-card   analysis/threshold.py's automata of otr, otr-hist and
+                   lastvoting traced on the card and on the CPU: to_dict()
+                   equal; seconds of each
+  param-suites     apps/verifier_cli --suites param-otr,param-lv --jobs
+                   <cores - 1> --json --cache <dir>, cold and then warm: 19
+                   and 32 VCs, every one PROVED, the warm run all cache
+                   hits; seconds of each run
+  license          rv/license.py's default prover (verifier_cli on the
+                   card), solving cold and then cache-only: otr at n=4, lv
+                   at 5 and lvb at 9 licensed, otr at 3 outside its
+                   envelope, benor unlicensed; then apps/fleet.py
+                   run_autoscale_bench on the card with the default
+                   registry, at round_tpu's defaults but for two cuts the
+                   time limit forces (the 3x point of four, 2.5 s): a
+                   licensed grow, no point meeting the SLO by shedding
+  lint             apps/lint --all --json traced on the card: no gating
+                   finding and the findings of the CPU's sweep (a process
+                   of its own, run beside the phases above); --runtime: no gating
+                   finding; the model, threshold and runtime fixtures fire
+                   every family of analysis.FAMILIES
+
 With ``--only sharded`` the script builds the kernels and runs the K4 and
 sharded phases alone; with ``--only peers`` just K4-vs-plain and ring-peers
 (for a machine with several cards); with ``--only fuzz`` the five fuzz
@@ -306,7 +327,8 @@ phases; with ``--only runtime`` the three runtime phases; with ``--only
 host`` the four host phases; with ``--only serve`` the five lane and
 fleet phases; with ``--only verify`` the eight verification phases; with
 ``--only kv`` the four key-value phases; with ``--only proof`` the three
-verifier phases; the timed ones with the card's
+verifier phases; with ``--only analysis`` the four analysis phases; the
+timed ones with the card's
 name and power limit.  The fuzz and
 runtime phases print one JSON line each, with a "phase" key; an ``--only``
 run prints {"only": ...} before the card's line.
@@ -3551,6 +3573,220 @@ def _proof_task(task):
     return bool(ok), time.perf_counter() - t0
 
 
+# the analysis tier (round_tpu_torch/analysis, verify/param.py,
+# apps/verifier_cli.py, apps/lint.py and rv/license.py's default prover)
+ANALYSIS_MODELS = ("otr", "otr-hist", "lastvoting")
+PARAM_VCS = {"param-otr": 19, "param-lv": 32}
+# rv/license.py's verdicts as round_tpu's tests/test_rv.py asserts them
+LICENSE_VERDICTS = (("otr", 4, "licensed"), ("lv", 5, "licensed"),
+                    ("lvb", 9, "licensed"), ("otr", 3, "outside-envelope"),
+                    ("benor", 9, "unlicensed"))
+# the autoscale bench at round_tpu's defaults but one of its four load
+# points, half as long: at all four (0.3-3x the knee, 5 s each) it took
+# 114 s on an NVIDIA H100 80GB HBM3 at 700 W, which the full script's
+# time limit cannot hold; the 3x point is the one that grows the fleet
+AUTOSCALE_CUTS = {"multipliers": (3.0,), "point_s": 2.5}
+
+
+def _lint_json(argv):
+    """apps/lint.main in process: (exit code, its JSON document)."""
+    from round_tpu_torch.apps import lint as lint_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = lint_cli.main(argv + ["--json"])
+    return rc, json.loads(buf.getvalue())
+
+
+def _verifier_cli(argv):
+    """apps/verifier_cli.main in process (its pool workers are processes
+    of their own), its printout kept: (all proved, printout)."""
+    from round_tpu_torch.apps import verifier_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ok = verifier_cli.main(argv)
+    return ok, buf.getvalue()
+
+
+def _finding_keys(doc):
+    return sorted((f["rule"], f["severity"], f["model"], f["file"],
+                   f["line"]) for key in ("findings", "suppressed")
+                  for f in doc[key])
+
+
+def analysis_phases(torch, dev, card) -> None:
+    """The port's analysis tier on the card's machine: threshold automata
+    traced on the card against the CPU, the parameterized suites through
+    verifier_cli (cold, then from its cache), the default license prover
+    and the autoscale bench it gates, and the lint over the models (traced
+    on the card and on the CPU) and over the serving tier."""
+    # the lint's CPU sweep, which the card's is held against, runs in a
+    # process of its own beside the phases before it (one torch thread)
+    t_cpu_lint = time.perf_counter()
+    cpu_lint = subprocess.Popen(
+        [sys.executable, "-m", "round_tpu_torch.apps.lint", "--all",
+         "--json", "--device", "cpu"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    try:
+        _threshold_card(dev)
+        _param_and_license(dev, card)
+        _lint_phase(dev, card, cpu_lint, t_cpu_lint)
+    finally:
+        if cpu_lint.poll() is None:
+            cpu_lint.kill()
+        cpu_lint.communicate()
+
+
+def _threshold_card(dev) -> None:
+    from round_tpu_torch.analysis.threshold import extract_automaton
+
+    t0 = time.perf_counter()
+    on_card = {m: extract_automaton(m, device=dev).to_dict()
+               for m in ANALYSIS_MODELS}
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = {m: extract_automaton(m, device="cpu").to_dict()
+              for m in ANALYSIS_MODELS}
+    cpu_s = time.perf_counter() - t0
+    for m in ANALYSIS_MODELS:
+        require(on_card[m] == on_cpu[m],
+                f"threshold-card: {m}'s automaton differs on the card")
+    say_json("threshold-card", models=list(ANALYSIS_MODELS), equal=True,
+             rules={m: len(on_card[m]["rules"]) for m in ANALYSIS_MODELS},
+             card_s=card_s, cpu_s=cpu_s)
+
+
+def _param_and_license(dev, card) -> None:
+    import tempfile
+
+    from round_tpu_torch.apps import fleet as fleet_app
+    from round_tpu_torch.rv.license import ProofLicenseRegistry
+
+    scratch = ROOT / "round_tpu_torch" / "_build"
+    scratch.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="analysis-",
+                                     dir=scratch) as tmp:
+        # -- param-suites ------------------------------------------------------
+        jobs = max(1, (os.cpu_count() or 2) - 1)
+        runs = {}
+        for run in ("cold", "warm"):
+            out = Path(tmp) / f"{run}.json"
+            t0 = time.perf_counter()
+            ok, printout = _verifier_cli(
+                ["--suites", ",".join(PARAM_VCS), "--jobs", str(jobs),
+                 "--json", str(out), "--cache", f"{tmp}/vc-cache",
+                 "--device", str(dev)])
+            wall = time.perf_counter() - t0
+            require(ok, f"param-suites {run}: verifier_cli says "
+                        f"{printout[-800:]}")
+            runs[run] = (json.loads(out.read_text()), wall)
+        (cold, cold_s), (warm, warm_s) = runs["cold"], runs["warm"]
+        got = {s["name"]: s for s in cold["suites"]}
+        for suite, count in PARAM_VCS.items():
+            stages = got[suite]["stages"]
+            require(len(stages) == count and all(st["ok"] for st in stages),
+                    f"param-suites: {suite} proved "
+                    f"{sum(st['ok'] for st in stages)} of {len(stages)} "
+                    f"VCs, want all {count}")
+        require(cold["all_ok"]
+                and cold["cache"]["misses"] == len(PARAM_VCS),
+                f"param-suites: the cold run {cold['cache']}")
+        require(warm["all_ok"] and warm["cache"]["hits"] == len(PARAM_VCS)
+                and all(s["cached"] for s in warm["suites"]),
+                f"param-suites: the warm run {warm['cache']}")
+        say_json("param-suites", card=card, jobs=jobs,
+                 vcs={s: len(got[s]["stages"]) for s in PARAM_VCS},
+                 proved=True, cold_s=cold_s, warm_s=warm_s,
+                 warm_hits=warm["cache"]["hits"],
+                 vc_hash={s: got[s]["vc_hash"][:16] for s in PARAM_VCS})
+
+        # -- license -----------------------------------------------------------
+        times, cached = {}, {}
+        for run, solve in (("cold", True), ("cached", False)):
+            reg = ProofLicenseRegistry(cache_dir=f"{tmp}/license-cache",
+                                       solve=solve, device=dev)
+            t0 = time.perf_counter()
+            for a, n, want in LICENSE_VERDICTS:
+                lic = reg.check(a, n)
+                require(lic.status == want,
+                        f"license ({run}): {a} at n={n} is {lic.status} "
+                        f"({lic.reason}), want {want}")
+                if lic.ok:
+                    cached.setdefault(run, []).append(lic.cached)
+            times[run] = time.perf_counter() - t0
+    require(cached["cached"] == [True] * 3,
+            f"license: the cache-only registry's hits {cached['cached']}")
+    t0 = time.perf_counter()
+    rep = fleet_app.run_autoscale_bench(
+        model_path=str(ROOT / "CAPACITY_r02.json"), device=dev,
+        **AUTOSCALE_CUTS)
+    bench_s = time.perf_counter() - t0
+    sup = rep["supervisor"]
+    grows = [d["license"]["status"] for d in sup["decisions"]
+             if d["action"] == "grow"]
+    require(rep["license_prewarm"]["status"] == "licensed",
+            f"license: the bench's pre-warm {rep['license_prewarm']}")
+    require(grows and set(grows) == {"licensed"},
+            f"license: autoscale grew {len(grows)} times, licenses {grows}")
+    require(not rep["slo_met_by_shedding"] and not any(
+        p["slo_met_by_shedding"] for p in rep["points"]),
+        "license: a point met the SLO by shedding")
+    say_json("license", card=card,
+             verdicts={f"{a}@{n}": w for a, n, w in LICENSE_VERDICTS},
+             cold_s=times["cold"], cached_s=times["cached"],
+             bench_s=bench_s, grows=sup["grows"], shrinks=sup["shrinks"],
+             refused=sup["refused"], shards=sup["shards"],
+             multipliers=rep["multipliers"], slo_held=rep["slo_held"],
+             achieved_dps=[p.get("achieved_dps") for p in rep["points"]],
+             cuts=["multipliers (0.3, 1.0, 2.0, 3.0) -> (3.0,)",
+                   "point_s 5.0 -> 2.5"])
+
+
+def _lint_phase(dev, card, cpu_lint, t_cpu_lint) -> None:
+    from round_tpu_torch import analysis
+    from round_tpu_torch.analysis.threshold_fixtures import (
+        THRESHOLD_FIXTURES_BY_NAME,
+    )
+
+    t0 = time.perf_counter()
+    rc_card, doc_card = _lint_json(["--all", "--device", str(dev)])
+    card_s = time.perf_counter() - t0
+    out, err = cpu_lint.communicate(timeout=600)
+    cpu_s = time.perf_counter() - t_cpu_lint
+    require(cpu_lint.returncode == 0,
+            f"lint --device cpu exited {cpu_lint.returncode}: {err[-800:]}")
+    doc_cpu = json.loads(out)
+    require(rc_card == 0 and doc_card["gating"] == 0,
+            f"lint: {doc_card['gating']} gating findings on the card: "
+            f"{doc_card['findings'][:3]}")
+    require(_finding_keys(doc_card) == _finding_keys(doc_cpu),
+            "lint: the card's findings differ from the CPU's")
+    t0 = time.perf_counter()
+    rc_rt, doc_rt = _lint_json(["--runtime", "--all"])
+    runtime_s = time.perf_counter() - t0
+    require(rc_rt == 0 and doc_rt["gating"] == 0,
+            f"lint --runtime: {doc_rt['findings'][:3]}")
+    # every family of the port's FAMILIES fires on the fixtures
+    rc_fx, doc_fx = _lint_json(["--fixtures", "--device", str(dev)])
+    rc_rfx, doc_rfx = _lint_json(["--runtime", "--fixtures"])
+    fired = set(doc_fx["counts_by_family"]) | set(
+        doc_rfx["counts_by_family"]) | {
+        f.family for f in analysis.lint_model(
+            THRESHOLD_FIXTURES_BY_NAME["tfix-data-bound"], dev)}
+    missing = set(analysis.FAMILIES) - fired
+    require(rc_fx == 1 and rc_rfx == 1 and not missing,
+            f"lint: families no fixture fires: {sorted(missing)}")
+    say_json("lint", card=card, models=len(analysis.REGISTRY),
+             total=doc_card["total"], gating=doc_card["gating"],
+             suppressed=len(doc_card["suppressed"]), same_as_cpu=True,
+             runtime_gating=doc_rt["gating"],
+             runtime_suppressed=len(doc_rt["suppressed"]),
+             families_fired=sorted(fired), card_s=card_s, cpu_s=cpu_s,
+             runtime_s=runtime_s)
+
+
 # the replicated key-value store (round_tpu_torch/kv, the lane driver's and
 # the fleet's kv paths, apps/kv.py): the array rider's log, round_tpu's
 # test fixtures, and the bench at round_tpu's CLI defaults
@@ -4029,7 +4265,7 @@ def main() -> None:
         else None
     if only is not None:
         require(only in ("sharded", "peers", "fuzz", "runtime", "host",
-                         "serve", "verify", "kv", "proof"),
+                         "serve", "verify", "kv", "proof", "analysis"),
                 f"unknown --only {only}")
         if only == "sharded":
             part = sharded_phases(torch, gen)
@@ -4053,6 +4289,9 @@ def main() -> None:
             part = []
         elif only == "proof":
             proof_phases(torch, dev, card)
+            part = []
+        elif only == "analysis":
+            analysis_phases(torch, dev, card)
             part = []
         else:
             k4_vs_plain(torch, gen)
@@ -4580,6 +4819,11 @@ def main() -> None:
     proof_phases(torch, dev, card)
 
     clock("proof")
+
+    # -- 6b'''. the analysis tier (host Python and traces, no kernel) ---------
+    analysis_phases(torch, dev, card)
+
+    clock("analysis")
 
     # -- 6b''. the last histogram slice's engines at their users' widths ----
     kset_launches = families_wide(torch, dev)

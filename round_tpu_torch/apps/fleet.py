@@ -28,9 +28,9 @@ says it is serving (a ``{"ready": ...}`` line); round_tpu routes at once.
 and snapshot audits (a halt exits 3 with the shard's summary);
 ``serve --kv`` serves the shard as a replicated key-value store (kv/,
 apps/kv.py).  ``autoscale``'s default
-proof gate is ``rv/license.py``'s registry, whose default prover comes
-with slice 7: until then it denies every resize, and a caller passes a
-``license_registry`` of its own.
+proof gate is ``rv/license.py``'s registry with its default prover (the
+port's verifier_cli), which traces the suites' automata on the bench's
+device.
 """
 
 from __future__ import annotations
@@ -463,8 +463,8 @@ def run_autoscale_bench(*, algo: str = "lvb", n: int = 3,
                         device=None,
                         ) -> Dict[str, Any]:
     """(round_tpu/apps/fleet.py::run_autoscale_bench; the port's shards
-    run on ``device``; the default ``license_registry`` denies every
-    resize until ROADMAP slice 7 brings its prover.)  The autoscale trajectory bench: an IN-PROCESS
+    run on ``device``, and so do the traces of the default
+    ``license_registry``'s prover.)  The autoscale trajectory bench: an IN-PROCESS
     fleet under a
     FleetSupervisor, load swept as MULTIPLES of the fitted knee for the
     minimum fleet (0.3x -> 3x), every resize decision banked.
@@ -508,6 +508,10 @@ def run_autoscale_bench(*, algo: str = "lvb", n: int = 3,
         srv.stop()
         srv.join(30)
 
+    if license_registry is None:
+        from round_tpu_torch.rv.license import ProofLicenseRegistry
+
+        license_registry = ProofLicenseRegistry(device=device)
     router = FleetRouter()
     report: Dict[str, Any] = {
         "algo": algo, "n": n, "lanes": lanes,

@@ -18,9 +18,8 @@ raises, it never carries on on the CPU), where round_tpu pins its
 replicas to the CPU; the lane driver (``--lanes`` > 1) keeps its ``[L,
 ...]`` state there.  Runtime verification (``--rv``, ``--rv-dir``,
 ``--rv-gossip``; a halt exits 3), proof-licensed views
-(``--view-license``; the registry's default prover comes with ROADMAP
-slice 7, so until then every licensed resize is refused unless
-``--view-unlicensed-ok``), fuzz-artifact replays
+(``--view-license``; the registry's default prover traces on
+``--device``), fuzz-artifact replays
 (``--chaos-schedule``) and round-consistent snapshots (``--snap`` and
 its tuning flags; a halt exits 3) run as round_tpu's do.
 """
@@ -546,7 +545,7 @@ def main(argv=None) -> int:
 
                 license = ProofLicenseRegistry(
                     cache_dir=args.license_cache,
-                    solve=args.license_solve)
+                    solve=args.license_solve, device=device)
             manager = ViewManager(
                 args.id, View(args.view_epoch, group), tr,
                 license=license, license_model=args.algo,

@@ -261,7 +261,14 @@ def replay_host_threads(art: Dict[str, Any], *, timeout_ms: int = 250,
     """Replay on REAL sockets in-process: n HostRunner threads, each
     behind a FaultyTransport carrying the artifact's explicit schedule.
     Returns the outcome in artifact form (expected.host's schema: per-
-    replica decided / decision / rounds-to-exit)."""
+    replica decided / decision / rounds-to-exit).
+
+    Every replica's socket is bound before any replica starts.  round_tpu
+    binds inside each thread, and its replicas' first send waits for the
+    round functions' jit compile, so every peer is bound by then; the
+    port's first send goes out within milliseconds of a thread's start,
+    and a peer still binding would lose that round-0 frame — a delivery
+    the schedule does not drop, which changes the replayed outcome."""
     from round_tpu_torch.runtime.chaos import FaultPlan, FaultyTransport, alloc_ports
     from round_tpu_torch.runtime.host import HostRunner
     from round_tpu_torch.runtime.transport import HostTransport
@@ -275,8 +282,10 @@ def replay_host_threads(art: Dict[str, Any], *, timeout_ms: int = 250,
     results: Dict[int, Any] = {}
     errors: Dict[int, BaseException] = {}
 
+    wires = [HostTransport(i, peers[i][1], proto=proto) for i in range(n)]
+
     def node(i):
-        tr0 = HostTransport(i, peers[i][1], proto=proto)
+        tr0 = wires[i]
         tr = FaultyTransport(tr0, FaultPlan(), n, schedule=schedule,
                              value_plan=vplan,
                              protocol=art["protocol"],

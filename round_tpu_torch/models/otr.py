@@ -62,11 +62,9 @@ class OtrRound(Round):
         quorum = mbox.size() > (2 * n) // 3
         if self.n_values is not None:
             counts = mbox.value_histogram(self.n_values)
-            v_count = counts.max()
-            rows = torch.arange(self.n_values, dtype=state.x.dtype,
-                                device=counts.device)
             # first maximum = the smallest most-often-received value (mmor)
-            v = torch.where(counts == v_count, rows, self.n_values).min()
+            v = torch.argmax(counts).to(state.x.dtype)
+            v_count = counts.max()
         else:
             v = mbox.min_most_often_received()
             v_count = mbox.count(lambda vals: vals == v)

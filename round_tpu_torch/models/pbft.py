@@ -90,8 +90,11 @@ class BcpPrePrepare(Round):
     def update(self, ctx: RoundCtx, state: BcpState, mbox: Mailbox):
         coord = _coord(ctx)
         got = mbox.contains(coord)
-        req = mbox.values["req"][coord]
-        claimed = mbox.values["dig"][coord]
+        # the coordinator depends on the round alone, so it is not a
+        # batched index: Mailbox.get gathers it on the device (a plain
+        # v[coord] would read it to the host first)
+        picked = mbox.get(coord)
+        req, claimed = picked["req"], picked["dig"]
         recomputed = digest(req)
 
         is_coord = ctx.id == coord

@@ -48,8 +48,8 @@ not shedding.
 
 Port of round_tpu/runtime/control.py, unchanged: the supervisor is host
 Python over the router's counters, and its default proof gate is
-``rv/license.py``'s ``ProofLicenseRegistry`` (whose default prover comes
-with ROADMAP slice 7; a registry built with ``prover=`` works now).
+``rv/license.py``'s ``ProofLicenseRegistry`` with its default prover (the
+port's verifier_cli, tracing on the card).
 """
 
 from __future__ import annotations

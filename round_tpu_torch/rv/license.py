@@ -1,15 +1,14 @@
 """Proof-licensed reconfiguration: membership ops gated on all-n proofs.
 
 Port of round_tpu/rv/license.py.  The registry, its verdicts, the
-envelope arithmetic and the memo are round_tpu's; the default prover
-discharges suites through ``apps/verifier_cli``, which comes with ROADMAP
-slice 7, so until then it raises NotImplementedError naming slice 7 and
-a deployment injects ``prover=``.  The parameterized-suite table
-(round_tpu/verify/param.py::PARAM_SUITES) is kept here as
-``PARAM_SUITE_MODELS``.
+envelope arithmetic, the memo and the default prover (the port's
+``apps/verifier_cli``, its suite table verify/param.py::PARAM_SUITES) are
+round_tpu's; the registry takes ``device=``, where the default prover
+traces the suites' threshold automata (the card unless the caller names
+one).
 
 The verifier leaves the parameterized proofs (verify/param.py: threshold automata
-extracted from the live round jaxprs, all-n VCs discharged through the
+extracted from the live round traces, all-n VCs discharged through the
 solver stack, VC-hash result cache) sitting NEXT to the runtime.  This
 module closes them into the ViewManager loop: before a membership op is
 proposed (and when one decided elsewhere is adopted), the manager asks
@@ -39,6 +38,7 @@ docs/MEMBERSHIP.md "proof-licensed resizing".
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 import time as _time
 from typing import Callable, Dict, Optional
@@ -103,21 +103,25 @@ def parse_envelope(envelope: str) -> int:
     return int(m.group(1))
 
 
-# parameterized suite -> registry model (round_tpu/verify/param.py:455-458)
-PARAM_SUITE_MODELS: Dict[str, str] = {
-    "param-otr": "otr",
-    "param-lv": "lastvoting",
-}
+def _default_prover(suite: str, cache_dir: Optional[str], solve: bool,
+                    device=None):
+    """(proved, cached): discharge (or cache-look-up) one parameterized
+    suite through the verifier_cli registry, its automaton traced on
+    ``device`` (round_tpu/rv/license.py::_default_prover) — the same
+    VC-hash cache the CLI uses, so a nightly ``verifier_cli --all
+    --cache`` run makes every runtime license check a warm hit."""
+    from round_tpu_torch.apps import verifier_cli as vcli
 
-
-def _default_prover(suite: str, cache_dir: Optional[str], solve: bool):
-    """(proved, cached) through the verifier_cli registry
-    (round_tpu/rv/license.py::_default_prover).  The verifier comes with
-    ROADMAP slice 7."""
-    raise NotImplementedError(
-        "the default license prover discharges suites through "
-        "apps/verifier_cli, which comes with ROADMAP slice 7; pass "
-        "prover=")
+    if not solve:
+        # cache-only: never stall a live view move on a cold solver run
+        if not cache_dir:
+            return False, None
+        _digest, hit = vcli._cache_lookup(cache_dir, suite, device)
+        if hit is None:
+            return False, False
+        return bool(hit.get("ok")), True
+    rec = vcli.run_suite_cached(suite, cache_dir=cache_dir, device=device)
+    return bool(rec.get("ok")), bool(rec.get("cached"))
 
 
 class ProofLicenseRegistry:
@@ -135,14 +139,18 @@ class ProofLicenseRegistry:
 
     def __init__(self, cache_dir: Optional[str] = None,
                  solve: bool = True,
-                 prover: Optional[Callable] = None):
+                 prover: Optional[Callable] = None,
+                 device=None):
         self.cache_dir = cache_dir
         self.solve = solve
-        self.prover = prover or _default_prover
+        self.prover = prover or functools.partial(_default_prover,
+                                                  device=device)
         self._proved: Dict = {}
 
     def _suite_for(self, model: str) -> Optional[str]:
-        for suite, m in PARAM_SUITE_MODELS.items():
+        from round_tpu_torch.verify.param import PARAM_SUITES
+
+        for suite, (m, _cross) in PARAM_SUITES.items():
             if m == model:
                 return suite
         return None

@@ -91,6 +91,16 @@ def _field(state, name, where):
         raise SpecFieldError(name, _state_fields(state), where) from None
 
 
+def _at(v, idx):
+    """``v[idx]`` along the lane axis.  A 0-d index tensor is gathered as a
+    [1] index on the device: indexing with it directly reads it to the
+    host first (a sync per call on the card; ``e.proc`` of a round-derived
+    coordinator is such an index)."""
+    if isinstance(idx, torch.Tensor) and idx.dim() == 0:
+        return v[idx.reshape(1)][0]
+    return v[idx]
+
+
 class _Snapshot:
     """Field accessor over a state snapshot at a fixed lane index."""
 
@@ -104,7 +114,7 @@ class _Snapshot:
     def __getattr__(self, name):
         if name.startswith("__"):
             raise AttributeError(name)
-        return _field(self._state, name, self._where)[self._idx]
+        return _at(_field(self._state, name, self._where), self._idx)
 
 
 class ProcView:
@@ -126,7 +136,7 @@ class ProcView:
         ho = self._env.ho
         if ho is None:
             raise ValueError("this Env carries no HO matrix (pass ho= to Env)")
-        return SetView(ho[self._idx])
+        return SetView(_at(ho, self._idx))
 
     @property
     def old(self) -> _Snapshot:
@@ -143,7 +153,7 @@ class ProcView:
     def __getattr__(self, name):
         if name.startswith("__"):
             raise AttributeError(name)
-        return _field(self._env.state, name, "state")[self._idx]
+        return _at(_field(self._env.state, name, "state"), self._idx)
 
     def __eq__(self, other):
         if isinstance(other, ProcView):

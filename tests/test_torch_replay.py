@@ -113,12 +113,10 @@ def test_faulty_transport_from_schedule_file(path):
 def test_host_thread_replay_reproduces_the_recorded_outcome():
     """The all-undecided artifact replays on real sockets in four port
     replica threads to its recorded host outcome, decisions and rounds.
-    Not load-invariant, as round_tpu's replay of it is not: replicas 0
-    and 3 close each round at once and wait out the next one's deadline,
-    which replicas 1 and 2's timed-out sends beat by about the start skew
-    (10-20 ms); a stall past that drops a delivery, and a drop can move
-    OTR's values together, so under heavy CPU load the replicas may
-    decide."""
+    Every replica's socket is bound before any replica starts
+    (replay_host_threads): a round-0 frame sent to a peer still binding
+    was lost, a delivery the schedule keeps, and that moved OTR's values
+    together so that two replicas decided."""
     path = next(p for p in ARTIFACTS
                 if os.path.basename(p) == "otr_undecided_horizon.json")
     art = replay.load_artifact(path)
@@ -126,3 +124,30 @@ def test_host_thread_replay_reproduces_the_recorded_outcome():
     assert ok, (got, art["expected"]["host"])
     out = json.loads(json.dumps(got))
     assert out["rounds"] == [art["rounds"]] * art["n"]
+
+
+def test_host_thread_replay_holds_with_replicas_slow_to_bind(monkeypatch):
+    """Replicas whose sockets take 100-200 ms to bind still replay the
+    all-undecided artifact to its recorded outcome: every socket is bound
+    before any replica starts.  Were each bound in its replica's thread,
+    replica 0's round-0 frames would meet peers not yet listening and be
+    lost (deliveries the schedule keeps); replica 3 would then hear only
+    replicas 1 and 2, take their minimum value, and two replicas would
+    decide."""
+    import time
+
+    from round_tpu_torch.runtime import transport
+
+    bind_delay_s = {1: 0.2, 2: 0.2, 3: 0.1}
+
+    class SlowToBind(transport.HostTransport):
+        def __init__(self, node_id, *args, **kwargs):
+            time.sleep(bind_delay_s.get(node_id, 0.0))
+            super().__init__(node_id, *args, **kwargs)
+
+    monkeypatch.setattr(transport, "HostTransport", SlowToBind)
+    path = next(p for p in ARTIFACTS
+                if os.path.basename(p) == "otr_undecided_horizon.json")
+    art = replay.load_artifact(path)
+    ok, got = replay.check_host(art, timeout_ms=400, device="cpu")
+    assert ok, (got, art["expected"]["host"])

@@ -389,8 +389,8 @@ def test_license_registry_with_injected_prover_equals_round_tpus():
     """One scripted prover (proves param-otr, fails param-lv once then
     proves it, crashes on nothing else) through both registries: the
     same status, model, suite, envelope and f_max for every query; the
-    port's default prover names the verifier's slice, and the registry
-    turns that into a denial."""
+    default prover, cache-only with no cache, proves nothing in either
+    package, and either registry turns that into the same denial."""
     def scripted():
         calls = {"param-lv": 0}
 
@@ -413,7 +413,10 @@ def test_license_registry_with_injected_prover_equals_round_tpus():
     assert p_license.parse_envelope("n > 3f") == 3
     with pytest.raises(ValueError):
         p_license.parse_envelope("n >= f")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        p_license._default_prover("param-otr", None, True)
-    lic = p_license.ProofLicenseRegistry().check("otr", 4)
-    assert lic.status == "unlicensed" and not lic.ok
+    assert p_license._default_prover("param-otr", None, False) == \
+        r_license._default_prover("param-otr", None, False) == (False, None)
+    a = p_license.ProofLicenseRegistry(solve=False).check("otr", 4)
+    b = r_license.ProofLicenseRegistry(solve=False).check("otr", 4)
+    assert (a.status, a.suite, a.cached, a.reason) == \
+        (b.status, b.suite, b.cached, b.reason)
+    assert a.status == "unlicensed" and not a.ok
