@@ -25,7 +25,7 @@ turns one of those bug classes into a rule:
   counter-accounting  every metrics/trace emission site resolves to a
                       declared name; paired counters that must balance
                       have both sides' tick sites present.
-  obs-vocab           the emitted counter/event vocabulary diffed
+  obs-vocab           the emitted counter/event/span vocabulary diffed
                       against round_tpu_torch/docs/OBSERVABILITY.md in
                       both directions.
 
@@ -861,6 +861,8 @@ class EmissionSweep:
         dataclasses.field(default_factory=dict)   # name -> [(file,line,kind)]
     events: Dict[str, List[Tuple[str, int]]] = \
         dataclasses.field(default_factory=dict)
+    spans: Dict[str, List[Tuple[str, int]]] = \
+        dataclasses.field(default_factory=dict)   # TRACE.span names
     prefixes: Dict[str, List[Tuple[str, int]]] = \
         dataclasses.field(default_factory=dict)   # "chaos." style families
     ticks: Dict[str, List[Tuple[str, int]]] = \
@@ -909,7 +911,8 @@ def _joinedstr_prefix(node: ast.JoinedStr) -> str:
 def sweep_emissions(py_files: Sequence[str],
                     dynamic: Sequence[DynamicNames]) -> EmissionSweep:
     """One AST pass over ``py_files``: every METRICS.counter/gauge/
-    histogram creation, every TRACE.emit event, every tick site, plus
+    histogram creation, every TRACE.emit event, every TRACE.span name
+    (each also a site of the ``span`` event), every tick site, plus
     counter-accounting/dynamic-name and /type-clash findings."""
     sw = EmissionSweep()
     for path in py_files:
@@ -1001,6 +1004,24 @@ def sweep_emissions(py_files: Sequence[str],
                                  "— the event vocabulary is no longer "
                                  "statically known"),
                         hint="emit a literal event name"))
+            # -- span sites: TRACE.span("name", ...) -----------------------
+            if f.attr == "span" and isinstance(root, ast.Name) \
+                    and root.id == "TRACE" and node.args:
+                arg = node.args[0]
+                sw.events.setdefault("span", []).append((rel, node.lineno))
+                if isinstance(arg, ast.Constant) \
+                        and isinstance(arg.value, str):
+                    sw.spans.setdefault(arg.value, []).append(
+                        (rel, node.lineno))
+                else:
+                    sw.findings.append(Finding(
+                        rule="counter-accounting/dynamic-name",
+                        severity="warn", model=model, file=rel,
+                        line=node.lineno,
+                        message=("TRACE.span(...) name is computed — the "
+                                 "span vocabulary is no longer statically "
+                                 "known"),
+                        hint="open a span with a literal name"))
             # -- tick sites ----------------------------------------------
             if f.attr in _TICK_METHODS:
                 # chained: METRICS.counter("x").inc()
@@ -1128,12 +1149,35 @@ def parse_doc_vocab(doc_file: str) -> Tuple[Dict[str, int], Dict[str, int],
     return metrics, prefixes, events_table, events_any
 
 
+_DOC_SPAN_HEADER_RE = re.compile(r"^\s*\|\s*span\s*\|")
+
+
+def parse_doc_spans(doc_file: str) -> Dict[str, int]:
+    """Span names documented in the obs doc, each -> first line: the
+    backticked tokens in the first column of every table whose header's
+    first cell is ``span``."""
+    spans: Dict[str, int] = {}
+    in_table = False
+    for i, line in enumerate(_read(doc_file).splitlines(), 1):
+        if _DOC_SPAN_HEADER_RE.match(line):
+            in_table = True
+            continue
+        cell = _DOC_FIRST_CELL_RE.match(line)
+        if not (in_table and cell):
+            in_table = False
+            continue
+        for m in re.finditer(r"`([^`]+)`", cell.group(1)):
+            spans.setdefault(m.group(1), i)
+    return spans
+
+
 def obs_vocab(sw: EmissionSweep, doc_file: str) -> List[Finding]:
     out: List[Finding] = []
     doc_rel = relpath(doc_file)
     try:
         doc_metrics, doc_prefixes, doc_events, doc_any = \
             parse_doc_vocab(doc_file)
+        doc_spans = parse_doc_spans(doc_file)
     except OSError as e:
         return [Finding(
             rule="obs-vocab/undocumented", severity="error", model="docs",
@@ -1171,10 +1215,23 @@ def obs_vocab(sw: EmissionSweep, doc_file: str) -> List[Finding]:
                 message=(f"trace event {ev!r} is emitted but missing "
                          f"from the {doc_rel} event schema table"),
                 hint=f"add a row for `{ev}`"))
+    for name, sites in sorted(sw.spans.items()):
+        if name not in doc_spans:
+            f0 = sites[0]
+            out.append(Finding(
+                rule="obs-vocab/undocumented", severity="error",
+                model=_model_for(f0[0]), file=f0[0], line=f0[1],
+                message=(f"span {name!r} is opened but missing from the "
+                         f"{doc_rel} span table"),
+                hint=f"add a row for `{name}`"))
 
     emitted_names = set(sw.metrics)
     emitted_pre = set(sw.prefixes)
     for name, line in sorted(doc_metrics.items()):
+        # a span's dotted name reads as a metric's; the span table and
+        # the sweep's spans hold it to its own direction below
+        if name in sw.spans or name in doc_spans:
+            continue
         if name not in emitted_names and not any(
                 name.startswith(p) for p in emitted_pre):
             out.append(Finding(
@@ -1200,6 +1257,14 @@ def obs_vocab(sw: EmissionSweep, doc_file: str) -> List[Finding]:
                 message=(f"{doc_rel} event table documents {ev!r} but no "
                          f"TRACE.emit site produces it"),
                 hint="remove the row or restore the emitter"))
+    for name, line in sorted(doc_spans.items()):
+        if name not in sw.spans:
+            out.append(Finding(
+                rule="obs-vocab/unemitted", severity="error", model="docs",
+                file=doc_rel, line=line,
+                message=(f"{doc_rel} span table documents {name!r} but no "
+                         f"TRACE.span site opens it"),
+                hint="remove the row or restore the span"))
     return out
 
 

@@ -20,7 +20,12 @@ dense hash-mode mask (``mix_ho``): bit-plane products as float32 ``bmm`` of
 computes them outside any Pallas kernel.  ``mix_ho_stats`` and
 ``sampler_ho_stats`` aggregate those masks per round.  ``run_hist`` and
 ``run_otr_loop`` count ``engine.hist_runs`` and ``engine.loop_runs`` in
-``obs.metrics.METRICS``.
+``obs.metrics.METRICS``.  With ``obs.trace.TRACE`` enabled, each entry
+records a root span (``engine.run_hist``, ``engine.run_otr_loop``, ...),
+the K1 entries their host reads of ``state0`` (``engine.require_fresh``)
+and ``hist_scan`` and ``run_hist`` each round's steps (``round.params``,
+``round.exchange``, ``round.update``, ``round.freeze``); docs/
+OBSERVABILITY.md lists them.
 
 The fault model is a `FaultMix`: per-scenario structured parameters (crash
 sets, partition sides, a rotating suppressed process, an iid-omission
@@ -42,6 +47,7 @@ import torch
 
 from round_tpu_torch.models.common import ghost_decide
 from round_tpu_torch.obs.metrics import METRICS
+from round_tpu_torch.obs.trace import NOSPAN, TRACE
 from round_tpu_torch.ops import fused
 from round_tpu_torch.utils.device import resolve_device
 from round_tpu_torch.utils.tree import struct, tree_where
@@ -1184,16 +1190,21 @@ def hist_scan(
             block, ho = ho, ho_fn(r + 1)
             counts = counts_fn(state, k, done, r, block)
             del block
-        size = counts.sum(dim=1, dtype=torch.int32)
-        new_state, exit_ = rnd.update_counts(state, counts, size, r, n, k=k,
-                                             coin=coin, **extra)
-        # frozen lanes keep their state; exits only count for active lanes
-        active = ~done
-        state = tree_where(active, new_state, state)
-        done = done | (active & exit_)
-        dec = decided_fn(state)
-        decided_round = torch.where(dec & (decided_round < 0), r,
-                                    decided_round)
+        with TRACE.span("round.update", round=r) if TRACE.enabled \
+                else NOSPAN:
+            size = counts.sum(dim=1, dtype=torch.int32)
+            new_state, exit_ = rnd.update_counts(state, counts, size, r, n,
+                                                 k=k, coin=coin, **extra)
+        with TRACE.span("round.freeze", round=r) if TRACE.enabled \
+                else NOSPAN:
+            # frozen lanes keep their state; exits only count for active
+            # lanes
+            active = ~done
+            state = tree_where(active, new_state, state)
+            done = done | (active & exit_)
+            dec = decided_fn(state)
+            decided_round = torch.where(dec & (decided_round < 0), r,
+                                        decided_round)
     return state, done, decided_round
 
 
@@ -1227,20 +1238,25 @@ def run_hist(
     V = rnd.num_values
 
     def counts_fn(state, k, done, r):
-        colmask, side_r, p8, salt0, salt1r = round_params(mix, r)
-        return fused.hist_exchange(
-            rnd.payload(state, k), ~done, colmask,
-            None,  # rowmask: broadcast rounds select every receiver
-            side_r, salt0, salt1r, p8, V, mode=mode, dot=dot,
-        ).to(torch.int32)
+        with TRACE.span("round.params", round=r) if TRACE.enabled \
+                else NOSPAN:
+            colmask, side_r, p8, salt0, salt1r = round_params(mix, r)
+        with TRACE.span("round.exchange", round=r) if TRACE.enabled \
+                else NOSPAN:
+            return fused.hist_exchange(
+                rnd.payload(state, k), ~done, colmask,
+                None,  # rowmask: broadcast rounds select every receiver
+                side_r, salt0, salt1r, p8, V, mode=mode, dot=dot,
+            ).to(torch.int32)
 
-    coin_fn = (
-        hash_coin_fn(mix, torch.arange(n, dtype=torch.int32,
-                                       device=mix.crashed.device))
-        if rnd.needs_coin else None
-    )
-    return hist_scan(rnd, state0, decided_fn, max_rounds, n, counts_fn,
-                     coin_fn)
+    with TRACE.span("engine.run_hist") if TRACE.enabled else NOSPAN:
+        coin_fn = (
+            hash_coin_fn(mix, torch.arange(n, dtype=torch.int32,
+                                           device=mix.crashed.device))
+            if rnd.needs_coin else None
+        )
+        return hist_scan(rnd, state0, decided_fn, max_rounds, n, counts_fn,
+                         coin_fn)
 
 
 def run_otr_loop(
@@ -1263,19 +1279,20 @@ def run_otr_loop(
     from round_tpu_torch.models.otr import OtrState
 
     METRICS.counter("engine.loop_runs").inc()
-    _require_fresh(
-        not (bool(state0.decided.any())
-             or bool((state0.after != rnd.after_decision).any())),
-        "otr",
-    )
-    x, dec, decision, after, done, dround = fused.otr_loop(
-        state0.x, mix.crashed, mix.side, mix.crash_round, mix.heal_round,
-        mix.rotate_down, mix.p8, mix.salt0, mix.salt1,
-        num_values=rnd.num_values, rounds=max_rounds,
-        after_decision=rnd.after_decision, mode=mode, dot=dot,
-    )
-    state = OtrState(x=x, decided=dec, decision=decision, after=after)
-    return state, done, dround
+    with TRACE.span("engine.run_otr_loop") if TRACE.enabled else NOSPAN:
+        with TRACE.span("engine.require_fresh", reads=2) if TRACE.enabled \
+                else NOSPAN:
+            fresh = not (bool(state0.decided.any())
+                         or bool((state0.after != rnd.after_decision).any()))
+        _require_fresh(fresh, "otr")
+        x, dec, decision, after, done, dround = fused.otr_loop(
+            state0.x, mix.crashed, mix.side, mix.crash_round, mix.heal_round,
+            mix.rotate_down, mix.p8, mix.salt0, mix.salt1,
+            num_values=rnd.num_values, rounds=max_rounds,
+            after_decision=rnd.after_decision, mode=mode, dot=dot,
+        )
+        state = OtrState(x=x, decided=dec, decision=decision, after=after)
+        return state, done, dround
 
 
 def _mix_args(mix: FaultMix):
@@ -1309,13 +1326,19 @@ def run_floodmin_loop(
     (state, done, decided_round).  A resumed state0 is refused."""
     from round_tpu_torch.models.floodmin import FloodMinState
 
-    _require_fresh(not bool(state0.decided.any()), "floodmin")
-    (x, dec, decision), done, dround = fused.hist_loop(
-        fused.FloodMinLoop(num_values=rnd.num_values, f=rnd.f),
-        state0.x, *_mix_args(mix), rounds=max_rounds, mode=mode, dot=dot,
-    )
-    state = FloodMinState(x=x, decided=dec != 0, decision=decision)
-    return state, done, dround
+    with TRACE.span("engine.run_floodmin_loop") if TRACE.enabled \
+            else NOSPAN:
+        with TRACE.span("engine.require_fresh", reads=1) if TRACE.enabled \
+                else NOSPAN:
+            fresh = not bool(state0.decided.any())
+        _require_fresh(fresh, "floodmin")
+        (x, dec, decision), done, dround = fused.hist_loop(
+            fused.FloodMinLoop(num_values=rnd.num_values, f=rnd.f),
+            state0.x, *_mix_args(mix), rounds=max_rounds, mode=mode,
+            dot=dot,
+        )
+        state = FloodMinState(x=x, decided=dec != 0, decision=decision)
+        return state, done, dround
 
 
 def run_benor_loop(
@@ -1333,15 +1356,17 @@ def run_benor_loop(
     hash coin in both paths.  A resumed state0 is refused."""
     from round_tpu_torch.models.benor import BenOrState
 
-    _require_fresh(
-        not (bool(state0.decided.any()) or bool(state0.can_decide.any())
-             or bool((state0.vote != -1).any())),
-        "benor",
-    )
-    (x, can, vote, dec, decision), done, dround = fused.hist_loop(
-        fused.BenOrLoop(), state0.x.to(torch.int32), *_mix_args(mix),
-        rounds=max_rounds, mode=mode, dot=dot,
-    )
-    state = BenOrState(x=x != 0, can_decide=can != 0, vote=vote,
-                       decided=dec != 0, decision=decision != 0)
-    return state, done, dround
+    with TRACE.span("engine.run_benor_loop") if TRACE.enabled else NOSPAN:
+        with TRACE.span("engine.require_fresh", reads=3) if TRACE.enabled \
+                else NOSPAN:
+            fresh = not (bool(state0.decided.any())
+                         or bool(state0.can_decide.any())
+                         or bool((state0.vote != -1).any()))
+        _require_fresh(fresh, "benor")
+        (x, can, vote, dec, decision), done, dround = fused.hist_loop(
+            fused.BenOrLoop(), state0.x.to(torch.int32), *_mix_args(mix),
+            rounds=max_rounds, mode=mode, dot=dot,
+        )
+        state = BenOrState(x=x != 0, can_decide=can != 0, vote=vote,
+                           decided=dec != 0, decision=decision != 0)
+        return state, done, dround

@@ -20,15 +20,35 @@ Event record shape (one JSON object per line in the export):
 
 ``t`` is wall-clock (time.time) so traces from different OS processes
 merge into one timeline without a shared monotonic epoch (``merge``).
+
+Spans time a step of the program on the same ring:
+
+    with TRACE.span("round.update", round=r) if TRACE.enabled else NOSPAN:
+        ...
+
+records, when the step ends, one event
+
+    {"t": <start, unix seconds>, "ev": "span", "name": ..., "t0_ns": ...,
+     "t1_ns": ..., "id": <int>, "parent": <id or None>, ...fields}
+
+``t0_ns``/``t1_ns`` are ``time.time_ns()``, the realtime clock that
+torch.profiler's host events use, so spans and a device trace share one
+timeline.  ``parent`` is the innermost span open on the same thread when
+this one opened (None for a root), so every span of one engine call hangs
+off that call's span.  A disabled site enters ``NOSPAN``, one reusable
+null context: no span object, no fields dict, no clock read.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import itertools
 import json
 import os
+import threading
 import time
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, ContextManager, Dict, Iterable, List, Optional
 
 SCHEMA_VERSION = 1
 
@@ -41,7 +61,7 @@ class Tracer:
     router thread, replica worker threads and the main loop share one
     tracer without a lock on the hot path."""
 
-    __slots__ = ("enabled", "node", "capacity", "_buf")
+    __slots__ = ("enabled", "node", "capacity", "dropped", "_buf", "_local")
 
     def __init__(self, capacity: int = 65536, node: Optional[int] = None,
                  enabled: bool = False):
@@ -50,7 +70,13 @@ class Tracer:
         self.enabled = enabled
         self.node = node
         self.capacity = capacity
+        #: events the ring overwrote since the last clear(): a reader that
+        #: needs the whole trace refuses one where this is above 0 (exact
+        #: with one emitting thread, as on the engine path; emitters on
+        #: several threads can lose an increment to each other)
+        self.dropped = 0
         self._buf: collections.deque = collections.deque(maxlen=capacity)
+        self._local = threading.local()  # .stack: this thread's open spans
 
     # -- control -----------------------------------------------------------
 
@@ -65,6 +91,7 @@ class Tracer:
             if capacity < 1:
                 raise ValueError(f"capacity must be >= 1, got {capacity}")
             self.capacity = capacity
+            self.dropped += max(0, len(self._buf) - capacity)
             self._buf = collections.deque(self._buf, maxlen=capacity)
         self.enabled = True
         return self
@@ -74,6 +101,7 @@ class Tracer:
 
     def clear(self) -> None:
         self._buf.clear()
+        self.dropped = 0
 
     # -- recording ---------------------------------------------------------
 
@@ -87,7 +115,27 @@ class Tracer:
         if self.node is not None and "node" not in fields:
             rec["node"] = self.node
         rec.update(fields)
+        self._append(rec)
+
+    def span(self, name: str, **fields: Any) -> ContextManager:
+        """A context manager that records one ``span`` event when it exits
+        (see the module docstring).  Call sites guard with
+        ``if TRACE.enabled else NOSPAN``; an unguarded call on a disabled
+        tracer returns NOSPAN."""
+        if not self.enabled:
+            return NOSPAN
+        return _Span(self, name, fields)
+
+    def _append(self, rec: Dict[str, Any]) -> None:
+        if len(self._buf) == self.capacity:
+            self.dropped += 1
         self._buf.append(rec)
+
+    def _stack(self) -> List[int]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
 
     # -- reading / export --------------------------------------------------
 
@@ -112,6 +160,46 @@ class Tracer:
                 fh.write(json.dumps(rec, default=_jsonable) + "\n")
         os.replace(tmp, path)
         return len(evs)
+
+
+_SPAN_IDS = itertools.count(1)
+
+
+class _Span:
+    """One open span of a Tracer (Tracer.span)."""
+
+    __slots__ = ("tracer", "name", "fields", "id", "parent", "t0_ns")
+
+    def __init__(self, tracer: Tracer, name: str, fields: Dict[str, Any]):
+        self.tracer = tracer
+        self.name = name
+        self.fields = fields
+
+    def __enter__(self) -> "_Span":
+        stack = self.tracer._stack()
+        self.id = next(_SPAN_IDS)
+        self.parent = stack[-1] if stack else None
+        stack.append(self.id)
+        self.t0_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1_ns = time.time_ns()
+        self.tracer._stack().pop()
+        rec: Dict[str, Any] = {
+            "t": self.t0_ns / 1e9, "ev": "span", "name": self.name,
+            "t0_ns": self.t0_ns, "t1_ns": t1_ns, "id": self.id,
+            "parent": self.parent}
+        if self.tracer.node is not None and "node" not in self.fields:
+            rec["node"] = self.tracer.node
+        rec.update(self.fields)
+        self.tracer._append(rec)
+        return False
+
+
+#: the null context a disabled span site enters: reusable, and entering it
+#: allocates nothing
+NOSPAN = contextlib.nullcontext()
 
 
 def _jsonable(x):

@@ -50,7 +50,10 @@ Kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
 Each wrapper takes the kernel for CUDA tensors and its plain PyTorch
 version, in this module, for CPU tensors; there is no fallback from one to
 the other.  Each kernel launch adds one to ``LAUNCHES[name]``; K1 and K2
-count hw-mode launches under ``<name>_hw``.
+count hw-mode launches under ``<name>_hw``.  With ``obs.trace.TRACE``
+enabled, K1's and K2's launchers record a ``fused.inputs`` span (the
+inputs' checks and dtype copies) and a ``fused.launch`` span (the call
+into the kernel's library, field ``kernel``: the LAUNCHES name).
 
 Hashing runs in int64 holding uint32 values (``& 0xFFFFFFFF`` after every
 wrapping step): torch on the CPU has no ``>>`` or ``>=`` for uint32, and an
@@ -73,6 +76,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from round_tpu_torch.obs.trace import NOSPAN, TRACE
 from round_tpu_torch.ops import _native
 from round_tpu_torch.ops.mailbox import first_true
 
@@ -412,14 +416,19 @@ def _hist_exchange_cuda(vals, senders, rowmask, side, salt0, salt1r, p8,
         raise ValueError(
             f"hist_exchange: num_values={num_values} at n={n} needs {smem} "
             f"bytes of shared memory per block (max {_MAX_SMEM})")
-    args = _kernel_inputs(vals.device, S, n, (vals, senders, rowmask, side),
-                          (salt0, salt1r, p8))
+    with TRACE.span("fused.inputs") if TRACE.enabled else NOSPAN:
+        args = _kernel_inputs(vals.device, S, n,
+                              (vals, senders, rowmask, side),
+                              (salt0, salt1r, p8))
     out = vals.new_empty((S, num_values, n), dtype=torch.float32)
     index = vals.get_device()
-    err = launch(*[None if a is None else a.data_ptr() for a in args],
-                 out.data_ptr(), S, n, num_values, int(mode == "hw"), index,
-                 _native.raw_stream(index))
-    LAUNCHES[_launch_name("hist_exchange", mode)] += 1
+    name = _launch_name("hist_exchange", mode)
+    with TRACE.span("fused.launch", kernel=name) if TRACE.enabled \
+            else NOSPAN:
+        err = launch(*[None if a is None else a.data_ptr() for a in args],
+                     out.data_ptr(), S, n, num_values, int(mode == "hw"),
+                     index, _native.raw_stream(index))
+    LAUNCHES[name] += 1
     if err:
         _native.check(err, "hist_exchange launch")
     return out
@@ -753,18 +762,22 @@ def _hist_loop_cuda(algo: LoopAlgo, x0, crashed, side, crash_round,
             f"shared memory per block (max {_MAX_SMEM})")
     onehot = None if in_smem else x0.new_empty(
         (S * _smem(onehot_bytes, n, V),), dtype=torch.uint8)
-    x0, side, *scalars = _kernel_inputs(
-        x0.device, S, n, (x0, side),
-        (crash_round, heal_round, rotate_down, p8, salt0, salt1))
-    crashed = _crash_bytes(crashed, x0.device, S, n)
+    with TRACE.span("fused.inputs") if TRACE.enabled else NOSPAN:
+        x0, side, *scalars = _kernel_inputs(
+            x0.device, S, n, (x0, side),
+            (crash_round, heal_round, rotate_down, p8, salt0, salt1))
+        crashed = _crash_bytes(crashed, x0.device, S, n)
     out = x0.new_empty((algo.n_state + 2, S, n), dtype=torch.int32)
     index = x0.get_device()
-    err = launch(x0.data_ptr(), crashed.data_ptr(), side.data_ptr(),
-                 *[a.data_ptr() for a in scalars], out.data_ptr(),
-                 None if onehot is None else onehot.data_ptr(), S, n, V,
-                 rounds, algo.kernel_param, int(mode == "hw"), index,
-                 _native.raw_stream(index))
-    LAUNCHES[_launch_name(kernel, mode)] += 1
+    name = _launch_name(kernel, mode)
+    with TRACE.span("fused.launch", kernel=name) if TRACE.enabled \
+            else NOSPAN:
+        err = launch(x0.data_ptr(), crashed.data_ptr(), side.data_ptr(),
+                     *[a.data_ptr() for a in scalars], out.data_ptr(),
+                     None if onehot is None else onehot.data_ptr(), S, n, V,
+                     rounds, algo.kernel_param, int(mode == "hw"), index,
+                     _native.raw_stream(index))
+    LAUNCHES[name] += 1
     if err:
         _native.check(err, f"{kernel} launch")
     return out.unbind(0)
