@@ -653,16 +653,15 @@ def k2_second_pass(torch, mode: str) -> float:
             s1 = fast._salts(gen, S, 1, dev)
             p8 = torch.tensor(P8_GRID, dtype=torch.int32, device=dev).repeat(
                 S // len(P8_GRID) + 1)[:S]
-            senders = colmask & active & (p8 < 256)[:, None]
             for rm in (None, rowmask):
                 for sd in (None, side):
+                    kargs = (vals, active, colmask, rm, sd, s0, s1, p8, nv,
+                             mode)
                     err = max(err, compare(
                         f"K2 ({mode}) V={nv} vs its plain version (n={n}, "
                         f"rowmask={rm is not None}, side={sd is not None})",
-                        [fused._hist_exchange_cuda(vals, senders, rm, sd, s0,
-                                                   s1, p8, nv, mode)],
-                        [fused._hist_exchange_plain(vals, senders, rm, sd,
-                                                    s0, s1, p8, nv, mode)]))
+                        [fused._hist_exchange_cuda(*kargs)],
+                        [fused._hist_exchange_counts_plain(*kargs)]))
             if n == N:
                 cut = slice(0, 14)  # every p8 of the grid twice
                 wargs = (vals[cut], active[cut], colmask[cut], rowmask[cut],
@@ -1196,7 +1195,7 @@ def host_breakdown(torch, x, calls=BREAKDOWN_CALLS):
         t("smem (cached)")
         x0, side, *scalars = fused._kernel_inputs(
             largs[0].device, S, n, (largs[0], largs[2]), largs[3:])
-        crashed = fused._crash_bytes(largs[1], x0.device, S, n)
+        crashed = fused._mask_bytes(largs[1], x0.device, S, n)
         t("inputs")
         out = x0.new_empty((9, S, n), dtype=torch.int32)
         t("new_empty")
@@ -1367,7 +1366,7 @@ def sharded_phases(torch, gen):
               "run_hist / run_tpc_fast / run_erb_fast / run_lattice_fast "
               "(hash); family_parity", equal=True,
         launches=json.dumps(fam_launches).replace(" ", ""))
-    require(fam_launches.get("hist_exchange", 0) > 0,
+    require(fam_launches.get("hist_exchange_counts", 0) > 0,
             "run_tpc_fast and run_erb_fast launched no K2 kernel")
     for name in ("ring_exchange", "ring_exchange_i8"):
         require(fam_launches.get(name, 0) > 0,
@@ -1721,8 +1720,9 @@ def families_wide(torch, dev, shapes=FAMILY_SHAPES) -> dict:
     mix = fast.standard_mix(gen, S, n, p_drop=P_DROP, device=dev)
     # hw links have no replay: the hash run below carries kset's
     out, ms, peak, launches = held("kset", kset_run("hw"), st0, mix, rounds)
-    kset_launches["hist_exchange_hw"] = launches.get("hist_exchange_hw", 0)
-    require(launches == {"hist_exchange_hw": rounds},
+    kset_launches["hist_exchange_hw"] = launches.get(
+        "hist_exchange_counts_hw", 0)
+    require(launches == {"hist_exchange_counts_hw": rounds},
             f"kset (hw) launched {launches} in {rounds} rounds")
     report("kset", n, S, rounds, ms, peak, launches,
            replay="none:hw_links_have_no_replay(see_kset-crash)", mode="hw",
@@ -1738,8 +1738,8 @@ def families_wide(torch, dev, shapes=FAMILY_SHAPES) -> dict:
     out, ms, peak, launches = held(
         "kset", kset_run("hash"), st0, crash_mix, rounds,
         kset.KSetEarlyStopping(t=t, k=k), consensus_io(init))
-    kset_launches["hist_exchange"] = launches.get("hist_exchange", 0)
-    require(launches == {"hist_exchange": rounds},
+    kset_launches["hist_exchange"] = launches.get("hist_exchange_counts", 0)
+    require(launches == {"hist_exchange_counts": rounds},
             f"kset (hash) launched {launches} in {rounds} rounds")
     st = out[0]
     live = ~crash_mix.crashed
@@ -4320,20 +4320,18 @@ def main() -> None:
         s1 = fast._salts(gen, S, 1, dev)
         p8 = torch.tensor([0, 1, 13, 64, 128, 255, 256], dtype=torch.int32,
                           device=dev).repeat(S // 7 + 1)[:S]
-        senders = colmask & active & (p8 < 256)[:, None]
         for rm in (None, rowmask):
             for sd in (None, side):
+                kargs = (vals, active, colmask, rm, sd, s0, s1, p8, V, "hash")
                 k2_err = max(k2_err, compare(
                     f"K2 vs its plain version (n={n}, S={S}, rowmask="
                     f"{rm is not None}, side={sd is not None})",
-                    [fused._hist_exchange_cuda(vals, senders, rm, sd, s0, s1,
-                                               p8, V, "hash")],
-                    [fused._hist_exchange_plain(vals, senders, rm, sd, s0,
-                                                s1, p8, V, "hash")]))
+                    [fused._hist_exchange_cuda(*kargs)],
+                    [fused._hist_exchange_counts_plain(*kargs)]))
                 if n != N:
                     continue
-                # the public wrapper (sender silencing, the self-delivery
-                # diagonal) on the card against the same call on CPU copies
+                # the public float32 wrapper on the card against the same
+                # call on CPU copies
                 cut = slice(0, 14)  # every p8 twice
                 wargs = (vals[cut], active[cut], colmask[cut],
                          None if rm is None else rm[cut],
@@ -4524,17 +4522,15 @@ def main() -> None:
         s1 = fast._salts(gen, S, 1, dev)
         p8 = torch.tensor(P8_GRID, dtype=torch.int32,
                           device=dev).repeat(S // 7 + 1)[:S]
-        senders = colmask & active & (p8 < 256)[:, None]
         for rm in (None, rowmask):
             for sd in (None, side):
+                kargs = (vals, active, colmask, rm, sd, s0, s1, p8, V, "hw")
                 hw_err["hist_exchange_hw"] = max(
                     hw_err["hist_exchange_hw"], compare(
                         f"K2-hw vs its plain version (n={n}, rowmask="
                         f"{rm is not None}, side={sd is not None})",
-                        [fused._hist_exchange_cuda(vals, senders, rm, sd, s0,
-                                                   s1, p8, V, "hw")],
-                        [fused._hist_exchange_plain(vals, senders, rm, sd,
-                                                    s0, s1, p8, V, "hw")]))
+                        [fused._hist_exchange_cuda(*kargs)],
+                        [fused._hist_exchange_counts_plain(*kargs)]))
         for lalgo, rounds, xv in hw_algos:
             mix, x0 = loop_inputs(n, S, xv)
             args = (x0, *fast._mix_args(mix))
@@ -4633,7 +4629,7 @@ def main() -> None:
                   "--repeats", "1"]
     fused.reset_launches()
     per_round = bench.main(common + round_args + ["--rng", "hash"])
-    k2_launches = fused.LAUNCHES["hist_exchange"]
+    k2_launches = fused.LAUNCHES["hist_exchange_counts"]
     require(k2_launches > 0, "the per-round path launched no K2 kernel")
     say("per-round", engine="fused", rng="hash", n=N, S=S_FUSED,
         rounds=ROUNDS, rounds_per_sec=per_round["value"],
@@ -4641,7 +4637,7 @@ def main() -> None:
         K2_launches=k2_launches)
     fused.reset_launches()
     per_round_hw = bench.main(common + round_args)
-    k2_hw_launches = fused.LAUNCHES["hist_exchange_hw"]
+    k2_hw_launches = fused.LAUNCHES["hist_exchange_counts_hw"]
     require(k2_hw_launches > 0, "the hw per-round path launched no K2-hw")
     say("per-round-hw", engine="fused", rng="hw", n=N, S=S_FUSED,
         rounds=ROUNDS, rounds_per_sec=per_round_hw["value"],
@@ -4852,7 +4848,7 @@ def main() -> None:
         f"bisect failed (exit {cp.returncode}):\n{cp.stdout[-3000:]}\n"
         f"{cp.stderr[-3000:]}")
     for kernel in ("probe_double", "philox_bits", "otr_loop_hw",
-                   "hist_exchange_hw"):
+                   "hist_exchange_counts_hw"):
         require(bisect_launches.get(kernel, 0) > 0,
                 f"the bisect tool launched no {kernel} kernel")
 
@@ -4957,21 +4953,25 @@ def main() -> None:
                           device=dev)
     colmask, side_r, p8, salt0, salt1r = fast.round_params(fmix, 0)
     vals = finit.expand(S_FUSED, N).contiguous()
+    active = torch.ones_like(colmask)
     senders = colmask & (p8 < 256)[:, None]
-    k2_args = (vals, senders, None, side_r, salt0, salt1r, p8, V)
+    k2_args = (vals, active, colmask, None, side_r, salt0, salt1r, p8, V)
     onehot = ((vals[:, None, :] == rows[None, :, None])
               & senders[:, None, :]).to(torch.float32)
+    # every lane active: each receiver hears its own value
+    own = (vals[:, None, :] == rows[None, :, None]).to(torch.float32)
     hashed = ((p8 > 0) & (p8 < 256)).to(torch.float64)
     k2_links = float((hashed * senders.sum(1).to(torch.float64)
                       * (N - 1)).sum())
-    k2_bytes = 4 * S_FUSED * N * 3 + 4 * 3 * S_FUSED + 4 * S_FUSED * V * N
+    # vals and side int32, active and colmask a byte each; int32 counts
+    k2_bytes = 10 * S_FUSED * N + 4 * 3 * S_FUSED + 4 * S_FUSED * V * N
     k2_rows = {}
     for mode, ops, walk in (("hash", HASH_OPS, HASH_OPS_WALK),
                             ("hw", HW_OPS, HW_OPS_WALK)):
         k2m_ms, k2m_issue, k2m_host, got = card_times(
             torch, lambda: fused._hist_exchange_cuda(*k2_args, mode), 20)
         k2m_plain_ms, want = plain_ms(
-            lambda: fused._hist_exchange_plain(*k2_args, mode))
+            lambda: fused._hist_exchange_counts_plain(*k2_args, mode))
         compare(f"K2 ({mode}) at the per-round shape", [got], [want])
         bnd, by, pipe = bound_ms(k2_bytes, k2_links, ops)
         walk_ms = bound_ms(k2_bytes, k2_links, walk)[0]
@@ -4984,7 +4984,7 @@ def main() -> None:
             keep[sl] = k.to(torch.float32)
         lib_m_ms, lib_out = event_ms(
             lambda: torch.bmm(onehot, keep.transpose(1, 2)), reps=5)
-        require(torch.equal(lib_out, got),
+        require(torch.equal(lib_out + own, got.to(torch.float32)),
                 f"the bmm yardstick disagrees with K2 ({mode})")
         del keep, lib_out
         say("K2-time" if mode == "hash" else "K2-hw-time",

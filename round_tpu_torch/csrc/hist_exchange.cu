@@ -1,19 +1,26 @@
 // K2: the fused masked exchange + per-value histogram of one round.
 //
 // Replaces round_tpu/ops/fused.py::_kernel (reached through hist_exchange,
-// pl.pallas_call at fused.py:293).  For every scenario s, value v and
-// receiver j:
+// pl.pallas_call at fused.py:293) and the TPU wrapper's passes around it.
+// For every scenario s, value v and receiver j:
 //
-//   counts[s, v, j] = rowmask[j] * #{ i != j : senders[i] && vals[i] == v
-//                                      && side[i] == side[j]
-//                                      && keep(j * n + i) }
+//   counts[s, v, j] = rowmask[j] * (#{ i != j : sender[i] && vals[i] == v
+//                                         && side[i] == side[j]
+//                                         && keep(j * n + i) }
+//                                   + (active[j] && vals[j] == v))
+//
+//   sender[i] = colmask[i] && active[i] && p8 < 256
 //
 // with keep the link draw of hash.cuh: the hash-mode fmix32 draw, or with
 // hw != 0 the hw-mode Philox4x32-10 stream (round_tpu's hardware-PRNG
-// branch of _keep_mask, fused.py:333-346).  The wrapper
-// (round_tpu_torch/ops/fused.py::hist_exchange) silences senders of p8 >=
-// 256 scenarios and adds the self-delivery diagonal, as the TPU wrapper
-// does.
+// branch of _keep_mask, fused.py:333-346).  As in the TPU wrapper, senders
+// of p8 >= 256 scenarios are silenced (a total blackout) and every active
+// receiver the row mask selects hears itself (the self-delivery diagonal,
+// whatever p8).  The kernel forms the sender mask while it builds the
+// one-hot and adds the diagonal as it stores: active, colmask and rowmask
+// are read as bool bytes, and the counts are written as int32, so no pass
+// over [S, V, n] runs outside the launch
+// (round_tpu_torch/ops/fused.py::hist_exchange_counts).
 //
 // Bound on the card: the draws.  Every link of every 0 < p8 < 256 scenario
 // needs its draw (hash: a murmur3 finalizer, at least 9 integer operations
@@ -40,7 +47,8 @@
 // receiver's own link is taken out after the product.  The count of a
 // block is count_mma.cuh's rt_count, which K1 calls too.  A scenario that
 // keeps every link (p8 <= 0) needs no product: its counts are the totals
-// of the senders on the receiver's side (up to kMaxSides sides).  Counts
+// of the senders on the receiver's side (up to kMaxSides sides); one
+// blacked out (p8 >= 256) counts nothing.  Counts
 // stay in registers across the sender chunks; values past 16 take another
 // pass.  The mask never exists in memory.
 #include <cuda_runtime.h>
@@ -74,12 +82,13 @@ __host__ __device__ __forceinline__ size_t smem_of(int n) {
 template <bool kHw>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     hist_exchange_kernel(const int* __restrict__ vals,
-                         const int* __restrict__ senders,
-                         const int* __restrict__ rowmask,
+                         const uint8_t* __restrict__ active,
+                         const uint8_t* __restrict__ colmask,
+                         const uint8_t* __restrict__ rowmask,
                          const int* __restrict__ side,
                          const int* __restrict__ salt0,
                          const int* __restrict__ salt1r,
-                         const int* __restrict__ p8s, float* __restrict__ out,
+                         const int* __restrict__ p8s, int* __restrict__ out,
                          int n, int V) {
   extern __shared__ __align__(16) int smem[];
   const int kc = chunk_of(n);
@@ -108,11 +117,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // at most kMaxSides sides: the rounds that keep every link count by side
   const bool slotted = split && rt_side_slots(side + base, side_slot, nullptr,
                                               n, tid, kThreads);
-  const RtKeepStream ls((uint32_t)salt0[s], (uint32_t)salt1r[s], p8s[s],
-                        kHw);
+  const int p8 = p8s[s];
+  const RtKeepStream ls((uint32_t)salt0[s], (uint32_t)salt1r[s], p8, kHw);
+  // a total blackout silences every sender: no count, self-delivery only
+  const bool silent = p8 >= 256;
   // every link kept: the counts are the totals of the senders on the
   // receiver's side
-  const bool totals = !ls.draw && (!split || slotted);
+  const bool totals = !silent && !ls.draw && (!split || slotted);
 
   int jr[2][2], jc[2][2], sj[2][2], own[2][2], val[2][2];
 #pragma unroll
@@ -125,9 +136,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const int jj = jc[m][h];
       sj[m][h] = split ? side[base + jj] : 0;
       if (totals && split) sj[m][h] = side_slot[sj[m][h] & 0xFF];  // slot
-      val[m][h] = vals[base + jj];
+      // the receiver's value where it is active and hears itself (the
+      // self-delivery diagonal, whatever p8), else -1, which counts nowhere
+      const int act = active[base + jj];
+      val[m][h] = act ? vals[base + jj] : -1;
       // the receiver's own link, counted by the product and taken out
-      own[m][h] = senders[base + jj] != 0 &&
+      own[m][h] = !silent && (colmask[base + jj] & act) != 0 &&
                   ls.keep1<kHw>((uint32_t)jj * (uint32_t)n + (uint32_t)jj);
     }
   const bool live0 = j0 < n, two = j0 + 16 < n;  // the tiles have a row
@@ -141,8 +155,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       __syncthreads();
       for (int i = tid; i < n; i += kThreads) {
         const int v = vals[base + i] - v0;
-        if (senders[base + i] != 0 && (unsigned)v < (unsigned)(8 * kTiles) &&
-            v0 + v < V)
+        if ((colmask[base + i] & active[base + i]) != 0 &&
+            (unsigned)v < (unsigned)(8 * kTiles) && v0 + v < V)
           atomicAdd(&tot[split ? side_slot[side[base + i] & 0xFF] : 0][v],
                     1);
       }
@@ -154,7 +168,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         for (int h = 0; h < 2; ++h) trow[m][h] = tot[split ? sj[m][h] : 0];
       rt_fill_totals<kTiles>(c, trow, kTiles, t);
     }
-    for (int k0 = 0; !totals && k0 < n; k0 += kc) {
+    for (int k0 = 0; !totals && !silent && k0 < n; k0 += kc) {
       // the chunk's one-hot of values v0 .. v0+15, its sides and flags
       __syncthreads();  // the previous chunk's readers are done
       uint4* oz = reinterpret_cast<uint4*>(oh);
@@ -164,9 +178,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       for (int i = tid; i < kc; i += kThreads) {
         const int gi = k0 + i;
         if (split) sd[i] = gi < n ? side[base + gi] : 0;
-        if (gi < n && senders[base + gi] != 0) {
+        if (gi < n) {
+          // the three loads issue together: a sender is in the column mask
+          // and active
+          const int sends = colmask[base + gi] & active[base + gi];
           const int v = vals[base + gi] - v0;
-          if ((unsigned)v < (unsigned)(8 * kTiles) && v0 + v < V) {
+          if (sends && (unsigned)v < (unsigned)(8 * kTiles) && v0 + v < V) {
             oh[v * pitch + i] = 1;
             blk[i >> 6] = 1;
           }
@@ -190,16 +207,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       for (int h = 0; h < 2; ++h) {
         const int j = jr[m][h];
         if (j < 0) continue;
-        const float rm =
-            (rowmask == nullptr || rowmask[base + j] != 0) ? 1.f : 0.f;
+        const bool rm = rowmask == nullptr || rowmask[base + j] != 0;
 #pragma unroll
         for (int nt = 0; nt < kTiles; ++nt)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int v = v0 + nt * 8 + 2 * t + e;
+            // self-delivery (Round.scala:114-117): v == val[m][h]
             const int cnt =
-                rt_less_own(c[m][nt][2 * h + e], v, own[m][h], val[m][h]);
-            if (v < V) out[((size_t)s * V + v) * n + j] = rm * (float)cnt;
+                rt_less_own(c[m][nt][2 * h + e], v, own[m][h], val[m][h]) +
+                (v == val[m][h] ? 1 : 0);
+            if (v < V) out[((size_t)s * V + v) * n + j] = rm ? cnt : 0;
           }
       }
   }
@@ -215,14 +233,14 @@ size_t hist_exchange_smem_bytes(int n, int V) {
   return smem_of(n);
 }
 
-// Launch on `stream` of `device`; rowmask and side may be null; hw != 0
-// draws the links from the hw-mode Philox stream.  Returns
-// cudaGetLastError().
-int hist_exchange_launch(const int* vals, const int* senders,
-                         const int* rowmask, const int* side,
-                         const int* salt0, const int* salt1r, const int* p8,
-                         float* out, int S, int n, int V, int hw, int device,
-                         void* stream) {
+// Launch on `stream` of `device`: active, colmask and rowmask are [S, n]
+// bool bytes, rowmask and side may be null; hw != 0 draws the links from
+// the hw-mode Philox stream.  Returns cudaGetLastError().
+int hist_exchange_launch(const int* vals, const uint8_t* active,
+                         const uint8_t* colmask, const uint8_t* rowmask,
+                         const int* side, const int* salt0, const int* salt1r,
+                         const int* p8, int* out, int S, int n, int V, int hw,
+                         int device, void* stream) {
   if (S <= 0 || n <= 0) return (int)cudaSuccess;
   const RtDevice on(device);
   if (on.error() != cudaSuccess) return (int)on.error();
@@ -234,7 +252,7 @@ int hist_exchange_launch(const int* vals, const int* senders,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(S, (n + kRecv - 1) / kRecv);
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      vals, senders, rowmask, side, salt0, salt1r, p8, out, n, V);
+      vals, active, colmask, rowmask, side, salt0, salt1r, p8, out, n, V);
   return (int)cudaGetLastError();
 }
 

@@ -4,11 +4,14 @@ Port of round_tpu/engine/fast.py, whole.  For *histogram rounds* —
 broadcast a small-domain value, consume the mailbox only through per-value
 counts (OTR, FloodMin, Ben-Or, early-stopping k-set agreement, and with
 guarded sends Two-Phase Commit and eager reliable broadcast) — the whole
-round runs through ``ops.fused.hist_exchange`` (K2, one launch per round:
-``run_hist``, ``run_tpc_fast``, ``run_erb_fast``) or the whole run through
-one K1 launch (``ops.fused.hist_loop``: ``run_otr_loop``, the flagship
-path, ``run_floodmin_loop`` and ``run_benor_loop``).  The [S, n, n] mask
-never exists in device memory on those paths.
+round runs through ``ops.fused.hist_exchange_counts`` (K2, one launch per
+round: ``run_hist``, ``run_tpc_fast``, ``run_erb_fast``; the kernel forms
+the sender mask, adds the self-delivery diagonal and writes the int32
+counts the update reads, so no torch op touches them in between) or the
+whole run through one K1 launch (``ops.fused.hist_loop``:
+``run_otr_loop``, the flagship path, ``run_floodmin_loop`` and
+``run_benor_loop``).  The [S, n, n] mask never exists in device memory on
+those paths.
 
 The matrix-state and guarded-send engines — lattice agreement
 (``run_lattice_fast``), ◇S (``run_esfd_fast``), Θ (``run_theta_fast``),
@@ -188,6 +191,37 @@ def round_params(mix: FaultMix, r: int) -> Tuple[torch.Tensor, ...]:
     # int32 wrap == uint32 wrap
     salt1r = fused._i32(r * _RMIX + fused._u32(mix.salt1))
     return colmask, side_r, mix.p8, mix.salt0, salt1r
+
+
+def round_params_table(mix: FaultMix,
+                       rounds: int) -> Callable[[int], Tuple[torch.Tensor, ...]]:
+    """``round_params`` for rounds 0 .. rounds - 1, as a function of r: the
+    per-round [S] quantities (crash and heal flags, the rotating victim,
+    salt1r) are [rounds, S] tables built once, so a round issues four ops
+    over [S, n] where ``round_params`` issues about seventeen.  Bit-identical
+    to ``round_params(mix, r)``, which stays the cheaper call for one round
+    (the mesh engines, ``mix_ho``)."""
+    S, n = mix.crashed.shape
+    dev = mix.crashed.device
+    rs = torch.arange(rounds, dtype=torch.int64, device=dev)[:, None]
+    alive_always = ~mix.crashed
+    crash_off = rs < mix.crash_round[None, :]
+    # the suppressed lane of each round, -1 (no lane) where rotation is off
+    victim = torch.where(
+        (mix.rotate_down > 0)[None, :],
+        (rs // torch.clamp(mix.rotate_down, min=1)[None, :]) % n, -1)
+    lane = torch.arange(n, device=dev)
+    heal_off = rs < mix.heal_round[None, :]
+    # int32 wrap == uint32 wrap
+    salt1r = fused._i32(rs * _RMIX + fused._u32(mix.salt1)[None, :])
+
+    def params(r: int) -> Tuple[torch.Tensor, ...]:
+        colmask = ((alive_always | crash_off[r][:, None])
+                   & (lane[None, :] != victim[r][:, None]))
+        side_r = torch.where(heal_off[r][:, None], mix.side, 0)
+        return colmask, side_r, mix.p8, mix.salt0, salt1r[r]
+
+    return params
 
 
 class HistRound:
@@ -404,6 +438,7 @@ def run_tpc_fast(state0, mix: FaultMix, max_rounds: int = 3,
     coord_col = state0.coord[:, :1]                        # [S, 1] uniform
     is_coord_col = torch.arange(
         n, dtype=coord_col.dtype, device=coord_col.device)[None, :] == coord_col
+    params = round_params_table(mix, max_rounds)
 
     def counts_fn(state, k, done, r):
         if k in rnd.no_exchange_subrounds:
@@ -411,15 +446,15 @@ def run_tpc_fast(state0, mix: FaultMix, max_rounds: int = 3,
             # the exchange kernel entirely
             return torch.zeros((S, rnd.num_values, n), dtype=torch.int32,
                                device=done.device)
-        colmask, side_r, p8, salt0, salt1r = round_params(mix, r)
+        colmask, side_r, p8, salt0, salt1r = params(r)
         if k == 2:
             # guarded broadcast: only the coordinator's column sends
             colmask = colmask & is_coord_col
         payload = rnd.payload(state, k)
-        counts = fused.hist_exchange(
+        counts = fused.hist_exchange_counts(
             payload, ~done, colmask, None, side_r, salt0, salt1r, p8,
             rnd.num_values, mode=mode,
-        ).to(torch.int32)
+        )
         if k == 2:
             # without the subtraction a non-coordinator receiver with an
             # otherwise-empty mailbox would hear itself and miss the
@@ -493,14 +528,15 @@ def run_erb_fast(state0, mix: FaultMix, max_rounds: int, n_values: int,
     states would diverge from the general engine silently."""
     S, n = mix.crashed.shape
     rnd = ErbHist(n_values)
+    params = round_params_table(mix, max_rounds)
 
     def counts_fn(state, k, done, r):
-        colmask, side_r, p8, salt0, salt1r = round_params(mix, r)
+        colmask, side_r, p8, salt0, salt1r = params(r)
         payload = rnd.payload(state, k)
-        counts = fused.hist_exchange(
+        counts = fused.hist_exchange_counts(
             payload, ~done, colmask & state.x_def,  # guarded broadcast
             None, side_r, salt0, salt1r, p8, rnd.num_values, mode=mode,
-        ).to(torch.int32)
+        )
         return subtract_self_delivery(
             counts, payload, (~done) & ~state.x_def, rnd.num_values)
 
@@ -1236,18 +1272,19 @@ def run_hist(
     METRICS.counter("engine.hist_runs").inc()
     S, n = mix.crashed.shape
     V = rnd.num_values
+    params = round_params_table(mix, max_rounds)
 
     def counts_fn(state, k, done, r):
         with TRACE.span("round.params", round=r) if TRACE.enabled \
                 else NOSPAN:
-            colmask, side_r, p8, salt0, salt1r = round_params(mix, r)
+            colmask, side_r, p8, salt0, salt1r = params(r)
         with TRACE.span("round.exchange", round=r) if TRACE.enabled \
                 else NOSPAN:
-            return fused.hist_exchange(
+            return fused.hist_exchange_counts(
                 rnd.payload(state, k), ~done, colmask,
                 None,  # rowmask: broadcast rounds select every receiver
                 side_r, salt0, salt1r, p8, V, mode=mode, dot=dot,
-            ).to(torch.int32)
+            )
 
     with TRACE.span("engine.run_hist") if TRACE.enabled else NOSPAN:
         coin_fn = (

@@ -52,7 +52,7 @@ _LOOP = {
 # C signatures: library -> {function: (argtypes, restype)}
 _SIGNATURES = {
     "hist_exchange": {
-        "hist_exchange_launch": ([_P] * 8 + [_I] * 5 + [_P], _I),
+        "hist_exchange_launch": ([_P] * 9 + [_I] * 5 + [_P], _I),
         "hist_exchange_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "hist_loop": _LOOP,

@@ -36,7 +36,9 @@ either mode: run_hist and the whole-run loops agree bit for bit.
 
 Kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
 
-  * K2 ``hist_exchange`` (replaces round_tpu ``_kernel``): one round's counts.
+  * K2 ``hist_exchange_counts`` (replaces round_tpu ``_kernel`` and the
+    passes of its wrapper): one round's int32 counts; ``hist_exchange``
+    casts them to round_tpu's float32.
   * K1 ``hist_loop`` (replaces round_tpu ``_loop_kernel``): the whole run,
     state on chip across rounds, one instance per LoopAlgo — ``otr_loop``,
     ``floodmin_loop`` and ``benor_loop`` (csrc/hist_loop.cu).
@@ -97,6 +99,7 @@ _PLAIN_ELEMS = 1 << 24
 #: kernel launches per wrapper, counted where the kernel is launched
 LAUNCHES: Dict[str, int] = {
     "hist_exchange": 0, "hist_exchange_hw": 0,
+    "hist_exchange_counts": 0, "hist_exchange_counts_hw": 0,
     "otr_loop": 0, "otr_loop_hw": 0,
     "floodmin_loop": 0, "floodmin_loop_hw": 0,
     "benor_loop": 0, "benor_loop_hw": 0,
@@ -393,21 +396,43 @@ def _kernel_inputs(device, S: int, n: int, lanes, scalars):
     return out
 
 
-def _crash_bytes(crashed, device, S: int, n: int) -> torch.Tensor:
-    """K1's and K3's crash set: a dense [S, n] bool tensor, whose bytes the
-    kernels read (a bool tensor is passed as it is)."""
-    if crashed.shape != (S, n) or crashed.device != device:
+def _mask_bytes(mask, device, S: int, n: int) -> torch.Tensor:
+    """A kernel's [S, n] mask (K1's and K3's crash set, K2's active,
+    colmask and rowmask): a dense bool tensor, whose bytes the kernels read
+    (a bool tensor is passed as it is)."""
+    if mask.shape != (S, n) or mask.device != device:
         raise ValueError(
-            f"crashed of shape {tuple(crashed.shape)} on {crashed.device}; "
+            f"mask of shape {tuple(mask.shape)} on {mask.device}; "
             f"expected {(S, n)} on {device}")
-    if crashed.dtype != torch.bool:
-        crashed = crashed != 0
-    return crashed.contiguous()
+    if mask.dtype != torch.bool:
+        mask = mask != 0
+    return mask.contiguous()
 
 
-def _hist_exchange_cuda(vals, senders, rowmask, side, salt0, salt1r, p8,
-                        num_values: int, mode: str) -> torch.Tensor:
-    """Launch K2 (csrc/hist_exchange.cu) in `mode`, on the lean route."""
+def _hist_exchange_counts_plain(vals, active, colmask, rowmask, side, salt0,
+                                salt1r, p8, num_values: int,
+                                mode: str) -> torch.Tensor:
+    """Plain version of the K2 kernel: int32 counts with self-delivery;
+    senders of p8 >= 256 scenarios silenced."""
+    senders = (colmask != 0) & (active != 0) & (p8 < 256)[:, None]
+    counts = _hist_exchange_plain(vals, senders, rowmask, side, salt0,
+                                  salt1r, p8, num_values, mode)
+    # self-delivery (Round.scala:114-117): a process always hears itself
+    # while it is active and selected by the dest mask, whatever p8
+    self_on = active != 0
+    if rowmask is not None:
+        self_on = self_on & (rowmask != 0)
+    onehot_self = vals[:, None, :] == torch.arange(
+        num_values, dtype=vals.dtype, device=vals.device)[None, :, None]
+    return (counts.to(torch.int32)
+            + (onehot_self & self_on[:, None, :]).to(torch.int32))
+
+
+def _hist_exchange_cuda(vals, active, colmask, rowmask, side, salt0, salt1r,
+                        p8, num_values: int, mode: str,
+                        route: str = "hist_exchange_counts") -> torch.Tensor:
+    """Launch K2 (csrc/hist_exchange.cu) in `mode`, on the lean route: int32
+    counts with self-delivery, counted under LAUNCHES[`route`] (+ "_hw")."""
     launch, smem_bytes = _entries("hist_exchange", "hist_exchange_launch",
                                   "hist_exchange_smem_bytes")
     S, n = vals.shape
@@ -416,22 +441,76 @@ def _hist_exchange_cuda(vals, senders, rowmask, side, salt0, salt1r, p8,
         raise ValueError(
             f"hist_exchange: num_values={num_values} at n={n} needs {smem} "
             f"bytes of shared memory per block (max {_MAX_SMEM})")
+    dev = vals.device
     with TRACE.span("fused.inputs") if TRACE.enabled else NOSPAN:
-        args = _kernel_inputs(vals.device, S, n,
-                              (vals, senders, rowmask, side),
-                              (salt0, salt1r, p8))
-    out = vals.new_empty((S, num_values, n), dtype=torch.float32)
+        vals, side, *scalars = _kernel_inputs(dev, S, n, (vals, side),
+                                              (salt0, salt1r, p8))
+        active, colmask = (_mask_bytes(m, dev, S, n)
+                           for m in (active, colmask))
+        if rowmask is not None:
+            rowmask = _mask_bytes(rowmask, dev, S, n)
+    out = vals.new_empty((S, num_values, n), dtype=torch.int32)
     index = vals.get_device()
-    name = _launch_name("hist_exchange", mode)
+    name = _launch_name(route, mode)
     with TRACE.span("fused.launch", kernel=name) if TRACE.enabled \
             else NOSPAN:
-        err = launch(*[None if a is None else a.data_ptr() for a in args],
-                     out.data_ptr(), S, n, num_values, int(mode == "hw"),
-                     index, _native.raw_stream(index))
+        err = launch(vals.data_ptr(), active.data_ptr(), colmask.data_ptr(),
+                     None if rowmask is None else rowmask.data_ptr(),
+                     None if side is None else side.data_ptr(),
+                     *[a.data_ptr() for a in scalars], out.data_ptr(), S, n,
+                     num_values, int(mode == "hw"), index,
+                     _native.raw_stream(index))
     LAUNCHES[name] += 1
     if err:
         _native.check(err, "hist_exchange launch")
     return out
+
+
+def _exchange_counts(route: str, vals, active, colmask, rowmask, side, salt0,
+                     salt1r, p8, num_values: int, mode: str,
+                     dot: str) -> torch.Tensor:
+    """K2's int32 counts: one launch counted under `route` on the card, the
+    plain version on the CPU."""
+    _check_mode(mode)
+    _check_dot(dot)
+    vals = torch.as_tensor(vals).to(torch.int32)
+    if vals.is_cuda:
+        return _hist_exchange_cuda(vals, active, colmask, rowmask, side,
+                                   salt0, salt1r, p8, num_values, mode, route)
+    if vals.device.type == "cpu":
+        return _hist_exchange_counts_plain(vals, active, colmask, rowmask,
+                                           side, salt0, salt1r, p8,
+                                           num_values, mode)
+    raise ValueError(f"{route}: unsupported device {vals.device}")
+
+
+def hist_exchange_counts(
+    vals: torch.Tensor,      # [S, n] int
+    active: torch.Tensor,    # [S, n] bool/int
+    colmask: torch.Tensor,   # [S, n] bool/int
+    rowmask,                 # [S, n] bool/int, or None (= all on)
+    side,                    # [S, n] int, or None (= no partition)
+    salt0: torch.Tensor,     # [S] int32
+    salt1r: torch.Tensor,    # [S] int32 (round premixed)
+    p8: torch.Tensor,        # [S] int32
+    num_values: int,
+    mode: str = "hw",
+    dot: str = "i8",
+) -> torch.Tensor:
+    """One round's exchange and per-value histogram as the engines consume
+    it: counts [S, num_values, n] int32, counts[s, v, j] = number of
+    senders i with deliver[s, j, i] and vals[s, i] == v, the receiver's own
+    value included (``hist_exchange``'s counts, exact, in int32).
+
+    CUDA tensors take one K2 launch (csrc/hist_exchange.cu), which forms
+    the sender mask (colmask, active, p8 < 256: a p8 >= 256 scenario is a
+    total blackout) and adds the self-delivery diagonal (active receivers
+    the row mask selects) itself, and writes int32: no other op touches the
+    counts.  Launches count under ``LAUNCHES["hist_exchange_counts"]``
+    (``_hw`` in hw mode).  CPU tensors take its plain version."""
+    return _exchange_counts("hist_exchange_counts", vals, active, colmask,
+                            rowmask, side, salt0, salt1r, p8, num_values,
+                            mode, dot)
 
 
 def hist_exchange(
@@ -452,32 +531,16 @@ def hist_exchange(
     counts [S, num_values, n] float32 (exact integers): counts[s, v, j] =
     number of senders i with deliver[s, j, i] and vals[s, i] == v.
 
-    CUDA tensors launch the K2 kernel (csrc/hist_exchange.cu); CPU tensors
-    take its plain version.  As in round_tpu, senders of scenarios with
-    p8 >= 256 are silenced (a total blackout) and the self-delivery
-    diagonal is added here, outside the kernel, from ``active`` (and
-    ``rowmask``) alone.  ``dot`` is validated; the count is an exact int8
-    tensor-core product either way."""
-    _check_mode(mode)
-    _check_dot(dot)
-    vals = torch.as_tensor(vals).to(torch.int32)
-    senders = (colmask != 0) & (active != 0) & (p8 < 256)[:, None]
-    if vals.is_cuda:
-        counts = _hist_exchange_cuda(vals, senders, rowmask, side, salt0,
-                                     salt1r, p8, num_values, mode)
-    elif vals.device.type == "cpu":
-        counts = _hist_exchange_plain(vals, senders, rowmask, side, salt0,
-                                      salt1r, p8, num_values, mode)
-    else:
-        raise ValueError(f"hist_exchange: unsupported device {vals.device}")
-    # self-delivery (Round.scala:114-117): a process always hears itself
-    # while it is active and selected by the dest mask
-    self_on = active != 0
-    if rowmask is not None:
-        self_on = self_on & (rowmask != 0)
-    onehot_self = vals[:, None, :] == torch.arange(
-        num_values, dtype=torch.int32, device=vals.device)[None, :, None]
-    return counts + (onehot_self & self_on[:, None, :]).to(torch.float32)
+    ``hist_exchange_counts`` followed by one cast to float32: CUDA tensors
+    launch the K2 kernel (csrc/hist_exchange.cu), counted under
+    ``LAUNCHES["hist_exchange"]``; CPU tensors take its plain version.  As
+    in round_tpu, senders of scenarios with p8 >= 256 are silenced (a total
+    blackout) and the self-delivery diagonal comes from ``active`` (and
+    ``rowmask``) alone; both are made inside the kernel.  ``dot`` is
+    validated; the count is an exact int8 tensor-core product either way."""
+    return _exchange_counts("hist_exchange", vals, active, colmask, rowmask,
+                            side, salt0, salt1r, p8, num_values, mode,
+                            dot).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -766,7 +829,7 @@ def _hist_loop_cuda(algo: LoopAlgo, x0, crashed, side, crash_round,
         x0, side, *scalars = _kernel_inputs(
             x0.device, S, n, (x0, side),
             (crash_round, heal_round, rotate_down, p8, salt0, salt1))
-        crashed = _crash_bytes(crashed, x0.device, S, n)
+        crashed = _mask_bytes(crashed, x0.device, S, n)
     out = x0.new_empty((algo.n_state + 2, S, n), dtype=torch.int32)
     index = x0.get_device()
     name = _launch_name(kernel, mode)
@@ -966,7 +1029,7 @@ def _lv_loop_cuda(x0, crashed, side, crash_round, heal_round, rotate_down,
     x0, side, *scalars = _kernel_inputs(
         x0.device, S, n, (x0, side),
         (crash_round, heal_round, rotate_down, p8, salt0, salt1))
-    crashed = _crash_bytes(crashed, x0.device, S, n)
+    crashed = _mask_bytes(crashed, x0.device, S, n)
     out = x0.new_empty((9, S, n), dtype=torch.int32)
     index = x0.get_device()
     err = launch(x0.data_ptr(), crashed.data_ptr(), side.data_ptr(),

@@ -39,24 +39,24 @@ def test_hist_exchange_kernel_matches_plain(dev, n):
     g = torch.Generator(device=dev).manual_seed(n)
     vals = torch.randint(0, V, (S, n), generator=g, device=dev,
                          dtype=torch.int32)
-    senders = torch.rand((S, n), generator=g, device=dev) < 0.8
+    active = torch.rand((S, n), generator=g, device=dev) < 0.9
+    colmask = torch.rand((S, n), generator=g, device=dev) < 0.9
     rowmask = torch.rand((S, n), generator=g, device=dev) < 0.9
     side = torch.randint(0, 2, (S, n), generator=g, device=dev,
                          dtype=torch.int32)
     s0, s1 = fast._salts(g, S, 0, dev), fast._salts(g, S, 1, dev)
     p8 = torch.tensor([0, 1, 13, 64, 128, 255, 256] * 2, dtype=torch.int32,
                       device=dev)
-    senders = senders & (p8 < 256)[:, None]
     for rm in (None, rowmask):
         for sd in (None, side):
-            before = fused.LAUNCHES["hist_exchange"]
-            got = fused._hist_exchange_cuda(vals, senders, rm, sd, s0, s1,
-                                            p8, V, "hash")
+            before = fused.LAUNCHES["hist_exchange_counts"]
+            got = fused._hist_exchange_cuda(vals, active, colmask, rm, sd, s0,
+                                            s1, p8, V, "hash")
             torch.cuda.synchronize()
-            assert fused.LAUNCHES["hist_exchange"] == before + 1
-            want = fused._hist_exchange_plain(vals, senders, rm, sd, s0, s1,
-                                              p8, V, "hash")
-            assert torch.equal(got, want)
+            assert fused.LAUNCHES["hist_exchange_counts"] == before + 1
+            want = fused._hist_exchange_counts_plain(
+                vals, active, colmask, rm, sd, s0, s1, p8, V, "hash")
+            assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("n", [64, 1000])
@@ -131,21 +131,21 @@ def test_hw_hist_exchange_kernel_matches_plain(dev, n):
     g = torch.Generator(device=dev).manual_seed(n + 1)
     vals = torch.randint(0, V, (S, n), generator=g, device=dev,
                          dtype=torch.int32)
-    senders = torch.rand((S, n), generator=g, device=dev) < 0.8
+    active = torch.rand((S, n), generator=g, device=dev) < 0.9
+    colmask = torch.rand((S, n), generator=g, device=dev) < 0.9
     side = torch.randint(0, 2, (S, n), generator=g, device=dev,
                          dtype=torch.int32)
     s0, s1 = fast._salts(g, S, 0, dev), fast._salts(g, S, 1, dev)
     p8 = torch.tensor([0, 1, 13, 64, 128, 255, 256] * 2, dtype=torch.int32,
                       device=dev)
-    senders = senders & (p8 < 256)[:, None]
     for sd in (None, side):
-        before = fused.LAUNCHES["hist_exchange_hw"]
-        got = fused._hist_exchange_cuda(vals, senders, None, sd, s0, s1, p8,
-                                        V, "hw")
+        before = fused.LAUNCHES["hist_exchange_counts_hw"]
+        got = fused._hist_exchange_cuda(vals, active, colmask, None, sd, s0,
+                                        s1, p8, V, "hw")
         torch.cuda.synchronize()
-        assert fused.LAUNCHES["hist_exchange_hw"] == before + 1
-        want = fused._hist_exchange_plain(vals, senders, None, sd, s0, s1,
-                                          p8, V, "hw")
+        assert fused.LAUNCHES["hist_exchange_counts_hw"] == before + 1
+        want = fused._hist_exchange_counts_plain(vals, active, colmask, None,
+                                                 sd, s0, s1, p8, V, "hw")
         assert torch.equal(got, want)
 
 
@@ -369,21 +369,91 @@ def test_hist_exchange_kernel_n1008_and_sided(dev, n, mode):
     g = torch.Generator(device=dev).manual_seed(n + 2)
     vals = torch.randint(-1, V + 1, (S, n), generator=g, device=dev,
                          dtype=torch.int32)
-    senders = torch.rand((S, n), generator=g, device=dev) < 0.8
+    active = torch.rand((S, n), generator=g, device=dev) < 0.9
+    colmask = torch.rand((S, n), generator=g, device=dev) < 0.9
     rowmask = torch.rand((S, n), generator=g, device=dev) < 0.9
     side = torch.randint(0, 3, (S, n), generator=g, device=dev,
                          dtype=torch.int32)
     s0, s1 = fast._salts(g, S, 0, dev), fast._salts(g, S, 1, dev)
     p8 = torch.tensor([0, 1, 13, 64, 128, 255, 256] * 2, dtype=torch.int32,
                       device=dev)
-    senders = senders & (p8 < 256)[:, None]
     for rm, sd in ((None, None), (rowmask, side), (None, side)):
-        got = fused._hist_exchange_cuda(vals, senders, rm, sd, s0, s1, p8, V,
-                                        mode)
+        got = fused._hist_exchange_cuda(vals, active, colmask, rm, sd, s0, s1,
+                                        p8, V, mode)
         torch.cuda.synchronize()
-        want = fused._hist_exchange_plain(vals, senders, rm, sd, s0, s1, p8,
-                                          V, mode)
+        want = fused._hist_exchange_counts_plain(vals, active, colmask, rm,
+                                                 sd, s0, s1, p8, V, mode)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["hash", "hw"])
+@pytest.mark.parametrize("V", [2, 16, 17])
+@pytest.mark.parametrize("n", [1, 1008, 1024])
+def test_hist_exchange_counts_route_matches_plain(dev, n, V, mode):
+    """The engines' int32 route on the card (one K2 launch that forms the
+    senders and adds self-delivery) against its plain version: two sides,
+    a row mask, p8 0 / 64 / 255 / 256, inactive lanes (scenario 5 wholly);
+    V = 17 takes the kernel's second value pass.  The float32 route is the
+    same launch, counted under its own name, cast."""
+    S = 16
+    g = torch.Generator(device=dev).manual_seed(100 * n + V)
+    vals = torch.randint(-1, V + 1, (S, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    active = torch.rand((S, n), generator=g, device=dev) < 0.7
+    active[5] = False
+    colmask = torch.rand((S, n), generator=g, device=dev) < 0.9
+    rowmask = torch.rand((S, n), generator=g, device=dev) < 0.9
+    side = torch.randint(0, 2, (S, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    s0, s1 = fast._salts(g, S, 0, dev), fast._salts(g, S, 1, dev)
+    p8 = torch.tensor([0, 64, 255, 256] * 4, dtype=torch.int32, device=dev)
+    counts = fused._launch_name("hist_exchange_counts", mode)
+    floats = fused._launch_name("hist_exchange", mode)
+    for rm, sd in ((None, None), (rowmask, None), (None, side),
+                   (rowmask, side)):
+        args = (vals, active, colmask, rm, sd, s0, s1, p8, V)
+        before = dict(fused.LAUNCHES)
+        got = fused.hist_exchange_counts(*args, mode=mode)
+        f32 = fused.hist_exchange(*args, mode=mode)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES[counts] == before[counts] + 1
+        assert fused.LAUNCHES[floats] == before[floats] + 1
+        want = fused._hist_exchange_counts_plain(*args, mode)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert f32.dtype == torch.float32
+        assert torch.equal(f32, want.to(torch.float32))
+
+
+def test_run_hist_perround_mix_on_card_matches_cpu(dev):
+    """run_hist(OtrHist) on the per-round benchmark's mix (the four
+    families, n = 1024, V = 16, 50 rounds, hw links) at S = 64: the card's
+    state, done and decided rounds equal the CPU's, with one K2 launch a
+    round."""
+    from round_tpu_torch.models.otr import OtrState
+    from round_tpu_torch.utils.tree import tree_to
+
+    S, n, V, rounds = 64, 1024, 16, 50
+    g = torch.Generator().manual_seed(23)
+    mix = fast.standard_mix(g, S, n, device="cpu")
+    x0 = torch.randint(0, V, (S, n), generator=g, dtype=torch.int32)
+    st = OtrState(x=x0, decided=torch.zeros((S, n), dtype=torch.bool),
+                  decision=torch.full_like(x0, -1),
+                  after=torch.full_like(x0, 2))
+    rnd = fast.OtrHist(n_values=V, after_decision=2)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        before = fused.LAUNCHES["hist_exchange_counts_hw"]
+        out.append(tree_to(fast.run_hist(
+            rnd, tree_to(st, d), lambda s: s.decided, tree_to(mix, d),
+            rounds, mode="hw"), "cpu"))
+        if d == dev:
+            assert fused.LAUNCHES["hist_exchange_counts_hw"] == before + rounds
+    (got_st, got_done, got_dr), (want_st, want_done, want_dr) = out
+    for f in ("x", "decided", "decision", "after"):
+        assert torch.equal(getattr(got_st, f), getattr(want_st, f)), f
+    assert torch.equal(got_done, want_done)
+    assert torch.equal(got_dr, want_dr)
+    assert bool(got_st.decided.any())
 
 
 @pytest.mark.parametrize("algo,rounds", [

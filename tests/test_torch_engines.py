@@ -189,6 +189,24 @@ def test_standard_mix_structure():
         torch.Generator().manual_seed(0), S_, n, device="cpu").crashed)
 
 
+@pytest.mark.parametrize("kw", [
+    {}, {"crash_round": 2, "heal_round": 3, "rotate_period": 3},
+    {"p_drop": 1.0, "rotate_period": 5}])
+def test_round_params_table_matches_round_params(kw):
+    """The engines' per-run table of round inputs equals round_tpu's
+    round_params and the port's round by round, dtypes included."""
+    rounds = 13
+    mix = jfast.standard_mix(jax.random.PRNGKey(7), S, N, f=3, **kw)
+    tmix = _port_mix(mix)
+    params = tfast.round_params_table(tmix, rounds)
+    for r in range(rounds):
+        got = params(r)
+        for g, one, w in zip(got, tfast.round_params(tmix, r),
+                             jfast.round_params(mix, r)):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            assert g.dtype == one.dtype and torch.equal(g, one), r
+
+
 def test_round_params_matches_jax():
     mix, _ = _mix_and_init()
     tmix = _port_mix(mix)

@@ -1,9 +1,11 @@
 """Port parity: the exchange, the mailbox and K2's plain version.
 
-K2 (`hist_exchange`) on CPU tensors runs its plain PyTorch version; it is
-held bit for bit (tolerance 0: exact integer counts) against round_tpu's
+K2 (`hist_exchange`, float32, and the engines' int32 route
+`hist_exchange_counts`) on CPU tensors runs its plain PyTorch version; it
+is held bit for bit (tolerance 0: exact integer counts) against round_tpu's
 Pallas kernel in interpret mode and against its dense oracle, over the p8
-set of tests/test_fast.py, with and without `side` and `rowmask`."""
+set of tests/test_fast.py, with and without `side` and `rowmask`, with
+blacked-out scenarios and inactive lanes."""
 
 import importlib
 
@@ -72,6 +74,44 @@ def test_hist_exchange_plain_matches_jax(with_side, with_rowmask):
     np.testing.assert_array_equal(
         tfused.hist_exchange_reference(num_values=V, **tin).numpy(),
         want_oracle)
+
+
+def _counts_case(case):
+    """The inputs of one case of the int32 route: `_rand_inputs` with the
+    case's side, rowmask, p8 and active lanes."""
+    inp = _rand_inputs(jax.random.PRNGKey(4), S, N)
+    if case in ("plain", "rowmask", "inactive"):
+        inp["side"] = None
+    if case in ("plain", "side"):
+        inp["rowmask"] = None
+    if case == "blackout":
+        # every other scenario blacked out; its lanes still hear themselves
+        inp["p8"] = jnp.where(jnp.arange(S) % 2 == 0, 256, inp["p8"])
+    if case == "inactive":
+        # half the lanes inactive, scenario 3 wholly
+        act = jax.random.bernoulli(jax.random.PRNGKey(5), 0.5, (S, N))
+        inp["active"] = act.at[3].set(False)
+    return inp
+
+
+@pytest.mark.parametrize("case", ["plain", "side", "rowmask", "side_rowmask",
+                                  "blackout", "inactive"])
+def test_hist_exchange_counts_matches_jax(case):
+    """The engines' int32 route equals round_tpu's hist_exchange cast to
+    int32, and the float32 route cast the same way, in both streams."""
+    inp = _counts_case(case)
+    want = np.asarray(jfused.hist_exchange(
+        num_values=V, mode="hash", interpret=True, **inp)).astype(np.int32)
+    tin = {k: _t(v) for k, v in inp.items()}
+    got = tfused.hist_exchange_counts(num_values=V, mode="hash", **tin)
+    assert got.dtype == torch.int32 and got.shape == (S, V, N)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for mode in ("hash", "hw"):
+        f32 = tfused.hist_exchange(num_values=V, mode=mode, **tin)
+        assert f32.dtype == torch.float32
+        assert torch.equal(
+            tfused.hist_exchange_counts(num_values=V, mode=mode, **tin),
+            f32.to(torch.int32))
 
 
 def test_hist_exchange_knobs():

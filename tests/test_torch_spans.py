@@ -335,7 +335,7 @@ def test_k2_launch_spans_on_the_card(dev, traced):
     spans = _spans(traced)
     by_id = _by_id(spans)
     launches = [s for s in spans if s["name"] == "fused.launch"]
-    assert [s["kernel"] for s in launches] == ["hist_exchange"] * rounds
+    assert [s["kernel"] for s in launches] == ["hist_exchange_counts"] * rounds
     for s in launches + [s for s in spans if s["name"] == "fused.inputs"]:
         parent = by_id[s["parent"]]
         assert parent["name"] == "round.exchange"
